@@ -1,0 +1,20 @@
+"""rag_serving_system_torch — the RAG serving path in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of `rag_serving_system_tpu` (JAX/Pallas), which stays the reference:
+every module here keeps its counterpart's tensor layouts at its public
+functions, so the two can be held against each other on the same inputs.
+
+- device.py  the explicit device and dtype (TORCH_DEVICE, default cuda)
+- ops/       the kernels' wrappers, each beside its plain PyTorch version,
+             and the nvcc build (sources in csrc/)
+- models/    e5 (XLM-RoBERTa) encoder and Qwen2 decoder as functions on
+             dicts of tensors in the JAX (in, out) layout
+- core/      serving engine and batch processor
+- main.py    the HTTP server (python -m rag_serving_system_torch.main)
+
+The slice served is the cold request path with PREFIX_CACHE=0; settings the
+port does not implement make the engine raise (core/engine.py).
+"""
+
+__version__ = "0.1.0"

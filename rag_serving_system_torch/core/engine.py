@@ -1,0 +1,436 @@
+"""The RAG serving engine in PyTorch: embed → retrieve → generate.
+
+Counterpart of the cold-path subset of `rag_serving_system_tpu/core/engine.py`
+(`RagEngine`): the e5 encoder and exact cosine top-k (kernel B1) over a
+device-resident f32 corpus, then Qwen2.5 generation with padded (B2) or
+packed (B3) prefill and the fixed decode loop. Public method signatures are
+the JAX engine's, so one batch processor contract drives either.
+
+Settings this port does not implement yet make the constructor raise rather
+than serve another configuration (see `unsupported_settings`).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+from collections import OrderedDict
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from rag_serving_system_tpu.config import Settings
+from rag_serving_system_tpu.models.configs import decoder_config_for, encoder_config_for
+from rag_serving_system_tpu.models.tokenizer import HashTokenizer, pad_and_stack
+from rag_serving_system_tpu.utils.lru import LockedLRU
+from rag_serving_system_tpu.utils.timing import StageTimer
+from rag_serving_system_torch.device import resolve_device, torch_dtype
+from rag_serving_system_torch.models.e5 import encode
+from rag_serving_system_torch.models.qwen2 import generate, generate_packed
+from rag_serving_system_torch.models.weights import (
+    init_decoder_params,
+    init_encoder_params,
+)
+from rag_serving_system_torch.ops.topk import cosine_topk
+
+logger = logging.getLogger(__name__)
+
+# copies of rag_serving_system_tpu/core/engine.py:76-124 (that module imports
+# jax); a test holds them equal
+PROMPT_TEMPLATE = "Context:\n{context}\n\nQuestion: {question}\n\nThe Answer to this question is: "
+DOC_JOIN = "\n---\n"
+QUERY_PREFIX = "query: "
+# packed prefill must undercut the padded token count by this factor
+PACKED_MARGIN = float(os.environ.get("PACKED_MARGIN", "0.85"))
+
+
+def pick_bucket(buckets: Sequence[int], n: int) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+def _batch_buckets(settings: Settings) -> list[int]:
+    """Batch buckets with max_batch_size guaranteed covered."""
+    buckets = sorted(set(settings.batch_buckets))
+    if settings.max_batch_size > buckets[-1]:
+        logger.warning(
+            "MAX_BATCH_SIZE=%d exceeds the largest batch bucket %d; "
+            "auto-appending it to the bucket set",
+            settings.max_batch_size, buckets[-1])
+        buckets.append(settings.max_batch_size)
+    return buckets
+
+
+def _l2n(x: np.ndarray) -> np.ndarray:  # rag_serving_system_tpu/core/retriever.py:40
+    return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
+
+
+def unsupported_settings(settings: Settings) -> list[str]:
+    """The settings this port does not implement yet, each with its value."""
+    bad = []
+    if settings.prefix_cache:
+        bad.append("PREFIX_CACHE=1 (run the port with PREFIX_CACHE=0)")
+    if settings.decode_mode != "fixed":
+        bad.append(f"DECODE_MODE={settings.decode_mode}")
+    if settings.quant_weights != "none":
+        bad.append(f"QUANT_WEIGHTS={settings.quant_weights}")
+    if settings.quant_act != "none":
+        bad.append(f"QUANT_ACT={settings.quant_act}")
+    if settings.retrieval_corpus_dtype != "float32":
+        bad.append(f"RETRIEVAL_CORPUS_DTYPE={settings.retrieval_corpus_dtype}")
+    if settings.retriever != "exact":
+        bad.append(f"RETRIEVER={settings.retriever}")
+    if settings.spec_gamma > 0:
+        bad.append(f"SPEC_DECODE={settings.spec_gamma}")
+    if settings.mesh_shape and np.prod(
+            [int(x) for x in settings.mesh_shape.split(",") if x.strip()]) > 1:
+        bad.append(f"MESH_SHAPE={settings.mesh_shape} (one device only)")
+    if settings.weights_dir:
+        bad.append(f"WEIGHTS_DIR={settings.weights_dir} (no checkpoint loader yet)")
+    for var, name in (("EMBED_MODEL_NAME", settings.embed_model_name),
+                      ("LLM_MODEL_NAME", settings.llm_model_name)):
+        if os.path.isdir(name):
+            bad.append(f"{var}={name} (no local tokenizer loader yet)")
+    return bad
+
+
+class _BudgetPrompt(str):
+    """A prompt carrying its request's max_new_tokens (None = the engine's)."""
+
+    gen_budget: int | None
+
+    def __new__(cls, text: str, gen_budget: int | None):
+        s = super().__new__(cls, text)
+        s.gen_budget = gen_budget
+        return s
+
+
+class RagEngine:
+    """Owns the models, tokenizers and the device-resident corpus."""
+
+    def __init__(self, settings: Settings, documents: List[str],
+                 doc_embeddings: np.ndarray, device: str | torch.device | None = None):
+        bad = unsupported_settings(settings)
+        if bad:
+            raise ValueError("rag_serving_system_torch does not implement: "
+                             + "; ".join(bad))
+        self.settings = settings
+        self.device = resolve_device(device)
+        self.batch_buckets = _batch_buckets(settings)
+        self.documents = list(documents)
+        self.dtype = torch_dtype(settings.dtype)
+        self.enc_cfg = encoder_config_for(settings.model_preset)
+        self.dec_cfg = decoder_config_for(settings.model_preset)
+        emb = np.asarray(doc_embeddings, dtype=np.float32)
+        if emb.ndim != 2 or emb.shape[1] != self.enc_cfg.hidden_size:
+            raise ValueError(
+                f"corpus embeddings {emb.shape} do not match encoder hidden size "
+                f"{self.enc_cfg.hidden_size} (model_preset={settings.model_preset!r})")
+
+        t0 = time.time()
+        self.enc_params = init_encoder_params(self.enc_cfg, seed=0,
+                                              dtype=self.dtype, device=self.device)
+        self.dec_params = init_decoder_params(self.dec_cfg, seed=1,
+                                              dtype=self.dtype, device=self.device)
+        logger.info("random-init models ready on %s in %.1fs", self.device,
+                    time.time() - t0)
+        self.enc_tok = HashTokenizer(self.enc_cfg.vocab_size,
+                                     pad_id=self.enc_cfg.pad_token_id)
+        self.dec_tok = HashTokenizer(self.dec_cfg.vocab_size,
+                                     pad_id=self.dec_cfg.pad_token_id,
+                                     eos_id=self.dec_cfg.eos_token_id)
+        self.corpus = torch.as_tensor(_l2n(emb), device=self.device)
+        self.n_docs = emb.shape[0]
+        self.max_k = min(settings.max_k, self.n_docs)
+        self._generator = torch.Generator(device=self.device).manual_seed(0)
+        self.timer = StageTimer()
+
+        # packed prefill for no-prefix batches: B is pinned to the largest
+        # batch bucket, T to a ladder of multiples of PACKED_T_STEP
+        self.packed = settings.packed_prefill
+        if self.packed:
+            self.packed_p, mean_len = self._auto_packed_p(documents)
+            cap = self.batch_buckets[-1]
+            step = settings.packed_t_step
+            rnd = lambda v: min(-(-int(v) // step) * step,  # noqa: E731
+                                -(-cap * self.packed_p // step) * step)
+            # small sizes for partial batches, a ladder around the sampled
+            # full-batch mean up to 1.7x it, and the top (every row at packed_p)
+            typ = cap * mean_len
+            self.packed_t_buckets = sorted(
+                {rnd(step * i) for i in (1, 2, 3, 4)}
+                | {rnd(typ * f)
+                   for f in (0.55, 0.65, 0.75, 0.85, 0.95, 1.05, 1.15,
+                             1.25, 1.4, 1.55, 1.7)}
+                | {rnd(cap * self.packed_p)})
+            logger.info("packed prefill on: P=%d (sampled mean prompt %d), "
+                        "T buckets %s", self.packed_p, mean_len,
+                        self.packed_t_buckets)
+
+        self._prompt_tok_cache = LockedLRU(
+            int(os.environ.get("PROMPT_TOKEN_CACHE", "4096")))
+        # exact query-result cache: query text → top-max_k index list
+        self._query_cache: OrderedDict | None = (
+            OrderedDict() if settings.query_cache_size > 0 else None)
+        self._query_cache_lock = threading.Lock()
+        self.query_cache_hits = 0
+        self.query_cache_misses = 0
+
+    # ------------------------------------------------------------------
+    # stages 1+2: embed + retrieve
+    # ------------------------------------------------------------------
+
+    def _put_batch(self, arr) -> torch.Tensor:
+        """A host batch as a tensor on the engine's device."""
+        return torch.as_tensor(np.asarray(arr), device=self.device)
+
+    def embed_and_retrieve(self, queries: List[str], ks: List[int]) -> List[List[int]]:
+        """Per-query document-index lists (each k clamped to [1, max_k]),
+        fronted by the exact query-result cache when it is enabled."""
+        if not queries:
+            return []
+        cap = self.batch_buckets[-1]
+        if len(queries) > cap:
+            out: List[List[int]] = []
+            for i in range(0, len(queries), cap):
+                out.extend(self.embed_and_retrieve(queries[i:i + cap], ks[i:i + cap]))
+            return out
+        ks = [max(1, min(int(k), self.n_docs, self.max_k)) for k in ks]
+        if self._query_cache is None:
+            full = self._retrieve_full(queries)
+            return [row[:k] for row, k in zip(full, ks)]
+        with self._query_cache_lock:
+            found = {}
+            for q in queries:
+                row = self._query_cache.get(q)
+                if row is not None:
+                    self._query_cache.move_to_end(q)
+                    found[q] = row
+            hits = sum(1 for q in queries if q in found)
+            self.query_cache_hits += hits
+            self.query_cache_misses += len(queries) - hits
+            misses = list(dict.fromkeys(q for q in queries if q not in found))
+        if misses:
+            fresh = self._retrieve_full(misses)
+            with self._query_cache_lock:
+                for q, row in zip(misses, fresh):
+                    found[q] = row
+                    self._query_cache[q] = row
+                    self._query_cache.move_to_end(q)
+                while len(self._query_cache) > self.settings.query_cache_size:
+                    self._query_cache.popitem(last=False)
+        return [found[q][:k] for q, k in zip(queries, ks)]
+
+    def query_cache_stats(self) -> dict | None:
+        if self._query_cache is None:
+            return None
+        with self._query_cache_lock:
+            lookups = self.query_cache_hits + self.query_cache_misses
+            return {"entries": len(self._query_cache),
+                    "capacity": self.settings.query_cache_size,
+                    "hits": self.query_cache_hits,
+                    "misses": self.query_cache_misses,
+                    "hit_rate": (self.query_cache_hits / lookups)
+                                if lookups else 0.0}
+
+    def _retrieve_full(self, queries: List[str]) -> List[List[int]]:
+        """Encode + top-max_k for <= cap queries; one device→host copy."""
+        bsz = pick_bucket(self.batch_buckets, len(queries))
+        texts = [QUERY_PREFIX + q for q in queries] + [""] * (bsz - len(queries))
+        rows = self.enc_tok.encode_many(texts)
+        max_len = pick_bucket(self.settings.encode_len_buckets,
+                              max(len(r) for r in rows[:len(queries)]))
+        ids, mask = pad_and_stack(rows, max_len, self.enc_tok.pad_id,
+                                  pad_side="right")
+        # give pad rows one real token so their unmasked mean is defined
+        mask[len(queries):, 0] = 1
+        emb = encode(self.enc_params, self.enc_cfg, self._put_batch(ids),
+                     self._put_batch(mask), dtype=self.dtype)
+        _, idx = cosine_topk(self.corpus, emb, self.max_k)
+        idx = idx.cpu().numpy()
+        return [[int(j) for j in idx[i]] for i in range(len(queries))]
+
+    # ------------------------------------------------------------------
+    # stage 3: generate
+    # ------------------------------------------------------------------
+
+    def generate_answers(self, prompts: List[str]) -> List[str]:
+        if not prompts:
+            return []
+        with self.timer.stage("generate"):
+            return self._generate_answers(prompts)
+
+    def _generate_answers(self, prompts: List[str]) -> List[str]:
+        cap = self.batch_buckets[-1]
+        if len(prompts) > cap:
+            out: List[str] = []
+            for i in range(0, len(prompts), cap):
+                out.extend(self._generate_answers(prompts[i:i + cap]))
+            return out
+        return self.finalize_tokens(self.generate_tokens(prompts))
+
+    def _auto_packed_p(self, documents: List[str]) -> tuple[int, int]:
+        """Packed per-row cache bucket: the prompt bucket covering the longest
+        sampled full prompt (2-doc context + a typical question) + 32; and the
+        sampled mean prompt length, which centres the T bucket ladder."""
+        buckets = self.settings.prompt_len_buckets
+        if not documents:
+            return buckets[-1], max(buckets[0] // 2, 16)
+        n = len(documents)
+        step = max(1, n // 64)
+        sample = [documents[i] for i in range(0, n, step)][:64]
+        q = "what is the answer to this sampled question about the subject?"
+        lens = [len(self.dec_tok.encode(PROMPT_TEMPLATE.format(
+                    context=f"{doc}{DOC_JOIN}{sample[(i + 1) % len(sample)]}",
+                    question=q)))
+                for i, doc in enumerate(sample)]
+        return (pick_bucket(buckets, max(lens) + 32),
+                max(16, sum(lens) // len(lens)))
+
+    def _stage_packed(self, rows: list, n: int, t: int, budgets: np.ndarray):
+        """The packed layout: rows back to back in one (1, T) stream. Stages
+        a (3, T) [ids | seg | pos] stream, the (cap, P) gather map (-1 =
+        empty slot), (cap,) last-token indices (-1 = pad row) and (cap,)
+        per-row budgets."""
+        cap = self.batch_buckets[-1]
+        p = self.packed_p
+        rows = [r[-p:] for r in rows[:n]]          # left-truncate over-long
+        stream = np.zeros((3, t), dtype=np.int32)
+        stream[0] = self.dec_tok.pad_id
+        stream[1] = cap                             # pad segment id
+        gather = np.full((cap, p), -1, dtype=np.int32)
+        last = np.full((cap,), -1, dtype=np.int32)
+        off = 0
+        for b, r in enumerate(rows):
+            ln = len(r)
+            stream[0, off:off + ln] = r
+            stream[1, off:off + ln] = b
+            stream[2, off:off + ln] = np.arange(ln)
+            gather[b, p - ln:] = off + np.arange(ln)
+            last[b] = off + ln - 1
+            off += ln
+        return ("packed", self._put_batch(stream), self._put_batch(gather),
+                self._put_batch(last), n, self._put_batch(budgets))
+
+    def _prompt_tokens_batch(self, texts) -> list:
+        """Batch tokenization fronted by a memo keyed by the prompt string
+        (repeated queries repeat whole prompts); misses are deduplicated."""
+        keys = [str(t) for t in texts]
+        out = [self._prompt_tok_cache.get(k) for k in keys]
+        miss = [i for i, v in enumerate(out) if v is None]
+        if miss:
+            uniq = list(dict.fromkeys(keys[i] for i in miss))
+            fresh = dict(zip(uniq, self.dec_tok.encode_many(uniq)))
+            for i in miss:
+                self._prompt_tok_cache.put(keys[i], fresh[keys[i]])
+                out[i] = fresh[keys[i]]
+        return out
+
+    def stage_prompts(self, prompts: List[str]):
+        """Tokenize, pad and place a prompt batch on the device, as a packed
+        stream when that undercuts the padded token count by PACKED_MARGIN
+        (and no row is longer than packed_p), else as a left-padded batch.
+        Returns a tuple whose first item names the route."""
+        bsz = pick_bucket(self.batch_buckets, len(prompts))
+        n = len(prompts)
+        padded = list(prompts) + [""] * (bsz - n)
+        rows = self._prompt_tokens_batch(padded)
+        cap_mnt = self.settings.max_new_tokens
+
+        def _bud(p):
+            b = getattr(p, "gen_budget", None)
+            # None = engine default; 0/negative clamp to 1
+            return cap_mnt if b is None else min(cap_mnt, max(1, int(b)))
+
+        bud_host = [_bud(p) if i < n else cap_mnt for i, p in enumerate(padded)]
+        plen = pick_bucket(self.settings.prompt_len_buckets,
+                           max(len(r) for r in rows[:n]))
+        if self.packed and max(len(r) for r in rows[:n]) <= self.packed_p:
+            total = sum(len(r) for r in rows[:n])
+            t = pick_bucket(self.packed_t_buckets, total)
+            if t <= PACKED_MARGIN * bsz * plen:
+                cap = self.batch_buckets[-1]
+                pb = np.full((cap,), cap_mnt, np.int32)
+                pb[:min(n, cap)] = bud_host[:min(n, cap)]
+                return self._stage_packed(rows, n, t, pb)
+        # over-long prompts keep their tail (the question and answer cue)
+        ids, mask = pad_and_stack(rows, plen, self.dec_tok.pad_id,
+                                  pad_side="left", truncate_side="left")
+        mask[n:, -1] = 1  # keep pad rows well-defined
+        row_valid = np.arange(bsz) < n  # pad rows are born done
+        return ("padded", self._put_batch(ids), self._put_batch(mask),
+                self._put_batch(row_valid), n,
+                self._put_batch(np.asarray(bud_host, np.int32)))
+
+    def generate_tokens(self, prompts: List[str] | None = None, staged=None):
+        """Run generation for a prompt batch (or a `stage_prompts` result);
+        returns a handle for `finalize_tokens`."""
+        if staged is None:
+            staged = self.stage_prompts(prompts)
+        s = self.settings
+        common = dict(generator=self._generator, max_new_tokens=s.max_new_tokens,
+                      do_sample=s.do_sample, dtype=self.dtype,
+                      eos_bias=s.eos_bias)
+        if staged[0] == "packed":
+            _, stream, gather, last, n, budgets = staged
+            toks = generate_packed(
+                self.dec_params, self.dec_cfg, stream[0][None], stream[1][None],
+                stream[2][None], last.clamp(min=0), gather.clamp(min=0),
+                (gather >= 0).to(torch.int32), row_valid=last >= 0,
+                row_budget=budgets, **common)
+            return toks, n
+        _, ids, mask, row_valid, n, budgets = staged
+        toks = generate(self.dec_params, self.dec_cfg, ids, mask,
+                        row_valid=row_valid, row_budget=budgets, **common)
+        return toks, n
+
+    def finalize_tokens(self, handle) -> List[str]:
+        """Copy the tokens to the host and detokenize, dropping stop/pad ids."""
+        toks_dev, n = handle
+        toks = toks_dev.cpu().numpy()
+        strip = {self.dec_cfg.pad_token_id, self.dec_cfg.eos_token_id,
+                 *getattr(self.dec_cfg, "eos_token_ids", ())}
+        return [self.dec_tok.decode([t for t in toks[i] if t not in strip])
+                for i in range(n)]
+
+    # ------------------------------------------------------------------
+    # full pipeline
+    # ------------------------------------------------------------------
+
+    def prepare(self, queries: List[str], ks: List[int],
+                budgets: List[int | None] | None = None) -> List[str]:
+        """Stage 1: embed + retrieve + prompt build."""
+        if budgets is None:
+            budgets = [None] * len(queries)
+        with self.timer.stage("embed_retrieve"):
+            doc_idx = self.embed_and_retrieve(queries, ks)
+            contexts = [DOC_JOIN.join(self.documents[i] for i in row)
+                        for row in doc_idx]
+            return [PROMPT_TEMPLATE.format(context=c, question=q) if b is None
+                    else _BudgetPrompt(PROMPT_TEMPLATE.format(context=c, question=q), b)
+                    for q, c, b in zip(queries, contexts, budgets)]
+
+    def process(self, queries: List[str], ks: List[int],
+                budgets: List[int | None] | None = None) -> List[dict]:
+        """Full RAG for a batch. Returns per-request result dicts."""
+        t0 = time.time()
+        prompts = self.prepare(queries, ks, budgets)
+        t1 = time.time()
+        answers = self.generate_answers(prompts)
+        logger.info("batch=%d embed+retrieve=%.3fs generate=%.3fs",
+                    len(queries), t1 - t0, time.time() - t1)
+        return [{"result": a} for a in answers]
+
+    def warmup(self) -> None:
+        """Build the kernels and run every stage once before serving; its
+        timings and cache counts are dropped."""
+        self.process(["warmup query"], [1])
+        self.timer.reset()
+        with self._query_cache_lock:
+            self.query_cache_hits = 0
+            self.query_cache_misses = 0

@@ -1,0 +1,315 @@
+"""Qwen2-family causal decoder (Qwen2.5-1.5B-Instruct) on dicts of tensors.
+
+Counterpart of `rag_serving_system_tpu/models/qwen2.py:51-370, 625-880,
+1082-1151` without the prefix-KV, quantized and speculative paths. The
+parameter tree is the JAX one: dense weights (in, out), QKV fused into one
+matmul and gate+up into another, layer weights stacked on a leading L axis
+(the forwards loop over it), `lm_head` omitted when tied to `embed`.
+
+Every prefill attention goes through a kernel wrapper: padded prompts
+through B2 (`ops.attention.flash_attention`), packed streams through B3
+(`flash_attention_packed`), whatever the prompt length or head size. The
+single-token decode attention is plain torch, as the JAX decode is einsum.
+The decode loop runs on the host, one step per iteration, and stops as soon
+as every row is done.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from rag_serving_system_tpu.models.configs import DecoderConfig
+from rag_serving_system_torch.models.layers import (
+    NEG_INF,
+    apply_rope,
+    attention,
+    dense,
+    rms_norm,
+    rope_freqs,
+    silu,
+)
+from rag_serving_system_torch.ops.attention import (
+    flash_attention,
+    flash_attention_packed,
+)
+
+
+class KVCache(NamedTuple):
+    # (L, B, T_max, Hk, D) each; decode writes one slot per step in place
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def _layer(params: dict, i: int) -> dict:
+    return {name: w[i] for name, w in params["layers"].items()}
+
+
+def _qkv(layer, cfg, x, b, s):
+    qd = cfg.num_heads * cfg.head_dim
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    qkv = dense(x, layer["qkv_w"], layer.get("qkv_b"))
+    q = qkv[..., :qd].reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = qkv[..., qd:qd + kvd].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = qkv[..., qd + kvd:].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    return q, k, v.contiguous()
+
+
+def _mlp(layer, x):
+    gu = dense(x, layer["gu_w"])
+    f = gu.shape[-1] // 2
+    return dense(silu(gu[..., :f]) * gu[..., f:], layer["down_w"])
+
+
+def _layer_forward(layer, cfg, x, positions, inv_freq, b, p, attend):
+    """One block: norm → fused QKV → RoPE → `attend(q, k, v)` → output
+    projection → MLP. Returns (x, k, v) with k after RoPE."""
+    h = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
+    q, k, v = _qkv(layer, cfg, h, b, p)
+    q = apply_rope(q, positions, inv_freq)
+    k = apply_rope(k, positions, inv_freq)
+    a = attend(q, k, v).reshape(b, p, cfg.num_heads * cfg.head_dim)
+    x = x + dense(a, layer["o_w"])
+    h = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
+    return x + _mlp(layer, h), k, v
+
+
+def embed_lookup(params: dict, ids: torch.Tensor, dtype) -> torch.Tensor:
+    return params["embed"][ids].to(dtype)
+
+
+def logits_from_hidden(params: dict, cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and LM head, tied or untied → f32 logits. The product runs
+    in f32 on upcast operands: bf16 products are exact in f32, so this is
+    XLA's bf16-in, f32-accumulate, f32-out einsum."""
+    x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps).float()
+    head = params.get("lm_head")
+    if head is not None:
+        return x @ head.float()
+    return x @ params["embed"].float().T
+
+
+def _new_cache(cfg, b, t_max, dtype, device) -> KVCache:
+    shape = (cfg.num_layers, b, t_max, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
+            attention_mask: torch.Tensor, max_new_tokens: int,
+            dtype=torch.bfloat16) -> tuple[torch.Tensor, KVCache]:
+    """Forward over a LEFT-padded (B, P) prompt batch through kernel B2.
+    Returns (last-position logits (B, V) f32, cache of P + max_new_tokens
+    slots)."""
+    b, p = input_ids.shape
+    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=input_ids.device)
+    # left padding: positions count real tokens from the left edge of content
+    positions = torch.clamp(torch.cumsum(attention_mask, dim=-1) - 1, min=0)
+    x = embed_lookup(params, input_ids, dtype)
+    cache = _new_cache(cfg, b, p + max_new_tokens, dtype, input_ids.device)
+
+    def attend(q, k, v):
+        return flash_attention(q, k, v, attention_mask, causal=True)
+
+    for i in range(cfg.num_layers):
+        x, k, v = _layer_forward(_layer(params, i), cfg, x, positions, inv_freq,
+                                 b, p, attend)
+        cache.k[i, :, :p] = k
+        cache.v[i, :, :p] = v
+    return logits_from_hidden(params, cfg, x[:, -1, :]), cache
+
+
+def decode_step(params: dict, cfg: DecoderConfig, cache: KVCache,
+                token: torch.Tensor, step: int, prompt_len: int,
+                prompt_mask: torch.Tensor, dtype=torch.bfloat16):
+    """One token for every row: writes its K/V at slot prompt_len + step of
+    `cache` (in place) and returns ((B, V) f32 logits, cache)."""
+    b = token.shape[0]
+    t_max = cache.k.shape[2]
+    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=token.device)
+    positions = (prompt_mask.sum(dim=-1) + step)[:, None]
+    write_at = prompt_len + step
+    # prompt pads masked; generated slots valid up to the current step
+    gen_valid = torch.arange(t_max - prompt_len, device=token.device) <= step
+    valid = torch.cat([prompt_mask > 0, gen_valid.expand(b, -1)], dim=1)
+    zero = torch.zeros((), dtype=torch.float32, device=token.device)
+    bias = torch.where(valid, zero, NEG_INF)[:, None, None, :]
+
+    x = embed_lookup(params, token[:, None], dtype)
+    for i in range(cfg.num_layers):
+        layer = _layer(params, i)
+        h = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
+        q, k, v = _qkv(layer, cfg, h, b, 1)
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
+        cache.k[i, :, write_at] = k[:, 0]
+        cache.v[i, :, write_at] = v[:, 0]
+        a = attention(q, cache.k[i].to(dtype), cache.v[i].to(dtype), bias)
+        x = x + dense(a.reshape(b, 1, cfg.num_heads * cfg.head_dim), layer["o_w"])
+        h = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
+        x = x + _mlp(layer, h)
+    return logits_from_hidden(params, cfg, x[:, 0, :]), cache
+
+
+def sample_candidates(logits: torch.Tensor, temperature: float = 0.7,
+                      top_k: int = 20, top_p: float = 0.8):
+    """The kept candidates of Qwen2.5-Instruct's default sampling: exact top-k
+    (the TPU's approx_max_k is TPU-only), temperature, then the smallest
+    prefix with cumulative probability >= top_p (always keeps the argmax).
+    Returns ((B, K) scaled logits, NEG_INF where dropped; (B, K) vocab ids)."""
+    vals, idx = torch.topk(logits, top_k, dim=-1)
+    vals = vals / max(temperature, 1e-5)
+    probs = torch.softmax(vals, dim=-1)
+    keep = torch.cumsum(probs, dim=-1) - probs < top_p
+    return torch.where(keep, vals, NEG_INF), idx
+
+
+def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
+                 temperature: float = 0.7, top_k: int = 20,
+                 top_p: float = 0.8) -> torch.Tensor:
+    vals, idx = sample_candidates(logits, temperature, top_k, top_p)
+    choice = torch.multinomial(torch.softmax(vals, dim=-1), 1, generator=generator)
+    return torch.gather(idx, 1, choice)[:, 0]
+
+
+def eos_id_set(cfg: DecoderConfig) -> tuple:
+    """All stop ids (Qwen2.5: <|im_end|> and <|endoftext|>), deduped."""
+    return tuple(dict.fromkeys(
+        (cfg.eos_token_id,) + tuple(getattr(cfg, "eos_token_ids", ()))))
+
+
+def token_is_eos(tok: torch.Tensor, eos_ids: tuple) -> torch.Tensor:
+    hit = tok == eos_ids[0]
+    for e in eos_ids[1:]:
+        hit = hit | (tok == e)
+    return hit
+
+
+def bias_eos(logits: torch.Tensor, eos_ids: tuple, eos_bias: float) -> torch.Tensor:
+    """Add EOS_BIAS to the stop-token logits (0, the default, is a no-op)."""
+    if not eos_bias:
+        return logits
+    logits = logits.clone()
+    logits[:, list(eos_ids)] += eos_bias
+    return logits
+
+
+def pick_token(logits, generator, do_sample, temperature=0.7, top_k=20,
+               top_p=0.8, eos_bias=0.0, eos_ids=()) -> torch.Tensor:
+    """Qwen2.5 default sampling, or greedy (first index on ties)."""
+    logits = bias_eos(logits, eos_ids, eos_bias)
+    if do_sample:
+        return sample_token(logits, generator, temperature, top_k, top_p)
+    return torch.argmax(logits, dim=-1)
+
+
+def _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
+                 max_new_tokens, temperature, top_k, top_p, do_sample, dtype,
+                 row_valid, p, row_budget=None, eos_bias=0.0) -> torch.Tensor:
+    """Sample, then decode until every row is done or max_new_tokens are out.
+    Pad rows (row_valid False) are born done; a row is done at any stop id
+    or once it holds row_budget[b] tokens. Returns (B, max_new_tokens) int32,
+    pad_token_id past each row's end."""
+    b = attention_mask.shape[0]
+    eos_ids = eos_id_set(cfg)
+    pad = cfg.pad_token_id
+
+    def pick(logits):
+        return pick_token(logits, generator, do_sample, temperature, top_k,
+                          top_p, eos_bias, eos_ids).to(torch.int32)
+
+    tok = pick(logits0)
+    if row_valid is not None:
+        tok = torch.where(row_valid, tok, pad)
+    done = token_is_eos(tok, eos_ids)
+    if row_valid is not None:
+        done = done | ~row_valid
+    if row_budget is not None:
+        done = done | (row_budget <= 1)
+    out = torch.full((b, max_new_tokens), pad, dtype=torch.int32,
+                     device=tok.device)
+    out[:, 0] = tok
+    for step in range(max_new_tokens - 1):
+        if bool(done.all()):
+            break
+        logits, cache = decode_step(params, cfg, cache, tok, step, p,
+                                    attention_mask, dtype=dtype)
+        nxt = torch.where(done, pad, pick(logits))
+        done = done | token_is_eos(nxt, eos_ids)
+        if row_budget is not None:
+            # column step + 1 was just written: the row holds step + 2 tokens
+            done = done | (step + 2 >= row_budget)
+        out[:, step + 1] = nxt
+        tok = nxt
+    return out
+
+
+@torch.inference_mode()
+def generate(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
+             attention_mask: torch.Tensor, generator: torch.Generator | None = None,
+             max_new_tokens: int = 10, temperature: float = 0.7, top_k: int = 20,
+             top_p: float = 0.8, do_sample: bool = True, dtype=torch.bfloat16,
+             row_valid: torch.Tensor | None = None,
+             row_budget: torch.Tensor | None = None,
+             eos_bias: float = 0.0) -> torch.Tensor:
+    """Padded prefill (B2) + decode. Returns (B, max_new_tokens) int32 ids."""
+    logits0, cache = prefill(params, cfg, input_ids, attention_mask,
+                             max_new_tokens, dtype=dtype)
+    return _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
+                        max_new_tokens, temperature, top_k, top_p, do_sample,
+                        dtype, row_valid, input_ids.shape[1],
+                        row_budget=row_budget, eos_bias=eos_bias)
+
+
+def prefill_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
+                   seg: torch.Tensor, positions: torch.Tensor,
+                   last_idx: torch.Tensor, gather_idx: torch.Tensor,
+                   prompt_mask: torch.Tensor, max_new_tokens: int,
+                   dtype=torch.bfloat16) -> tuple[torch.Tensor, KVCache]:
+    """Packed prefill: the batch's real tokens back to back in one (1, T)
+    stream (`seg` ascending row ids, the pad tail last), attention through
+    kernel B3. The per-token K/V is then unpacked into the usual left-padded
+    (L, B, P + max_new_tokens, Hk, D) cache, slot [b, p] reading stream
+    position gather_idx[b, p] and zeroed where prompt_mask is 0, so decode is
+    the padded path's. Returns (each row's last-token logits (B, V) f32,
+    cache)."""
+    b, p = gather_idx.shape
+    t = input_ids.shape[1]
+    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=input_ids.device)
+    x = embed_lookup(params, input_ids, dtype)
+    cache = _new_cache(cfg, b, p + max_new_tokens, dtype, input_ids.device)
+    flat = gather_idx.reshape(-1)
+    keep = prompt_mask.reshape(b, p, 1, 1).to(dtype)
+
+    def attend(q, k, v):
+        return flash_attention_packed(q, k, v, seg)
+
+    for i in range(cfg.num_layers):
+        x, k, v = _layer_forward(_layer(params, i), cfg, x, positions, inv_freq,
+                                 1, t, attend)
+        cache.k[i, :, :p] = k[0, flat].reshape(b, p, *k.shape[2:]) * keep
+        cache.v[i, :, :p] = v[0, flat].reshape(b, p, *v.shape[2:]) * keep
+    return logits_from_hidden(params, cfg, x[0, last_idx, :]), cache
+
+
+@torch.inference_mode()
+def generate_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
+                    seg: torch.Tensor, positions: torch.Tensor,
+                    last_idx: torch.Tensor, gather_idx: torch.Tensor,
+                    prompt_mask: torch.Tensor,
+                    generator: torch.Generator | None = None,
+                    max_new_tokens: int = 10, temperature: float = 0.7,
+                    top_k: int = 20, top_p: float = 0.8, do_sample: bool = True,
+                    dtype=torch.bfloat16, row_valid: torch.Tensor | None = None,
+                    row_budget: torch.Tensor | None = None,
+                    eos_bias: float = 0.0) -> torch.Tensor:
+    """Packed prefill (B3) + the padded path's decode; same contract as
+    `generate`."""
+    logits0, cache = prefill_packed(params, cfg, input_ids, seg, positions,
+                                    last_idx, gather_idx, prompt_mask,
+                                    max_new_tokens, dtype=dtype)
+    return _decode_loop(params, cfg, logits0, cache, prompt_mask, generator,
+                        max_new_tokens, temperature, top_k, top_p, do_sample,
+                        dtype, row_valid, gather_idx.shape[1],
+                        row_budget=row_budget, eos_bias=eos_bias)

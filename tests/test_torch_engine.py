@@ -1,0 +1,232 @@
+"""PyTorch port: the serving engine, batch processor and HTTP surface against
+the JAX engine, at the tiny presets in f32 with greedy decoding.
+
+Both engines share one set of weights (the JAX engine's, converted; decoder
+matrices scaled by 8 so greedy answers vary) and one seeded 64-dim corpus,
+and must retrieve the same ids and give the same answers on the padded
+route (a lone request) and the packed route (a full batch)."""
+
+import json
+import os
+import subprocess
+import sys
+import time
+import urllib.request
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from rag_serving_system_tpu.config import Settings  # noqa: E402
+from rag_serving_system_tpu.core import engine as jax_engine  # noqa: E402
+from rag_serving_system_tpu.core.retriever import _l2n  # noqa: E402
+from rag_serving_system_tpu.core.request_queue import make_queue  # noqa: E402
+from rag_serving_system_torch.core import engine as port_engine  # noqa: E402
+from rag_serving_system_torch.core.batch_processor import BatchProcessor  # noqa: E402
+from rag_serving_system_torch.models.weights import params_from_jax  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+QUERIES = ["what is w1 w2", "tell me w5", "w7 w8 w9 w10", "another question w3"]
+
+
+def tiny_settings(**over):
+    """The verify skill's tiny buckets. Prompt buckets 32,128 put the 4-row
+    batch's ~55-token prompts in the 128 bucket, where the packed gate
+    t <= 0.85 * bsz * plen opens for the 256-token stream."""
+    base = dict(model_preset="tiny", dtype="float32", do_sample=False,
+                prefix_cache=False, batch_buckets=[1, 4], max_batch_size=4,
+                encode_len_buckets=[16, 32], prompt_len_buckets=[32, 128],
+                packed_t_step=256, max_new_tokens=6, max_k=4,
+                max_wait_time=0.2, polling_interval=0.05,
+                decode_mode="fixed", quant_weights="none", quant_act="none",
+                retrieval_corpus_dtype="float32", retriever="exact",
+                spec_gamma=0, mesh_shape="", weights_dir=None,
+                embed_model_name="e5", llm_model_name="qwen")
+    base.update(over)
+    return Settings(**base)
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    rng = np.random.default_rng(0)
+    docs = [" ".join(f"w{rng.integers(0, 300)}" for _ in range(rng.integers(14, 24)))
+            for _ in range(40)]
+    return docs, rng.standard_normal((40, 64)).astype(np.float32)
+
+
+def _scaled(tree, f):
+    return {k: (_scaled(v, f) if isinstance(v, dict) else
+                v * f if k in ("embed", "qkv_w", "o_w", "gu_w", "down_w") else v)
+            for k, v in tree.items()}
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["packed", "padded_only"])
+def engines(request, corpus):
+    docs, emb = corpus
+    s = tiny_settings(packed_prefill=request.param)
+    je = jax_engine.RagEngine(s, docs, emb)
+    je.dec_params = _scaled(je.dec_params, 8.0)
+    te = port_engine.RagEngine(s, docs, emb, device="cpu")
+    te.enc_params = params_from_jax(jax.device_get(je.enc_params))
+    te.dec_params = params_from_jax(jax.device_get(je.dec_params))
+    return je, te
+
+
+@pytest.mark.parametrize("n", [1, 4], ids=["lone", "full_batch"])
+def test_engine_matches_jax(engines, n):
+    je, te = engines
+    qs, ks = QUERIES[:n], [2] * n
+    assert te.embed_and_retrieve(qs, ks) == je.embed_and_retrieve(qs, ks)
+    route = te.stage_prompts(te.prepare(qs, ks))[0]
+    assert route == je.stage_prompts(je.prepare(qs, ks))[0]
+    assert route == ("packed" if te.packed and n == 4 else "padded")
+    ours = te.process(qs, ks)
+    assert ours == je.process(qs, ks)
+    assert all(r["result"] for r in ours)
+
+
+def test_request_budgets_match_jax(engines):
+    je, te = engines
+    qs, ks, budgets = QUERIES, [2] * 4, [1, 3, None, 6]
+    ours = te.process(qs, ks, budgets)
+    assert ours == je.process(qs, ks, budgets)
+    assert len(ours[0]["result"].split()) <= 1
+
+
+def test_queue_and_processor_answer_requests(corpus):
+    docs, emb = corpus
+    s = tiny_settings(packed_prefill=True)
+    engine = port_engine.RagEngine(s, docs, emb, device="cpu")
+    q = make_queue(s)
+    proc = BatchProcessor(q, engine, polling_interval=0.05)
+    proc.start()
+    try:
+        ids = [q.add_request(text, 2) for text in QUERIES + ["one more w9"]]
+        results = [q.get_result(i, timeout=120) for i in ids]
+    finally:
+        proc.stop(drain_timeout=5.0)
+        proc.join(timeout=10)
+    assert not proc.is_alive()
+    assert all(isinstance(r, dict) and isinstance(r.get("result"), str)
+               for r in results), results
+    assert proc.requests_processed == 5 and proc.batches_processed >= 2
+
+
+def test_processor_isolates_a_failing_batch(corpus):
+    docs, emb = corpus
+    s = tiny_settings()
+    engine = port_engine.RagEngine(s, docs, emb, device="cpu")
+
+    def boom(prompts):
+        raise RuntimeError("device lost")
+
+    engine.generate_tokens = boom
+    q = make_queue(s)
+    proc = BatchProcessor(q, engine, polling_interval=0.05)
+    proc.start()
+    try:
+        rid = q.add_request("w1", 2)
+        res = q.get_result(rid, timeout=60)
+    finally:
+        proc.stop(drain_timeout=2.0)
+    assert res == {"error": "device lost", "status": "failed"}
+
+
+def _http(method, url, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"content-type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def test_http_post_and_poll(corpus, tmp_path, monkeypatch):
+    """POST /rag → poll GET /rag/result/{id} through the reused create_api,
+    with the port's main.build_app wiring the engine and processor."""
+    pytest.importorskip("aiohttp")
+    from rag_serving_system_tpu.api.endpoints import ServerThread
+    from rag_serving_system_torch.main import build_app
+
+    docs, emb = corpus
+    (tmp_path / "docs.json").write_text(json.dumps(docs))
+    np.save(tmp_path / "emb.npy", emb)
+    s = tiny_settings(document_text_file=str(tmp_path / "docs.json"),
+                      document_embeddings_file=str(tmp_path / "emb.npy"))
+    monkeypatch.setenv("TORCH_DEVICE", "cpu")
+    app, proc, _, _ = build_app(s)
+    server = ServerThread(app).start()
+    try:
+        sub = _http("POST", server.url + "/rag", {"query": "what is w1", "k": 2})
+        assert sub["status"] == "processing"
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            res = _http("GET", server.url + f"/rag/result/{sub['request_id']}")
+            if res["status"] == "complete":
+                break
+            time.sleep(0.05)
+        assert res["status"] == "complete" and isinstance(res["result"]["result"], str)
+        stats = _http("GET", server.url + "/stats")
+        assert stats["requests_processed"] >= 1
+    finally:
+        server.stop()
+        proc.stop(drain_timeout=2.0)
+
+
+@pytest.mark.parametrize("over,var", [
+    (dict(prefix_cache=True), "PREFIX_CACHE"),
+    (dict(decode_mode="continuous"), "DECODE_MODE"),
+    (dict(quant_weights="int8"), "QUANT_WEIGHTS"),
+    (dict(quant_act="int8"), "QUANT_ACT"),
+    (dict(retrieval_corpus_dtype="bfloat16"), "RETRIEVAL_CORPUS_DTYPE"),
+    (dict(retriever="ivf"), "RETRIEVER"),
+    (dict(spec_gamma=2), "SPEC_DECODE"),
+    (dict(mesh_shape="2,1"), "MESH_SHAPE"),
+    (dict(weights_dir="/nonexistent"), "WEIGHTS_DIR"),
+])
+def test_unimplemented_settings_raise(corpus, over, var):
+    docs, emb = corpus
+    with pytest.raises(ValueError, match=var):
+        port_engine.RagEngine(tiny_settings(**over), docs, emb, device="cpu")
+
+
+def test_default_device_is_cuda_and_raises_without_it(corpus):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    docs, emb = corpus
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_engine.RagEngine(tiny_settings(), docs, emb)
+
+
+def test_copied_constants_equal_jax():
+    for name in ("PROMPT_TEMPLATE", "DOC_JOIN", "QUERY_PREFIX", "PACKED_MARGIN"):
+        assert getattr(port_engine, name) == getattr(jax_engine, name), name
+    for buckets, n in (([1, 2, 4, 8], 3), ([1, 2, 4, 8], 8), ([1, 2, 4, 8], 9)):
+        assert port_engine.pick_bucket(buckets, n) == jax_engine.pick_bucket(buckets, n)
+    for over in (dict(), dict(max_batch_size=48), dict(batch_buckets=[8, 2, 2])):
+        s = tiny_settings(**over)
+        assert port_engine._batch_buckets(s) == jax_engine._batch_buckets(s)
+    x = np.random.default_rng(0).standard_normal((5, 8)).astype(np.float32)
+    x[2] = 0.0
+    np.testing.assert_array_equal(port_engine._l2n(x), _l2n(x))
+
+
+def test_port_never_imports_jax():
+    mods = ["rag_serving_system_torch", "rag_serving_system_torch.device",
+            "rag_serving_system_torch.ops._build", "rag_serving_system_torch.ops.topk",
+            "rag_serving_system_torch.ops.attention",
+            "rag_serving_system_torch.models", "rag_serving_system_torch.models.layers",
+            "rag_serving_system_torch.models.weights",
+            "rag_serving_system_torch.models.e5", "rag_serving_system_torch.models.qwen2",
+            "rag_serving_system_torch.core.engine",
+            "rag_serving_system_torch.core.batch_processor",
+            "rag_serving_system_torch.main"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print('jax' in sys.modules, 'aiohttp' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"]

@@ -1,0 +1,103 @@
+"""PyTorch port: exact cosine top-k (the plain version of kernel B1) against
+the JAX oracle and the Pallas kernel in interpret mode. Indices must be
+identical and scores within 1e-5."""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from rag_serving_system_tpu.ops import topk as jt  # noqa: E402
+from rag_serving_system_torch.ops import topk as tt  # noqa: E402
+
+DATA = os.path.join(os.path.dirname(__file__), "..", "data")
+
+
+def _unit(x):
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _assert_same(ours, ref):
+    (s, i), (rs, ri) = ours, ref
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(s.numpy(), np.asarray(rs), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n,b,k", [
+    (300, 1, 1),      # N a multiple of no block size
+    (300, 5, 2),
+    (1000, 5, 16),
+    (130, 1, 16),
+])
+def test_matches_oracle_and_pallas(n, b, k):
+    rng = np.random.default_rng(n + b + k)
+    corpus = _unit(rng.standard_normal((n, 64)))
+    queries = rng.standard_normal((b, 64)).astype(np.float32)
+    ours = tt.cosine_topk(torch.tensor(corpus), torch.tensor(queries), k)
+    assert ours[1].dtype == torch.int32
+    _assert_same(ours, jt.cosine_topk_reference(jnp.asarray(corpus),
+                                                jnp.asarray(queries), k))
+    _assert_same(ours, jt.cosine_topk_pallas(jnp.asarray(corpus),
+                                             jnp.asarray(queries), k,
+                                             block_n=128, interpret=True))
+
+
+def test_bfloat16_corpus_matches_pallas():
+    """A bf16 corpus meets bf16-rounded queries in both packages."""
+    rng = np.random.default_rng(3)
+    corpus = jnp.asarray(_unit(rng.standard_normal((500, 64)))).astype(jnp.bfloat16)
+    queries = rng.standard_normal((5, 64)).astype(np.float32)
+    tcorpus = torch.tensor(np.asarray(corpus.astype(jnp.float32))).to(torch.bfloat16)
+    ours = tt.cosine_topk(tcorpus, torch.tensor(queries), 16)
+    _assert_same(ours, jt.cosine_topk_pallas(corpus, jnp.asarray(queries), 16,
+                                             block_n=128, interpret=True))
+
+
+def test_exact_ties_rank_lowest_index_first():
+    """Rows of +-1/8 entries (unit norm at D = 64) give exactly representable
+    dot products, so duplicated rows tie exactly; the lower index wins."""
+    rng = np.random.default_rng(4)
+    patterns = np.where(rng.random((4, 64)) < 0.5, -0.125, 0.125).astype(np.float32)
+    corpus = patterns[rng.integers(0, 4, 200)]
+    queries = patterns[[0, 1, 2]] * np.float32(1.0)
+    ours = tt.cosine_topk(torch.tensor(corpus), torch.tensor(queries), 16)
+    ref = jt.cosine_topk_reference(jnp.asarray(corpus), jnp.asarray(queries), 16)
+    _assert_same(ours, ref)
+    _assert_same(ours, jt.cosine_topk_pallas(jnp.asarray(corpus),
+                                             jnp.asarray(queries), 16,
+                                             block_n=128, interpret=True))
+    s, i = ours
+    for row in range(3):   # equal scores come in ascending index order
+        for j in range(15):
+            if s[row, j] == s[row, j + 1]:
+                assert i[row, j] < i[row, j + 1]
+
+
+def test_squad_real_embeddings_noisy_queries():
+    """The repo's real e5 corpus (1000 x 1024) with seeded noisy copies of
+    corpus rows as queries."""
+    corpus = np.load(os.path.join(DATA, "squad_real_embeddings.npy")).astype(np.float32)
+    corpus = _unit(corpus)
+    rng = np.random.default_rng(5)
+    rows = rng.integers(0, corpus.shape[0], 8)
+    queries = (corpus[rows] + 0.02 * rng.standard_normal((8, corpus.shape[1]))
+               ).astype(np.float32)
+    ours = tt.cosine_topk(torch.tensor(corpus), torch.tensor(queries), 16)
+    _assert_same(ours, jt.cosine_topk_reference(jnp.asarray(corpus),
+                                                jnp.asarray(queries), 16))
+    _assert_same(ours, jt.cosine_topk_pallas(jnp.asarray(corpus),
+                                             jnp.asarray(queries), 16,
+                                             block_n=256, interpret=True))
+    np.testing.assert_array_equal(ours[1][:, 0].numpy(), rows)
+
+
+def test_cuda_wrapper_refuses_other_devices():
+    """No fallback: a tensor that is neither on the CPU nor on a CUDA device
+    raises instead of taking the plain version."""
+    c = torch.empty((8, 64), device="meta")
+    with pytest.raises(ValueError):
+        tt.cosine_topk(c, torch.empty((1, 64), device="meta"), 2)
