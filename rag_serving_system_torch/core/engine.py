@@ -1,10 +1,12 @@
 """The RAG serving engine in PyTorch: embed → retrieve → generate.
 
 Counterpart of the cold-path subset of `rag_serving_system_tpu/core/engine.py`
-(`RagEngine`): the e5 encoder and exact cosine top-k (kernel B1) over a
-device-resident f32 corpus, then Qwen2.5 generation with padded (B2) or
-packed (B3) prefill and the fixed decode loop. Public method signatures are
-the JAX engine's, so one batch processor contract drives either.
+(`RagEngine`): the e5 encoder and retrieval over a device-resident corpus,
+then Qwen2.5 generation with padded (B2) or packed (B3) prefill and the
+fixed decode loop. Retrieval is exact cosine top-k over an f32 or bf16
+corpus (kernel B1) or an int8 corpus, one array or several chunks (kernel
+B4), or approximate IVF (`RETRIEVER=ivf`). Public method signatures are the
+JAX engine's, so one batch processor contract drives either.
 
 Settings this port does not implement yet make the constructor raise rather
 than serve another configuration (see `unsupported_settings`).
@@ -34,7 +36,14 @@ from rag_serving_system_torch.models.weights import (
     init_decoder_params,
     init_encoder_params,
 )
-from rag_serving_system_torch.ops.topk import cosine_topk
+from rag_serving_system_torch.ops.ivf import build_ivf, ivf_search
+from rag_serving_system_torch.ops.topk import (
+    MAX_K,
+    cosine_topk,
+    cosine_topk_int8,
+    cosine_topk_int8_chunked,
+    quantize_corpus_int8_chunked,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -81,10 +90,8 @@ def unsupported_settings(settings: Settings) -> list[str]:
         bad.append(f"QUANT_WEIGHTS={settings.quant_weights}")
     if settings.quant_act != "none":
         bad.append(f"QUANT_ACT={settings.quant_act}")
-    if settings.retrieval_corpus_dtype != "float32":
-        bad.append(f"RETRIEVAL_CORPUS_DTYPE={settings.retrieval_corpus_dtype}")
-    if settings.retriever != "exact":
-        bad.append(f"RETRIEVER={settings.retriever}")
+    if settings.max_k > MAX_K:
+        bad.append(f"MAX_K={settings.max_k} (the top-k kernels keep k <= {MAX_K})")
     if settings.spec_gamma > 0:
         bad.append(f"SPEC_DECODE={settings.spec_gamma}")
     if settings.mesh_shape and np.prod(
@@ -144,8 +151,30 @@ class RagEngine:
         self.dec_tok = HashTokenizer(self.dec_cfg.vocab_size,
                                      pad_id=self.dec_cfg.pad_token_id,
                                      eos_id=self.dec_cfg.eos_token_id)
-        self.corpus = torch.as_tensor(_l2n(emb), device=self.device)
+        emb = _l2n(emb)
         self.n_docs = emb.shape[0]
+        self.corpus = None
+        self.corpus_scales = None
+        self.corpus_mean = None
+        self.corpus_chunks = None
+        self.ivf_index = None
+        if settings.retriever == "ivf":
+            self._build_ivf(emb)
+        elif settings.retrieval_corpus_dtype == "int8":
+            # host-side chunked quantization (numpy): no corpus-size device
+            # transients; several chunks when N > TOPK_CHUNK_ROWS
+            chunks, self.corpus_mean = quantize_corpus_int8_chunked(
+                emb, chunk_rows=settings.topk_chunk_rows, device=self.device)
+            if len(chunks) == 1:
+                self.corpus, self.corpus_scales = chunks[0]
+            else:
+                self.corpus_chunks = chunks
+                logger.info("int8 corpus in %d chunks of <=%d rows",
+                            len(chunks), settings.topk_chunk_rows)
+        else:
+            dt = (torch.bfloat16 if settings.retrieval_corpus_dtype == "bfloat16"
+                  else torch.float32)
+            self.corpus = torch.as_tensor(emb, device=self.device).to(dt)
         self.max_k = min(settings.max_k, self.n_docs)
         self._generator = torch.Generator(device=self.device).manual_seed(0)
         self.timer = StageTimer()
@@ -184,6 +213,57 @@ class RagEngine:
     # ------------------------------------------------------------------
     # stages 1+2: embed + retrieve
     # ------------------------------------------------------------------
+
+    def _build_ivf(self, emb: np.ndarray) -> None:
+        """RETRIEVER=ivf: build the inverted-file index (ops/ivf.py) and gate
+        it on recall@5 against exact search before serving. The gate's
+        queries are sampled corpus rows; their exact ranks come from a
+        chunked host-side scan, so the dense corpus never needs the device."""
+        s = self.settings
+        n = emb.shape[0]
+        n_clusters = s.ivf_clusters or max(8, min(n, int(4 * np.sqrt(n))))
+        self.ivf_index = build_ivf(torch.as_tensor(emb, device=self.device),
+                                   n_clusters=min(n_clusters, n), iters=10)
+        built = self.ivf_index.centroids.shape[0]
+        self.ivf_nprobe = max(1, min(s.ivf_nprobe, built))
+
+        # recall gate: sampled corpus rows as queries, exact top-k sets by a
+        # chunked scan with a running merge (settings.max_k: self.max_k is
+        # not assigned yet)
+        rng = np.random.default_rng(0)
+        k_gate = max(1, min(5, s.max_k, n))
+        q = emb[rng.choice(n, size=min(64, n), replace=False)]
+        best_s = best_i = None
+        for i in range(0, n, 262144):
+            sc = q @ emb[i:i + 262144].T
+            kk = min(k_gate, sc.shape[1])
+            part = np.argpartition(-sc, kk - 1, axis=1)[:, :kk]
+            sc_top = np.take_along_axis(sc, part, axis=1)
+            idx_top = part + i
+            if best_s is None:
+                best_s, best_i = sc_top, idx_top
+            else:
+                cat_s = np.concatenate([best_s, sc_top], axis=1)
+                cat_i = np.concatenate([best_i, idx_top], axis=1)
+                keep = np.argpartition(-cat_s, k_gate - 1, axis=1)[:, :k_gate]
+                best_s = np.take_along_axis(cat_s, keep, axis=1)
+                best_i = np.take_along_axis(cat_i, keep, axis=1)
+        exact = best_i
+        _, got = ivf_search(self.ivf_index, torch.as_tensor(q, device=self.device),
+                            k_gate, nprobe=self.ivf_nprobe)
+        got = got.cpu().numpy()
+        hits = sum(len(set(exact[i]) & set(got[i])) for i in range(len(q)))
+        self.ivf_recall = hits / exact.size
+        logger.info("IVF index: %d clusters, nprobe=%d, startup recall@%d "
+                    "= %.3f (gate %.2f)", built, self.ivf_nprobe, k_gate,
+                    self.ivf_recall, s.ivf_recall_gate)
+        if self.ivf_recall < s.ivf_recall_gate:
+            raise ValueError(
+                f"IVF startup recall@{k_gate} = {self.ivf_recall:.3f} is below "
+                f"the gate {s.ivf_recall_gate}: raise IVF_NPROBE (current "
+                f"{self.ivf_nprobe}/{built} clusters), lower IVF_RECALL_GATE "
+                f"explicitly, or serve RETRIEVER=exact (this corpus may not "
+                f"cluster)")
 
     def _put_batch(self, arr) -> torch.Tensor:
         """A host batch as a tensor on the engine's device."""
@@ -240,6 +320,14 @@ class RagEngine:
 
     def _retrieve_full(self, queries: List[str]) -> List[List[int]]:
         """Encode + top-max_k for <= cap queries; one device→host copy."""
+        _, idx = self._topk(self._embed_queries(queries), self.max_k)
+        idx = idx.cpu().numpy()
+        # IVF pads short candidate lists with -1: drop the sentinels rather
+        # than let negative indexing pick documents[-1]
+        return [[int(j) for j in idx[i] if j >= 0] for i in range(len(queries))]
+
+    def _embed_queries(self, queries: List[str]) -> torch.Tensor:
+        """(bucket, D) query embeddings; rows past len(queries) are pads."""
         bsz = pick_bucket(self.batch_buckets, len(queries))
         texts = [QUERY_PREFIX + q for q in queries] + [""] * (bsz - len(queries))
         rows = self.enc_tok.encode_many(texts)
@@ -249,11 +337,19 @@ class RagEngine:
                                   pad_side="right")
         # give pad rows one real token so their unmasked mean is defined
         mask[len(queries):, 0] = 1
-        emb = encode(self.enc_params, self.enc_cfg, self._put_batch(ids),
-                     self._put_batch(mask), dtype=self.dtype)
-        _, idx = cosine_topk(self.corpus, emb, self.max_k)
-        idx = idx.cpu().numpy()
-        return [[int(j) for j in idx[i]] for i in range(len(queries))]
+        return encode(self.enc_params, self.enc_cfg, self._put_batch(ids),
+                      self._put_batch(mask), dtype=self.dtype)
+
+    def _topk(self, q_emb: torch.Tensor, k: int):
+        if self.ivf_index is not None:
+            return ivf_search(self.ivf_index, q_emb, k, nprobe=self.ivf_nprobe)
+        if self.corpus_chunks is not None:
+            return cosine_topk_int8_chunked(self.corpus_chunks, q_emb, k,
+                                            corpus_mean=self.corpus_mean)
+        if self.corpus_scales is not None:
+            return cosine_topk_int8(self.corpus, self.corpus_scales, q_emb, k,
+                                    corpus_mean=self.corpus_mean)
+        return cosine_topk(self.corpus, q_emb, k)
 
     # ------------------------------------------------------------------
     # stage 3: generate

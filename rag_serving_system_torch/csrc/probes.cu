@@ -1,0 +1,229 @@
+// Retrieval roofline probes: the two halves of the top-k kernels' work,
+// each run alone (kernels P1 and P2).
+//
+// Replaces: scripts/profile_topk.py:_stream_kernel (P1) and _dot_kernel
+// (P2), which split the TPU top-k kernel's time into a DMA-only part and a
+// matmul-only part over the same blocks.
+//
+// P1, stream: out[d] = sum over whole blocks of block_n rows of the max over
+// the block's rows of c[n, d]; the tail N % block_n rows are dropped. Bound
+// by one read of the corpus and nothing else: its time is the streaming
+// floor of B1 (f32, bf16) and B4 (int8). Each CTA takes the column max of
+// one block with 16-byte loads; a second pass sums the (n_blocks, D)
+// partials in block order. No atomics, so it is deterministic.
+//
+// P2, dot: out[b, l] = sum over n < n_rows with n mod 128 == l of
+// q[b] . c[n]. This is B1's (and B4's) score tile from topk_common.cuh
+// without the selection: IEEE f32 FMAs for f32, bf16 widened to f32, int8
+// dp4a into int32 (converted to f32 before the fold). With round_bf16 an f32
+// corpus is rounded to bf16 on load (the wrapper rounds q): the TPU's
+// one-pass Precision.DEFAULT. Each CTA folds its tiles' columns into lanes
+// in registers and writes a (B, 128) partial; a second pass sums the CTAs'
+// partials in CTA order.
+
+#include "topk_common.cuh"
+
+namespace {
+
+constexpr int STREAM_THREADS = 256;
+constexpr int SUM_THREADS = 256;
+
+enum Dtype { F32 = 0, BF16 = 1, INT8 = 2 };
+
+__device__ __forceinline__ void load16(const float* p, float (&o)[4]) { load4(p, o); }
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&o)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+    o[2 * e] = f.x;
+    o[2 * e + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load16(const int8_t* p, float (&o)[16]) {
+  const int4 raw = *reinterpret_cast<const int4*>(p);
+  const int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int e = 0; e < 16; ++e) o[e] = (float)(int8_t)(w[e / 4] >> (8 * (e % 4)));
+}
+
+// Thread t of a CTA reads 16-byte column vector t % cols of the rows
+// t / cols, t / cols + rpp, ...: a row narrower than the CTA still keeps
+// every thread loading. The rpp partial maxima meet in shared memory.
+template <typename T>
+__global__ void __launch_bounds__(STREAM_THREADS)
+stream_partial_kernel(const T* __restrict__ c, int D, int block_n,
+                      float* __restrict__ partial) {
+  constexpr int VEC = 16 / sizeof(T);
+  __shared__ float red[STREAM_THREADS][VEC];
+  const int vcols = D / VEC;                  // 16-byte vectors in a row
+  const int cols = min(vcols, STREAM_THREADS);
+  const int rpp = STREAM_THREADS / cols;      // rows per pass
+  const int r0 = threadIdx.x / cols;
+  const int v = blockIdx.y * cols + threadIdx.x % cols;
+  float m[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) m[e] = -INFINITY;
+  if (r0 < rpp && v < vcols) {
+    const T* p = c + (int64_t)blockIdx.x * block_n * D + (int64_t)v * VEC;
+#pragma unroll 8
+    for (int r = r0; r < block_n; r += rpp) {
+      float x[VEC];
+      load16(p + (int64_t)r * D, x);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) m[e] = fmaxf(m[e], x[e]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) red[threadIdx.x][e] = m[e];
+  __syncthreads();
+  if (r0 != 0 || v >= vcols) return;
+  for (int j = 1; j < rpp; ++j)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) m[e] = fmaxf(m[e], red[threadIdx.x + j * cols][e]);
+  float* o = partial + (int64_t)blockIdx.x * D + (int64_t)v * VEC;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) o[e] = m[e];
+}
+
+// out[c] = sum over r of partial[r, c], in increasing r.
+__global__ void __launch_bounds__(SUM_THREADS)
+sum_rows_kernel(const float* __restrict__ partial, int rows, int cols,
+                float* __restrict__ out) {
+  const int c = blockIdx.x * SUM_THREADS + threadIdx.x;
+  if (c >= cols) return;
+  float s = 0.f;
+  for (int r = 0; r < rows; ++r) s += partial[(int64_t)r * cols + c];
+  out[c] = s;
+}
+
+__device__ __forceinline__ void store_fold(const float (&fold)[4][4], int q_base, int B,
+                                           float* __restrict__ partial) {
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int b = q_base + ty * 4 + i;
+    if (b >= B) continue;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      partial[((int64_t)blockIdx.x * B + b) * NT + tx + 32 * r] = fold[i][r];
+  }
+}
+
+template <typename T, bool ROUND_BF16>
+__global__ void __launch_bounds__(THREADS)
+dot_probe_kernel(const float* __restrict__ q, const T* __restrict__ corpus, int B, int N,
+                 int D, int tiles_per_cta, float* __restrict__ partial) {
+  __shared__ FloatTileSmem sm;
+  const int q_base = blockIdx.y * QG;
+  const int n_tiles = (N + NT - 1) / NT;
+  const int tile_lo = blockIdx.x * tiles_per_cta;
+  const int tile_hi = min(tile_lo + tiles_per_cta, n_tiles);
+  float fold[4][4] = {};
+  for (int tile = tile_lo; tile < tile_hi; ++tile) {
+    float acc[4][4];
+    float_tile<T, ROUND_BF16>(q, corpus, B, N, D, q_base, tile * NT, sm, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) fold[i][r] += acc[i][r];
+  }
+  store_fold(fold, q_base, B, partial);
+}
+
+__global__ void __launch_bounds__(THREADS)
+dot_probe_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ corpus,
+                      int B, int N, int D, int tiles_per_cta, float* __restrict__ partial) {
+  __shared__ Int8TileSmem sm;
+  const int q_base = blockIdx.y * QG;
+  const int n_tiles = (N + NT - 1) / NT;
+  const int tile_lo = blockIdx.x * tiles_per_cta;
+  const int tile_hi = min(tile_lo + tiles_per_cta, n_tiles);
+  float fold[4][4] = {};
+  for (int tile = tile_lo; tile < tile_hi; ++tile) {
+    int acc[4][4];
+    int8_tile(q, corpus, B, N, D, q_base, tile * NT, sm, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) fold[i][r] += __int2float_rn(acc[i][r]);
+  }
+  store_fold(fold, q_base, B, partial);
+}
+
+template <typename T>
+void launch_stream(const void* corpus, int D, int block_n, int n_blocks, void* partial,
+                   cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int cols = D / VEC < STREAM_THREADS ? D / VEC : STREAM_THREADS;
+  const dim3 grid(n_blocks, (D / VEC + cols - 1) / cols);
+  stream_partial_kernel<T><<<grid, STREAM_THREADS, 0, st>>>(
+      static_cast<const T*>(corpus), D, block_n, static_cast<float*>(partial));
+}
+
+}  // namespace
+
+// corpus: (N, D) f32 / bf16 / int8 (dtype 0 / 1 / 2), 16-byte aligned with
+// D * itemsize % 16 == 0. partial: (N / block_n, D) f32 scratch; out: (D,) f32.
+extern "C" int rag_stream_probe(const void* corpus, int dtype, int N, int D, int block_n,
+                                void* partial, void* out, void* stream) {
+  const int itemsize = dtype == F32 ? 4 : dtype == BF16 ? 2 : 1;
+  const int n_blocks = block_n > 0 ? N / block_n : 0;
+  if (dtype < F32 || dtype > INT8 || n_blocks < 1 || D < 1 || (D * itemsize) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (dtype == F32) {
+    launch_stream<float>(corpus, D, block_n, n_blocks, partial, st);
+  } else if (dtype == BF16) {
+    launch_stream<__nv_bfloat16>(corpus, D, block_n, n_blocks, partial, st);
+  } else {
+    launch_stream<int8_t>(corpus, D, block_n, n_blocks, partial, st);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_rows_kernel<<<(D + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0, st>>>(
+      static_cast<const float*>(partial), n_blocks, D, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+// q: (B, D) f32 (int8 for an int8 corpus); corpus: (N, D) as above, where N
+// is the number of rows probed (a multiple of 128). D % 4 == 0 (f32, bf16)
+// or D % 16 == 0 (int8). partial: (n_ctas, B, 128) f32 scratch, with
+// n_ctas = ceil(N / 128 / tiles_per_cta); out: (B, 128) f32.
+extern "C" int rag_dot_probe(const void* q, const void* corpus, int dtype, int round_bf16,
+                             int B, int N, int D, int tiles_per_cta, int n_ctas,
+                             void* partial, void* out, void* stream) {
+  if (dtype < F32 || dtype > INT8 || B < 1 || N < NT || N % NT != 0 || tiles_per_cta < 1 ||
+      D % (dtype == INT8 ? 16 : 4) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const dim3 grid(n_ctas, (B + QG - 1) / QG);
+  float* part = static_cast<float*>(partial);
+  const float* qf = static_cast<const float*>(q);
+  if (dtype == INT8) {
+    dot_probe_int8_kernel<<<grid, THREADS, 0, st>>>(
+        static_cast<const int8_t*>(q), static_cast<const int8_t*>(corpus), B, N, D,
+        tiles_per_cta, part);
+  } else if (dtype == BF16) {
+    dot_probe_kernel<__nv_bfloat16, false><<<grid, THREADS, 0, st>>>(
+        qf, static_cast<const __nv_bfloat16*>(corpus), B, N, D, tiles_per_cta, part);
+  } else if (round_bf16) {
+    dot_probe_kernel<float, true><<<grid, THREADS, 0, st>>>(
+        qf, static_cast<const float*>(corpus), B, N, D, tiles_per_cta, part);
+  } else {
+    dot_probe_kernel<float, false><<<grid, THREADS, 0, st>>>(
+        qf, static_cast<const float*>(corpus), B, N, D, tiles_per_cta, part);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int cols = B * NT;
+  sum_rows_kernel<<<(cols + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0, st>>>(
+      part, n_ctas, cols, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}

@@ -24,14 +24,18 @@ from rag_serving_system_torch.core.engine import RagEngine
 logger = logging.getLogger("rag_serving_system_torch.main")
 
 
-def build_processor(settings=None):
+def build_processor(settings=None, documents=None, doc_embeddings=None):
     """(processor, engine, request_queue, settings), the processor not yet
-    started. Settings come from the environment when not given."""
+    started. Settings come from the environment when not given; the corpus
+    from DOCUMENT_TEXT_FILE and DOCUMENT_EMBEDDINGS_FILE unless `documents`
+    and `doc_embeddings` (N, D) are passed."""
     settings = settings or get_settings()
-    logger.info("loading corpus: %s", settings.document_text_file)
-    with open(settings.document_text_file, "r", encoding="utf-8") as f:
-        documents = json.load(f)
-    doc_embeddings = np.load(settings.document_embeddings_file)
+    if documents is None:
+        logger.info("loading corpus: %s", settings.document_text_file)
+        with open(settings.document_text_file, "r", encoding="utf-8") as f:
+            documents = json.load(f)
+    if doc_embeddings is None:
+        doc_embeddings = np.load(settings.document_embeddings_file)
     engine = RagEngine(settings, documents, doc_embeddings)
     request_queue = make_queue(settings)
     processor = BatchProcessor(request_queue, engine,

@@ -1,4 +1,5 @@
-"""Random-init parameters at full width, and the JAX parameter converter.
+"""Random-init parameters at full width, and the converters of JAX parameter
+trees and IVF indexes.
 
 Counterpart of `rag_serving_system_tpu/models/weights.py:31-102`. The trees
 keep the JAX layout: dense weights (in, out), layer weights stacked on a
@@ -99,3 +100,10 @@ def params_from_jax(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return _tensor(tree, device)
+
+
+def ivf_index_from_jax(index, device="cpu"):
+    """A JAX `IvfIndex` (numpy or jax leaves) as the port's `IvfIndex`."""
+    from rag_serving_system_torch.ops.ivf import IvfIndex
+
+    return IvfIndex(*(_tensor(leaf, device) for leaf in index))

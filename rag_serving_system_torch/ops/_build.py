@@ -1,9 +1,10 @@
 """Build the CUDA kernels in `csrc/` with nvcc and bind them with ctypes.
 
-The sources compile at first use into one shared library with a plain C
-interface, under `build/torch_kernels/` at the repository root (listed in
-.gitignore). The library's name carries a hash of the sources and flags, so
-an edited kernel rebuilds and an unchanged one loads from disk. Nothing here
+The sources compile at first use, one nvcc process per source, all started
+together, and link into one shared library with a plain C interface, under
+`build/torch_kernels/` at the repository root (listed in .gitignore). The
+library's name carries a hash of the sources, headers and flags, so an
+edited kernel rebuilds and an unchanged one loads from disk. Nothing here
 runs at import time: the CPU tests import every module without nvcc.
 """
 
@@ -21,15 +22,20 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("topk.cu", "flash_attention.cu")
+SOURCES = ("topk.cu", "topk_int8.cu", "probes.cu", "flash_attention.cu")
+HEADERS = ("topk_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # every pointer and the stream are c_void_p: a default int would cut them
 _SIGNATURES = {
     "rag_cosine_topk": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "rag_cosine_topk_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                             _P],
+    "rag_stream_probe": [_P, _I, _I, _I, _I, _P, _P, _P],
+    "rag_dot_probe": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "rag_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, ctypes.c_float, _P],
 }
@@ -49,9 +55,20 @@ def _nvcc() -> str:
                        "kernels of rag_serving_system_torch cannot be built")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the first failure's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{err}")
+
+
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"librag_kernels_{h.hexdigest()[:16]}.so"
@@ -67,14 +84,16 @@ def library() -> ctypes.CDLL:
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(CSRC / s) for s in SOURCES)]
+            objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
+            nvcc = _nvcc()
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{proc.stderr}")
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                      for s, o in zip(SOURCES, objs)])
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                       *map(str, objs)]])
             build_seconds = time.perf_counter() - t0
+            for o in objs:
+                o.unlink()
             os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():

@@ -1,24 +1,30 @@
-"""Exact cosine top-k retrieval: kernel B1 and its plain PyTorch version.
+"""Exact cosine top-k retrieval: kernels B1 (f32 / bf16 corpus) and B4
+(int8 corpus), each beside its plain PyTorch version.
 
 Port of `rag_serving_system_tpu/ops/topk.py` (`_l2_normalize`,
-`cosine_topk_reference`, `cosine_topk_pallas`). The corpus is expected
-pre-normalized; queries are normalized here. Equal scores rank the lower
-corpus index first, as `lax.top_k` does.
+`cosine_topk_reference`, `cosine_topk_pallas`, the int8 quantizers,
+`cosine_topk_pallas_int8` and `cosine_topk_int8_chunked`). The corpus is
+expected pre-normalized; queries are normalized here. Equal scores rank the
+lower corpus index first, as `lax.top_k` does.
 
-`cosine_topk` is the kernel's wrapper: a CPU tensor takes the plain version,
-`cosine_topk_reference`; a CUDA tensor launches `csrc/topk.cu` or raises.
+`cosine_topk` and `cosine_topk_int8` are the kernels' wrappers: a CPU
+tensor takes the plain version (`cosine_topk_reference`,
+`cosine_topk_int8_reference`); a CUDA tensor launches `csrc/topk.cu` or
+`csrc/topk_int8.cu`, or raises.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from rag_serving_system_torch.ops import _build
 
-MAX_K = 32        # the kernel keeps each running list in one warp's lanes
-_TILE_ROWS = 128  # corpus rows per tile in csrc/topk.cu (NT)
+MAX_K = 32        # the kernels keep each running list in one warp's lanes
+_TILE_ROWS = 128  # corpus rows per tile in csrc/topk_common.cuh (NT)
+_PLAIN_ROWS = 262_144  # row block of the plain int8 scan (bounds its scratch)
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -37,15 +43,22 @@ def _kernel_queries(corpus: torch.Tensor, queries: torch.Tensor,
     return q
 
 
+def stable_topk(s: torch.Tensor, k: int):
+    """`lax.top_k` along dim 1: the k largest values and their positions,
+    equal values in position order (`torch.topk` does not promise that)."""
+    s, pos = torch.sort(s, dim=1, descending=True, stable=True)
+    return s[:, :k].contiguous(), pos[:, :k]
+
+
 def cosine_topk_reference(corpus: torch.Tensor, queries: torch.Tensor, k: int,
                           normalize_queries: bool = True):
     """Plain exact top-k: an IEEE f32 product (TF32 is off, see device.py),
-    then a stable descending sort, which keeps equal scores in index order
-    (`torch.topk` does not promise that). Returns ((B, k) f32, (B, k) i32).
+    then `stable_topk`, which keeps equal scores in index order. Returns
+    ((B, k) f32, (B, k) i32).
     For an f32 corpus this is the JAX oracle's arithmetic."""
     q = _kernel_queries(corpus, queries, normalize_queries)
-    s, i = torch.sort(q @ corpus.float().T, dim=1, descending=True, stable=True)
-    return s[:, :k].contiguous(), i[:, :k].to(torch.int32)
+    s, i = stable_topk(q @ corpus.float().T, k)
+    return s, i.to(torch.int32)
 
 
 def cosine_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
@@ -72,17 +85,13 @@ def cosine_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
         raise ValueError("cosine_topk: the corpus must be contiguous and 16-byte aligned")
     q = _kernel_queries(corpus, queries, normalize_queries).contiguous()
 
-    lib = _build.library()
     dev = corpus.device
-    n_tiles = math.ceil(n / _TILE_ROWS)
-    # one wave of CTAs, a few per SM, each streaming a contiguous span
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles_per_cta = max(1, math.ceil(n_tiles / (4 * sms)))
-    n_ctas = math.ceil(n_tiles / tiles_per_cta)
+    tiles_per_cta, n_ctas = split_tiles(n, dev)
     cand_s = torch.empty((b, n_ctas * k), dtype=torch.float32, device=dev)
     cand_i = torch.empty((b, n_ctas * k), dtype=torch.int32, device=dev)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.rag_cosine_topk(
             q.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
@@ -95,3 +104,183 @@ def cosine_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
 
 
 cosine_topk.launches = 0
+
+
+def split_tiles(n: int, dev: torch.device) -> tuple[int, int]:
+    """(tiles_per_cta, n_ctas) for n rows in 128-row tiles: one wave of
+    CTAs, a few per SM, each streaming a contiguous span."""
+    n_tiles = math.ceil(n / _TILE_ROWS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles_per_cta = max(1, math.ceil(n_tiles / (4 * sms)))
+    return tiles_per_cta, math.ceil(n_tiles / tiles_per_cta)
+
+
+# ---------------------------------------------------------------------------
+# int8 corpus (RETRIEVAL_CORPUS_DTYPE=int8): mean-centred per-row symmetric
+# quantization; the kernel ranks by the int32 dot times the row's scale, and
+# the query scale and the rank-invariant q . mean term are applied outside.
+# ---------------------------------------------------------------------------
+
+def quantize_corpus_int8(corpus: torch.Tensor):
+    """Mean-centred per-row symmetric int8 quantization. Returns
+    (values (N, D) int8, scales (1, N) f32, mean (1, D) f32) with
+    corpus ~ mean + values * scales.T."""
+    c = corpus.float()
+    mean = c.mean(dim=0, keepdim=True)
+    r = c - mean
+    amax = r.abs().amax(dim=1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(r / scale), -127, 127).to(torch.int8)
+    return q, scale.reshape(1, -1), mean
+
+
+def _quantize_queries_int8(q: torch.Tensor):
+    qf = q.float()
+    amax = qf.abs().amax(dim=1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    qi = torch.clamp(torch.round(qf / scale), -127, 127).to(torch.int8)
+    return qi, scale
+
+
+def quantize_corpus_int8_chunked(corpus, chunk_rows: int = 4_194_304,
+                                 device: str | torch.device = "cpu"):
+    """Quantize on the host (numpy, the JAX package's arithmetic line for
+    line, so values and scales match it bit for bit) into `chunk_rows`-row
+    chunks. Returns ([(values (C, D) int8, scales (1, C) f32), ...],
+    mean (1, D) f32) on `device`; the last chunk is not padded."""
+    c = np.asarray(corpus, dtype=np.float32)
+    mean = c.mean(axis=0, keepdims=True)
+    out = []
+    for lo in range(0, c.shape[0], chunk_rows):
+        r = c[lo:lo + chunk_rows] - mean
+        scale = np.maximum(np.abs(r).max(axis=1, keepdims=True), 1e-12) / 127.0
+        qv = np.clip(np.round(r / scale), -127, 127).astype(np.int8)
+        out.append((torch.as_tensor(qv, device=device),
+                    torch.as_tensor(scale.reshape(1, -1), device=device)))
+    return out, torch.as_tensor(mean, device=device)
+
+
+def _int8_queries(queries: torch.Tensor, normalize: bool):
+    """(f32 queries, int8 queries, (B, 1) query scales) as both versions
+    take them."""
+    qn = (l2_normalize(queries) if normalize else queries).float()
+    qi, qscale = _quantize_queries_int8(qn)
+    return qn, qi, qscale
+
+
+def _int8_finish(s, i, qn, qscale, corpus_mean):
+    """Fold the query scale back in (ranks are already final) and add the
+    per-query mean term, so scores approximate true cosine."""
+    s = s * qscale
+    if corpus_mean is not None:
+        s = s + qn @ corpus_mean.reshape(-1, 1).float()
+    return s, i
+
+
+def _int8_raw_plain(qi, corpus_q, scales, k):
+    """Exact int32 dots times the row scales, then an exact running top-k
+    over row blocks of at most 262,144 rows (about 1 GB of f32 scratch at
+    D = 1024). An f32 product of int8 values is exact while D * 127^2 < 2^24;
+    past that, f64."""
+    n, d = corpus_q.shape
+    dt = torch.float32 if d * 127 * 127 < 2 ** 24 else torch.float64
+    q = qi.to(dt)
+    sc = scales.reshape(-1)
+    best_s = best_i = None
+    for lo in range(0, n, _PLAIN_ROWS):
+        blk = corpus_q[lo:lo + _PLAIN_ROWS]
+        s = (q @ blk.to(dt).T).to(torch.int32).float() * sc[lo:lo + blk.shape[0]]
+        i = torch.arange(lo, lo + blk.shape[0], dtype=torch.int32,
+                         device=s.device).expand_as(s)
+        if best_s is not None:   # held entries first: they have lower indices
+            s = torch.cat([best_s, s], dim=1)
+            i = torch.cat([best_i, i], dim=1)
+        best_s, pos = stable_topk(s, k)
+        best_i = torch.gather(i, 1, pos)
+    return best_s, best_i
+
+
+def cosine_topk_int8_reference(corpus_q, corpus_scales, queries, k: int,
+                               corpus_mean=None, normalize_queries: bool = True):
+    """Plain version of `cosine_topk_int8`: the same quantized arithmetic
+    (exact int32 dots, one f32 product with the row scale) and a stable
+    descending selection. Returns ((B, k) f32, (B, k) i32)."""
+    qn, qi, qscale = _int8_queries(queries, normalize_queries)
+    s, i = _int8_raw_plain(qi, corpus_q, corpus_scales, k)
+    return _int8_finish(s, i, qn, qscale, corpus_mean)
+
+
+def cosine_topk_int8(corpus_q, corpus_scales, queries, k: int,
+                     corpus_mean=None, normalize_queries: bool = True):
+    """Kernel B4: top-k over an int8 mean-centred corpus (N, D) with
+    per-row scales (1, N) or (N,). Returns ((B, k) f32 scores approximating
+    cosine, (B, k) i32 indices)."""
+    if corpus_q.device.type == "cpu" and queries.device.type == "cpu":
+        return cosine_topk_int8_reference(corpus_q, corpus_scales, queries, k,
+                                          corpus_mean, normalize_queries)
+    dev = corpus_q.device
+    if (dev.type != "cuda" or queries.device != dev
+            or corpus_scales.device != dev):
+        raise ValueError(f"cosine_topk_int8: corpus on {dev}, scales on "
+                         f"{corpus_scales.device}, queries on {queries.device}; "
+                         "all must be on one CUDA device")
+    if corpus_q.dtype != torch.int8 or corpus_q.dim() != 2:
+        raise ValueError(f"cosine_topk_int8: corpus must be (N, D) int8, got "
+                         f"{corpus_q.dtype} {tuple(corpus_q.shape)}")
+    n, d = corpus_q.shape
+    if (corpus_scales.dtype != torch.float32
+            or tuple(corpus_scales.shape) not in ((1, n), (n,))
+            or not corpus_scales.is_contiguous()):
+        raise ValueError(f"cosine_topk_int8: scales must be contiguous (1, N) "
+                         f"or (N,) f32, got {corpus_scales.dtype} "
+                         f"{tuple(corpus_scales.shape)} for N={n}")
+    if queries.dim() != 2 or queries.shape[1] != d or queries.shape[0] < 1:
+        raise ValueError(f"cosine_topk_int8: queries {tuple(queries.shape)} vs "
+                         f"corpus {tuple(corpus_q.shape)}")
+    if d % 16 or not 1 <= k <= min(MAX_K, n):
+        raise ValueError(f"cosine_topk_int8: needs D % 16 == 0 and 1 <= k <= "
+                         f"min({MAX_K}, N); got D={d}, k={k}, N={n}")
+    if not corpus_q.is_contiguous() or corpus_q.data_ptr() % 16:
+        raise ValueError("cosine_topk_int8: the corpus must be contiguous and "
+                         "16-byte aligned")
+    qn, qi, qscale = _int8_queries(queries, normalize_queries)
+    qi = qi.contiguous()
+    b = qi.shape[0]
+    tiles_per_cta, n_ctas = split_tiles(n, dev)
+    cand_s = torch.empty((b, n_ctas * k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((b, n_ctas * k), dtype=torch.int32, device=dev)
+    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.rag_cosine_topk_int8(
+            qi.data_ptr(), corpus_q.data_ptr(), corpus_scales.data_ptr(),
+            b, n, d, k, tiles_per_cta, n_ctas, cand_s.data_ptr(),
+            cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "rag_cosine_topk_int8")
+    cosine_topk_int8.launches += 1
+    return _int8_finish(out_s, out_i, qn, qscale, corpus_mean)
+
+
+cosine_topk_int8.launches = 0
+
+
+def cosine_topk_int8_chunked(chunks, queries, k: int, corpus_mean=None,
+                             normalize_queries: bool = True):
+    """Exact merge of per-chunk `cosine_topk_int8` winners. `chunks` is
+    [(values (C, D) int8, scales (1, C) f32), ...] in corpus order. Returns
+    ((B, k) scores, (B, k) global indices); equal scores rank the lower
+    global index first."""
+    all_s, all_i = [], []
+    base = 0
+    for values, scales in chunks:
+        s, i = cosine_topk_int8(values, scales, queries, min(k, values.shape[0]),
+                                corpus_mean, normalize_queries)
+        all_s.append(s)
+        all_i.append(i + base)
+        base += values.shape[0]
+    if len(chunks) == 1:
+        return all_s[0], all_i[0]
+    top_s, pos = stable_topk(torch.cat(all_s, dim=1), k)
+    return top_s, torch.gather(torch.cat(all_i, dim=1), 1, pos)

@@ -12,8 +12,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from unittest import mock  # noqa: E402
+
 from rag_serving_system_torch.device import resolve_device  # noqa: E402
 from rag_serving_system_torch.ops import attention as ta  # noqa: E402
+from rag_serving_system_torch.ops import probes as tp  # noqa: E402
 from rag_serving_system_torch.ops import topk as tt  # noqa: E402
 
 
@@ -97,3 +100,122 @@ def test_kernel_wrappers_check_inputs(dev):
         tt.cosine_topk(_randn(dev, (100, 64), 8), _randn(dev, (1, 64), 9), 33)
     assert np.isfinite(tt.cosine_topk(_randn(dev, (100, 64), 8),
                                       _randn(dev, (1, 64), 9), 4)[0].cpu().numpy()).all()
+
+
+def _int8_corpus(dev, n, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = torch.randint(-127, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
+    scales = torch.rand((1, n), generator=g, device=dev) / 127 + 1e-4
+    return c, scales
+
+
+@pytest.mark.parametrize("n,d,b,k", [
+    (1000, 1024, 32, 16),
+    (777, 1024, 5, 1),       # N a multiple of no tile, k = 1
+    (5000, 1024, 64, 16),    # two query groups of 32
+    (300, 80, 2, 32),        # D not a multiple of the 128-byte chunk; widest list
+    (4099, 64, 3, 2),
+])
+def test_topk_int8_kernel_bit_identical_to_plain(dev, n, d, b, k):
+    c, scales = _int8_corpus(dev, n, d, n + d)
+    q = _randn(dev, (b, d), n + 1)
+    mean = _randn(dev, (1, d), n + 2) * 0.1
+    before = tt.cosine_topk_int8.launches
+    s, i = tt.cosine_topk_int8(c, scales, q, k, corpus_mean=mean)
+    assert tt.cosine_topk_int8.launches == before + 1
+    rs, ri = tt.cosine_topk_int8_reference(c, scales, q, k, corpus_mean=mean)
+    assert torch.equal(i, ri)
+    assert torch.equal(s, rs)
+
+
+def test_topk_int8_kernel_ties_lowest_index_first(dev):
+    pat, _ = _int8_corpus(dev, 4, 128, 3)
+    c = pat[torch.arange(900, device=dev) % 4].contiguous()
+    scales = torch.full((1, 900), 0.01, device=dev)
+    q = pat[:2].float()
+    s, i = tt.cosine_topk_int8(c, scales, q, 16)
+    rs, ri = tt.cosine_topk_int8_reference(c, scales, q, 16)
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+    assert i[0].tolist() == list(range(0, 64, 4))
+
+
+def test_topk_int8_chunked_kernel_matches_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    emb = tt.l2_normalize(torch.randn((3000, 128), generator=g, device=dev))
+    chunks, mean = tt.quantize_corpus_int8_chunked(emb.cpu().numpy(), chunk_rows=700,
+                                                   device=dev)
+    q = _randn(dev, (7, 128), 6)
+    before = tt.cosine_topk_int8.launches
+    s, i = tt.cosine_topk_int8_chunked(chunks, q, 16, corpus_mean=mean)
+    assert tt.cosine_topk_int8.launches == before + len(chunks) == before + 5
+    with mock.patch.object(tt, "cosine_topk_int8", tt.cosine_topk_int8_reference):
+        rs, ri = tt.cosine_topk_int8_chunked(chunks, q, 16, corpus_mean=mean)
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+
+
+def _sum_order_tol(terms, n_chain):
+    """A change of summation order moves an f32 sum by at most about
+    n_chain * 2^-24 * (sum of the terms' absolute values)."""
+    return n_chain * 2.0 ** -24 * terms
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("n,d,block_n", [(5000, 1024, 512), (4096, 64, 128),
+                                         (3000, 80, 100), (700, 2048, 300)])
+def test_stream_probe_matches_plain(dev, dtype, n, d, block_n):
+    if dtype == torch.int8:
+        c, _ = _int8_corpus(dev, n, d, 11)
+    else:
+        c = _randn(dev, (n, d), 11, dtype)
+    before = tp.stream_probe.launches
+    out = tp.stream_probe(c, block_n)
+    assert tp.stream_probe.launches == before + 1
+    ref = tp.stream_probe_plain(c, block_n)
+    assert out.shape == ref.shape == (1, d)
+    tol = _sum_order_tol(tp.abs_terms(c, None, block_n), 2 * (n // block_n))
+    assert ((out - ref).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("dtype,highest", [(torch.float32, True), (torch.float32, False),
+                                           (torch.bfloat16, True), (torch.int8, True)])
+@pytest.mark.parametrize("n,d,b,block_n", [(5000, 1024, 40, 512), (1024, 64, 3, 256)])
+def test_dot_probe_matches_plain(dev, dtype, highest, n, d, b, block_n):
+    if dtype == torch.int8:
+        c, _ = _int8_corpus(dev, n, d, 12)
+        q, _ = _int8_corpus(dev, b, d, 13)
+    else:
+        c = tt.l2_normalize(_randn(dev, (n, d), 12)).to(dtype)
+        q = _randn(dev, (b, d), 13)
+    before = tp.dot_probe.launches
+    out = tp.dot_probe(c, q, block_n, highest)
+    assert tp.dot_probe.launches == before + 1
+    ref = tp.dot_probe_plain(c, q, block_n, highest)
+    assert out.shape == ref.shape == (b, 128)
+    # random-sign sums: 32 is a wide margin over the error these sums show
+    tol = _sum_order_tol(tp.abs_terms(c, q, block_n, highest), 32)
+    assert ((out - ref).abs() <= tol).all()
+
+
+def test_int8_and_probe_wrappers_check_inputs(dev):
+    c, scales = _int8_corpus(dev, 200, 64, 14)
+    q = _randn(dev, (2, 64), 15)
+    for bad in (dict(corpus_q=c.float()),                    # not int8
+                dict(corpus_scales=scales[:, :100]),         # wrong length
+                dict(corpus_scales=scales.double()),         # not f32
+                dict(corpus_q=c[:, :40].contiguous(), queries=q[:, :40]),  # D % 16
+                dict(k=33), dict(k=0),
+                dict(corpus_q=c[::2], corpus_scales=scales[:, :100])):  # strided
+        args = dict(corpus_q=c, corpus_scales=scales, queries=q, k=4)
+        args.update(bad)
+        with pytest.raises(ValueError):
+            tt.cosine_topk_int8(**args)
+    with pytest.raises(ValueError):                           # k > N
+        tt.cosine_topk_int8(c[:8], scales[:, :8].contiguous(), q, 16)
+    with pytest.raises(ValueError):                           # block_n % 128
+        tp.dot_probe(_randn(dev, (512, 64), 16), q, 200)
+    with pytest.raises(ValueError):                           # int8 corpus, f32 queries
+        tp.dot_probe(c, q, 128)
+    with pytest.raises(ValueError):                           # block_n > N
+        tp.stream_probe(c, 256)
+    with pytest.raises(ValueError):                           # D * itemsize % 16
+        tp.stream_probe(_randn(dev, (256, 6), 17), 128)

@@ -26,7 +26,11 @@ from rag_serving_system_tpu.core.retriever import _l2n  # noqa: E402
 from rag_serving_system_tpu.core.request_queue import make_queue  # noqa: E402
 from rag_serving_system_torch.core import engine as port_engine  # noqa: E402
 from rag_serving_system_torch.core.batch_processor import BatchProcessor  # noqa: E402
-from rag_serving_system_torch.models.weights import params_from_jax  # noqa: E402
+from rag_serving_system_torch.models.weights import (  # noqa: E402
+    ivf_index_from_jax,
+    params_from_jax,
+)
+from rag_serving_system_tpu.ops import topk as jax_topk  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUERIES = ["what is w1 w2", "tell me w5", "w7 w8 w9 w10", "another question w3"]
@@ -175,13 +179,66 @@ def test_http_post_and_poll(corpus, tmp_path, monkeypatch):
         proc.stop(drain_timeout=2.0)
 
 
+def _engine_pair(corpus, **over):
+    """A JAX and a port engine on one corpus, sharing the JAX weights."""
+    docs, emb = corpus
+    s = tiny_settings(**over)
+    je = jax_engine.RagEngine(s, docs, emb)
+    te = port_engine.RagEngine(s, docs, emb, device="cpu")
+    te.enc_params = params_from_jax(jax.device_get(je.enc_params))
+    return je, te
+
+
+@pytest.mark.parametrize("over", [
+    dict(retrieval_corpus_dtype="int8"),
+    dict(retrieval_corpus_dtype="int8", topk_chunk_rows=15),   # 3 chunks, ragged tail
+    dict(retriever="ivf", ivf_clusters=4, ivf_nprobe=2, ivf_recall_gate=0.0),
+], ids=["int8", "int8_chunked", "ivf"])
+def test_engine_serves_retrieval_settings_like_jax(corpus, over):
+    je, te = _engine_pair(corpus, **over)
+    if over.get("retriever") == "ivf":   # k-means inits differ: share JAX's index
+        assert te.ivf_index is not None and te.corpus is None
+        te.ivf_index = ivf_index_from_jax(jax.device_get(je.ivf_index))
+        te.ivf_nprobe = je.ivf_nprobe
+    else:
+        chunked = "topk_chunk_rows" in over
+        assert (te.corpus_chunks is not None) == chunked
+        assert (je.corpus_chunks is not None) == chunked
+        if chunked:
+            assert [c.shape[0] for c, _ in te.corpus_chunks] == [15, 15, 10]
+    ks = [4, 2, 3, 4]
+    ids = te.embed_and_retrieve(QUERIES, ks)
+    assert ids == je.embed_and_retrieve(QUERIES, ks)
+    assert [len(r) for r in ids] == ks
+    assert all(isinstance(r["result"], str) for r in te.process(QUERIES[:2], [2, 2]))
+
+
+def test_engine_bfloat16_corpus_follows_the_kernel(corpus):
+    """A bf16 corpus meets bf16-rounded queries, as the TPU kernel does; the
+    JAX engine's CPU path scores unrounded f32 queries, so it must agree
+    only where no near-tie exists."""
+    docs, emb = corpus
+    je, te = _engine_pair(corpus, retrieval_corpus_dtype="bfloat16")
+    assert te.corpus.dtype == torch.bfloat16
+    q = te._embed_queries(QUERIES).float().numpy()
+    ids = te.embed_and_retrieve(QUERIES, [4] * 4)
+    _, want = jax_topk.cosine_topk_pallas(jax.device_get(je.corpus), q, te.max_k,
+                                          block_n=128, interpret=True)
+    assert ids == np.asarray(want)[:4].tolist()
+    exact = jax_topk.cosine_topk_reference(_l2n(emb), q[:4], te.max_k + 1)[0]
+    gaps = -np.diff(np.asarray(exact), axis=1)
+    clear = [i for i in range(4) if gaps[i].min() > 1e-2]
+    assert clear
+    ref = je.embed_and_retrieve(QUERIES, [4] * 4)
+    assert [ids[i] for i in clear] == [ref[i] for i in clear]
+
+
 @pytest.mark.parametrize("over,var", [
     (dict(prefix_cache=True), "PREFIX_CACHE"),
     (dict(decode_mode="continuous"), "DECODE_MODE"),
     (dict(quant_weights="int8"), "QUANT_WEIGHTS"),
     (dict(quant_act="int8"), "QUANT_ACT"),
-    (dict(retrieval_corpus_dtype="bfloat16"), "RETRIEVAL_CORPUS_DTYPE"),
-    (dict(retriever="ivf"), "RETRIEVER"),
+    (dict(max_k=48), "MAX_K"),
     (dict(spec_gamma=2), "SPEC_DECODE"),
     (dict(mesh_shape="2,1"), "MESH_SHAPE"),
     (dict(weights_dir="/nonexistent"), "WEIGHTS_DIR"),
@@ -216,12 +273,14 @@ def test_copied_constants_equal_jax():
 def test_port_never_imports_jax():
     mods = ["rag_serving_system_torch", "rag_serving_system_torch.device",
             "rag_serving_system_torch.ops._build", "rag_serving_system_torch.ops.topk",
-            "rag_serving_system_torch.ops.attention",
+            "rag_serving_system_torch.ops.attention", "rag_serving_system_torch.ops.ivf",
+            "rag_serving_system_torch.ops.probes", "rag_serving_system_torch.profile_topk",
             "rag_serving_system_torch.models", "rag_serving_system_torch.models.layers",
             "rag_serving_system_torch.models.weights",
             "rag_serving_system_torch.models.e5", "rag_serving_system_torch.models.qwen2",
             "rag_serving_system_torch.core.engine",
             "rag_serving_system_torch.core.batch_processor",
+            "rag_serving_system_torch.core.retriever",
             "rag_serving_system_torch.main"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
