@@ -8,8 +8,9 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
 1. device     - the card (torch and nvidia-smi).
 2. build      - nvcc builds the kernels in rag_serving_system_torch/csrc/.
 3. kernels    - each kernel against its plain PyTorch version at main-path
-                shapes, with CUDA-event times of both: B1 at 1M and 1000
-                rows, B2, B3, B4 at 1M rows and chunked over 10M rows
+                shapes, with CUDA-event times of both: B1 at 1M rows (f32
+                and bf16 corpus, k = 16, 64, 256) and 1000 rows, B2, B3, B4
+                at 1M rows (k = 16, 64, 256) and chunked over 10M rows
                 (10.24 GB of int8 on the card), P1 and P2 at 1M rows.
 4. roofline   - profile_topk's 1M-row rows: P1 (stream), P2 (dot) and the
                 top-k kernel (full) for f32, bf16 and int8 corpora.
@@ -141,13 +142,10 @@ def phase_build():
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.build_seconds)
 
 
-def _check_topk(dev, n, b, k, seed):
+def _check_topk(corpus, queries, k, reps=20):
     import torch
     from rag_serving_system_torch.ops import topk
 
-    g = torch.Generator(device=dev).manual_seed(seed)
-    corpus = topk.l2_normalize(torch.randn((n, 1024), generator=g, device=dev))
-    queries = torch.randn((b, 1024), generator=g, device=dev)
     s_k, i_k = topk.cosine_topk(corpus, queries, k)
     s_p, i_p = topk.cosine_topk_reference(corpus, queries, k + 1)
     torch.cuda.synchronize()
@@ -163,10 +161,10 @@ def _check_topk(dev, n, b, k, seed):
     require(not bad.any().item(), f"cosine_topk indices differ at "
             f"{bad.nonzero().tolist()[:8]} (no near-tie there)")
     n_swapped = int((i_k != i_p[:, :k]).sum().item())
-    ms = cuda_ms(lambda: topk.cosine_topk(corpus, queries, k), 20)
-    plain_ms = cuda_ms(lambda: topk.cosine_topk_reference(corpus, queries, k), 5)
-    return {"n": n, "b": b, "k": k, "max_abs_err": err, "near_tie_swaps": n_swapped,
-            "ms": ms, "plain_ms": plain_ms}
+    ms = cuda_ms(lambda: topk.cosine_topk(corpus, queries, k), reps)
+    plain_ms = cuda_ms(lambda: topk.cosine_topk_reference(corpus, queries, k), 3)
+    return {"n": corpus.shape[0], "b": queries.shape[0], "k": k, "corpus": str(corpus.dtype),
+            "max_abs_err": err, "near_tie_swaps": n_swapped, "ms": ms, "plain_ms": plain_ms}
 
 
 def _seeded_qkv(dev, shape_q, shape_kv, dtype, seed):
@@ -238,9 +236,10 @@ def _check_flash_packed(dev, dtype, tol, seed):
 
 
 def _check_topk_int8(dev, seed):
-    """B4 at 1M rows, then chunked over 10M: indices identical and scores
-    bit-identical to the plain version (the int32 dot is exact in both, and
-    each score is one correctly rounded product), ties included."""
+    """B4 at 1M rows (k = 16, 64, 256), then chunked over 10M: indices
+    identical and scores bit-identical to the plain version (the int32 dot is
+    exact in both, and each score is one correctly rounded product), ties
+    included."""
     from unittest import mock
 
     import torch
@@ -265,6 +264,20 @@ def _check_topk_int8(dev, seed):
         corpus, scales, queries, k, corpus_mean=mean), 3)
     one = {"n": n, "b": b, "k": k, "max_abs_err": (s_k - s_p).abs().max().item(),
            "ms": ms, "plain_ms": plain_ms}
+    wide = []
+    for kw in (64, 256):
+        s_k, i_k = topk.cosine_topk_int8(corpus, scales, queries, kw, corpus_mean=mean)
+        s_p, i_p = topk.cosine_topk_int8_reference(corpus, scales, queries, kw,
+                                                   corpus_mean=mean)
+        torch.cuda.synchronize()
+        require(torch.equal(i_k, i_p), f"cosine_topk_int8 indices differ at k={kw}")
+        require(torch.equal(s_k, s_p), f"cosine_topk_int8 scores at k={kw} are not "
+                "bit-identical")
+        wide.append({"n": n, "b": b, "k": kw, "max_abs_err": (s_k - s_p).abs().max().item(),
+                     "ms": cuda_ms(lambda: topk.cosine_topk_int8(
+                         corpus, scales, queries, kw, corpus_mean=mean), 5),
+                     "plain_ms": cuda_ms(lambda: topk.cosine_topk_int8_reference(
+                         corpus, scales, queries, kw, corpus_mean=mean), 2)})
     del corpus, scales
     torch.cuda.empty_cache()
 
@@ -287,7 +300,7 @@ def _check_topk_int8(dev, seed):
            "plain_ms": plain_ms}
     del chunks
     torch.cuda.empty_cache()
-    return one, ten
+    return one, wide, ten
 
 
 def _check_probes(dev, seed):
@@ -345,11 +358,22 @@ def phase_kernels(dev) -> dict:
     docs; the probes on the f32 corpus)."""
     import torch
 
+    from rag_serving_system_torch.ops.topk import l2_normalize
+
     out = {}
     for n in (1_000_000, 1000):  # the exact regime's scale; the served corpus
-        r = _check_topk(dev, n, 32, 16, seed=0)
-        emit("kernel", name="cosine_topk", **r)
-        out.setdefault("cosine_topk", r)
+        g = torch.Generator(device=dev).manual_seed(0)
+        corpus = l2_normalize(torch.randn((n, 1024), generator=g, device=dev))
+        queries = torch.randn((32, 1024), generator=g, device=dev)
+        for dtype in ((torch.float32, torch.bfloat16) if n > 1000 else (torch.float32,)):
+            c = corpus.to(dtype)
+            for k in ((16, 64, 256) if n > 1000 else (16,)):
+                r = _check_topk(c, queries, k, reps=20 if k == 16 else 5)
+                emit("kernel", name="cosine_topk", **r)
+                out.setdefault("cosine_topk", r)
+            del c
+        del corpus
+        torch.cuda.empty_cache()
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-4)):
         r = _check_flash(dev, dtype, tol, seed=1)
         emit("kernel", name="flash_attention", **r)
@@ -358,8 +382,9 @@ def phase_kernels(dev) -> dict:
         emit("kernel", name="flash_attention_packed", **r)
         out.setdefault("flash_attention_packed", r)
     torch.cuda.empty_cache()
-    one, ten = _check_topk_int8(dev, seed=3)
-    emit("kernel", name="cosine_topk_int8", **one)
+    one, wide, ten = _check_topk_int8(dev, seed=3)
+    for r in (one, *wide):
+        emit("kernel", name="cosine_topk_int8", **r)
     emit("kernel", name="cosine_topk_int8_chunked", **ten)
     out["cosine_topk_int8"] = one
     for r in _check_probes(dev, seed=5):

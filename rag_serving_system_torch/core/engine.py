@@ -79,8 +79,9 @@ def _l2n(x: np.ndarray) -> np.ndarray:  # rag_serving_system_tpu/core/retriever.
     return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
 
 
-def unsupported_settings(settings: Settings) -> list[str]:
-    """The settings this port does not implement yet, each with its value."""
+def unsupported_settings(settings: Settings, n_docs: int) -> list[str]:
+    """The settings this port does not implement yet over a corpus of
+    n_docs rows, each with its value."""
     bad = []
     if settings.prefix_cache:
         bad.append("PREFIX_CACHE=1 (run the port with PREFIX_CACHE=0)")
@@ -90,8 +91,11 @@ def unsupported_settings(settings: Settings) -> list[str]:
         bad.append(f"QUANT_WEIGHTS={settings.quant_weights}")
     if settings.quant_act != "none":
         bad.append(f"QUANT_ACT={settings.quant_act}")
-    if settings.max_k > MAX_K:
-        bad.append(f"MAX_K={settings.max_k} (the top-k kernels keep k <= {MAX_K})")
+    # the engine retrieves min(MAX_K, n_docs), as the JAX engine does; IVF
+    # runs no top-k kernel
+    if settings.retriever != "ivf" and min(settings.max_k, n_docs) > MAX_K:
+        bad.append(f"MAX_K={settings.max_k} over {n_docs} documents (the top-k "
+                   f"kernels keep k <= {MAX_K})")
     if settings.spec_gamma > 0:
         bad.append(f"SPEC_DECODE={settings.spec_gamma}")
     if settings.mesh_shape and np.prod(
@@ -122,7 +126,8 @@ class RagEngine:
 
     def __init__(self, settings: Settings, documents: List[str],
                  doc_embeddings: np.ndarray, device: str | torch.device | None = None):
-        bad = unsupported_settings(settings)
+        emb = np.asarray(doc_embeddings, dtype=np.float32)
+        bad = unsupported_settings(settings, emb.shape[0] if emb.ndim else 0)
         if bad:
             raise ValueError("rag_serving_system_torch does not implement: "
                              + "; ".join(bad))
@@ -133,7 +138,6 @@ class RagEngine:
         self.dtype = torch_dtype(settings.dtype)
         self.enc_cfg = encoder_config_for(settings.model_preset)
         self.dec_cfg = decoder_config_for(settings.model_preset)
-        emb = np.asarray(doc_embeddings, dtype=np.float32)
         if emb.ndim != 2 or emb.shape[1] != self.enc_cfg.hidden_size:
             raise ValueError(
                 f"corpus embeddings {emb.shape} do not match encoder hidden size "

@@ -14,12 +14,18 @@
 //
 // P2, dot: out[b, l] = sum over n < n_rows with n mod 128 == l of
 // q[b] . c[n]. This is B1's (and B4's) score tile from topk_common.cuh
-// without the selection: IEEE f32 FMAs for f32, bf16 widened to f32, int8
-// dp4a into int32 (converted to f32 before the fold). With round_bf16 an f32
-// corpus is rounded to bf16 on load (the wrapper rounds q): the TPU's
-// one-pass Precision.DEFAULT. Each CTA folds its tiles' columns into lanes
-// in registers and writes a (B, 128) partial; a second pass sums the CTAs'
-// partials in CTA order.
+// without the selection, on B1's grid (one CTA per SM, 512-row tiles for
+// f32 and bf16; ~4 CTAs per SM, 128-row tiles for int8): IEEE f32 FMAs for
+// f32, bf16 widened to f32, int8 dp4a into int32 (converted to f32 before
+// the fold). With round_bf16 an f32 corpus is rounded to bf16 as it leaves
+// the ring (the wrapper rounds q): the TPU's one-pass Precision.DEFAULT.
+// Each CTA folds its tiles' columns into lanes in registers and writes a
+// (B, 128) partial; a second pass sums the CTAs' partials in CTA order.
+// What bounds the float tile: its FP32 FMA issue. At 1M x 1024, B = 32 on
+// an NVIDIA H100 80GB HBM3 at 700 W, P2 f32 takes 1.71 ms against 1.40 ms
+// for P1 (the HBM stream) and 1.52 ms for the tile's FMAs alone, and cuBLAS's
+// FP32 GEMM plus the fold takes 2.29 ms; details in topk_common.cuh and
+// PERF.md.
 
 #include "topk_common.cuh"
 
@@ -27,10 +33,17 @@ namespace {
 
 constexpr int STREAM_THREADS = 256;
 constexpr int SUM_THREADS = 256;
+constexpr int LANES = 128;  // P2 folds row n into output lane n % 128
 
 enum Dtype { F32 = 0, BF16 = 1, INT8 = 2 };
 
-__device__ __forceinline__ void load16(const float* p, float (&o)[4]) { load4(p, o); }
+__device__ __forceinline__ void load16(const float* p, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
 
 __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&o)[8]) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -100,39 +113,37 @@ sum_rows_kernel(const float* __restrict__ partial, int rows, int cols,
   out[c] = s;
 }
 
-__device__ __forceinline__ void store_fold(const float (&fold)[4][4], int q_base, int B,
-                                           float* __restrict__ partial) {
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = q_base + ty * 4 + i;
-    if (b >= B) continue;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      partial[((int64_t)blockIdx.x * B + b) * NT + tx + 32 * r] = fold[i][r];
-  }
-}
-
+// The float tile's fold: fold[h][i] holds lane warp * 8 + (lane & 7) +
+// 64 * h of query q_base + (lane >> 3) * 8 + i (rows j = h, h + 2, ... of
+// each tile, as n mod 128 repeats every 128 rows).
 template <typename T, bool ROUND_BF16>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 dot_probe_kernel(const float* __restrict__ q, const T* __restrict__ corpus, int B, int N,
                  int D, int tiles_per_cta, float* __restrict__ partial) {
-  __shared__ FloatTileSmem sm;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int q_base = blockIdx.y * QG;
-  const int n_tiles = (N + NT - 1) / NT;
+  const int n_tiles = (N + FT_ROWS - 1) / FT_ROWS;
   const int tile_lo = blockIdx.x * tiles_per_cta;
   const int tile_hi = min(tile_lo + tiles_per_cta, n_tiles);
-  float fold[4][4] = {};
-  for (int tile = tile_lo; tile < tile_hi; ++tile) {
-    float acc[4][4];
-    float_tile<T, ROUND_BF16>(q, corpus, B, N, D, q_base, tile * NT, sm, acc);
+  float fold[2][8] = {};
+  float_scan<T, ROUND_BF16>(q, corpus, B, N, D, q_base, tile_lo, tile_hi, smem,
+                            [&](const float(&acc)[8][8], int) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+                              for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) fold[i][r] += acc[i][r];
+                                for (int i = 0; i < 8; ++i) fold[j & 1][i] += acc[j][i];
+                            });
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int b = q_base + (lane >> 3) * 8 + i;
+    if (b >= B) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      partial[((int64_t)blockIdx.x * B + b) * LANES + warp * 8 + (lane & 7) + 64 * h] =
+          fold[h][i];
   }
-  store_fold(fold, q_base, B, partial);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -152,7 +163,16 @@ dot_probe_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ c
 #pragma unroll
       for (int r = 0; r < 4; ++r) fold[i][r] += __int2float_rn(acc[i][r]);
   }
-  store_fold(fold, q_base, B, partial);
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int b = q_base + ty * 4 + i;
+    if (b >= B) continue;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      partial[((int64_t)blockIdx.x * B + b) * LANES + tx + 32 * r] = fold[i][r];
+  }
 }
 
 template <typename T>
@@ -191,38 +211,56 @@ extern "C" int rag_stream_probe(const void* corpus, int dtype, int N, int D, int
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+template <typename T, bool ROUND_BF16>
+cudaError_t launch_dot(const float* q, const T* corpus, int B, int N, int D,
+                       int tiles_per_cta, int n_ctas, float* partial, cudaStream_t st) {
+  constexpr int smem = FloatTile<T>::RING_BYTES;
+  const cudaError_t err = allow_smem(dot_probe_kernel<T, ROUND_BF16>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_ctas, (B + QG - 1) / QG);
+  dot_probe_kernel<T, ROUND_BF16><<<grid, THREADS, smem, st>>>(q, corpus, B, N, D,
+                                                               tiles_per_cta, partial);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // q: (B, D) f32 (int8 for an int8 corpus); corpus: (N, D) as above, where N
-// is the number of rows probed (a multiple of 128). D % 4 == 0 (f32, bf16)
-// or D % 16 == 0 (int8). partial: (n_ctas, B, 128) f32 scratch, with
-// n_ctas = ceil(N / 128 / tiles_per_cta); out: (B, 128) f32.
+// is the number of rows probed (a multiple of 128). D * itemsize % 16 == 0.
+// partial: (n_ctas, B, 128) f32 scratch, with n_ctas = ceil(N / rows /
+// tiles_per_cta) for tiles of 512 rows (f32, bf16) or 128 rows (int8);
+// out: (B, 128) f32.
 extern "C" int rag_dot_probe(const void* q, const void* corpus, int dtype, int round_bf16,
                              int B, int N, int D, int tiles_per_cta, int n_ctas,
                              void* partial, void* out, void* stream) {
-  if (dtype < F32 || dtype > INT8 || B < 1 || N < NT || N % NT != 0 || tiles_per_cta < 1 ||
-      D % (dtype == INT8 ? 16 : 4) != 0) {
+  const int itemsize = dtype == F32 ? 4 : dtype == BF16 ? 2 : 1;
+  if (dtype < F32 || dtype > INT8 || B < 1 || N < LANES || N % LANES != 0 ||
+      tiles_per_cta < 1 || n_ctas < 1 || D < 1 || (D * itemsize) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid(n_ctas, (B + QG - 1) / QG);
   float* part = static_cast<float*>(partial);
   const float* qf = static_cast<const float*>(q);
+  cudaError_t err;
   if (dtype == INT8) {
-    dot_probe_int8_kernel<<<grid, THREADS, 0, st>>>(
+    dot_probe_int8_kernel<<<dim3(n_ctas, (B + QG - 1) / QG), THREADS, 0, st>>>(
         static_cast<const int8_t*>(q), static_cast<const int8_t*>(corpus), B, N, D,
         tiles_per_cta, part);
+    err = cudaGetLastError();
   } else if (dtype == BF16) {
-    dot_probe_kernel<__nv_bfloat16, false><<<grid, THREADS, 0, st>>>(
-        qf, static_cast<const __nv_bfloat16*>(corpus), B, N, D, tiles_per_cta, part);
+    err = launch_dot<__nv_bfloat16, false>(qf, static_cast<const __nv_bfloat16*>(corpus), B,
+                                           N, D, tiles_per_cta, n_ctas, part, st);
   } else if (round_bf16) {
-    dot_probe_kernel<float, true><<<grid, THREADS, 0, st>>>(
-        qf, static_cast<const float*>(corpus), B, N, D, tiles_per_cta, part);
+    err = launch_dot<float, true>(qf, static_cast<const float*>(corpus), B, N, D,
+                                  tiles_per_cta, n_ctas, part, st);
   } else {
-    dot_probe_kernel<float, false><<<grid, THREADS, 0, st>>>(
-        qf, static_cast<const float*>(corpus), B, N, D, tiles_per_cta, part);
+    err = launch_dot<float, false>(qf, static_cast<const float*>(corpus), B, N, D,
+                                   tiles_per_cta, n_ctas, part, st);
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int cols = B * NT;
+  const int cols = B * LANES;
   sum_rows_kernel<<<(cols + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0, st>>>(
       part, n_ctas, cols, static_cast<float*>(out));
   return (int)cudaGetLastError();

@@ -9,81 +9,132 @@
 // 2 * B * N * D flops. The oracle is an IEEE f32 product (Precision.HIGHEST),
 // so the f32 path uses FP32 FMAs, not TF32 tensor cores, and at the serving
 // batch (B = 32) the kernel sits near the balance point of HBM bandwidth and
-// FP32 issue rate. Measured on an H100 80GB HBM3 at a 700 W limit: 2.42 ms
-// at N = 1M, D = 1024, B = 32, k = 16 (1.69 TB/s of corpus, 27 TFLOP/s):
-// no copy is in flight while a tile's FMAs run, which caps both.
+// FP32 issue rate (16 FLOP per corpus byte against the card's 20). The
+// first tile loaded each chunk, then computed, with no copy in flight: 2.57
+// ms at N = 1,048,576, D = 1024, B = 32, k = 16 on an NVIDIA H100 80GB HBM3
+// at a 700 W limit. The tile of topk_common.cuh keeps two chunks in flight
+// under the FMAs: 1.84-1.89 ms on the same shapes and card, of which 1.71
+// ms is the tile (P2) and the rest the selection, which stalls the FMAs of
+// the whole CTA once a tile. At k = 256 the selection dominates: 4.15 ms
+// (PERF.md, the float tile's findings).
 //
 // Design: blocks run in parallel on the SMs, so the corpus is split across
-// CTAs instead of walked in order. Each CTA streams a contiguous span of
-// 128-row tiles: the register-tiled FP32 score tile of topk_common.cuh
-// (32 queries x 128 rows) goes to shared memory, where it stays, and is
-// merged into the warps' running lists; a second kernel reduces the
-// (B, n_ctas * k) candidates to (B, k). Selection, tie order and the merge
-// are shared with kernel B4 (topk_int8.cu).
+// CTAs instead of walked in order: one CTA per SM (the ring and the score
+// tile take 207-215 KB of shared memory), each streaming a contiguous span
+// of 512-row tiles through the float score tile of topk_common.cuh (32
+// queries x 512 rows). Each tile's scores go to shared memory and are
+// merged into the warps' running lists (k <= 256); a tree of merge kernels
+// reduces the (B, n_ctas, k) candidates to (B, k). Selection, tie order
+// and the merge are shared with kernel B4 (topk_int8.cu).
 
 #include "topk_common.cuh"
 
 namespace {
 
+// score tile rows: one float of pad, so the 4 query groups of a warp
+// store to 4 different bank groups
+constexpr int SS_LD = FT_ROWS + 1;
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+constexpr int partial_smem_bytes() {
+  return FloatTile<T>::RING_BYTES + QG * SS_LD * 4;
+}
+
+template <typename T, int KR>
+__global__ void __launch_bounds__(THREADS, 1)
 topk_partial_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
                     int B, int N, int D, int k, int tiles_per_cta,
                     float* __restrict__ cand_s, int* __restrict__ cand_i) {
-  __shared__ FloatTileSmem sm;
-  __shared__ float Ss[QG][NT];
+  extern __shared__ __align__(16) unsigned char smem[];
+  float(*Ss)[SS_LD] = reinterpret_cast<float(*)[SS_LD]>(smem + FloatTile<T>::RING_BYTES);
 
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int q_base = blockIdx.y * QG;
-  const int n_tiles = (N + NT - 1) / NT;
+  const int n_tiles = (N + FT_ROWS - 1) / FT_ROWS;
   const int tile_lo = blockIdx.x * tiles_per_cta;
   const int tile_hi = min(tile_lo + tiles_per_cta, n_tiles);
 
-  float top_s[4];
-  int top_i[4];
-  init_lists(top_s, top_i);
+  WarpLists<KR> lists;
+  lists.init(q_base, B, k, cand_s, cand_i);
 
-  for (int tile = tile_lo; tile < tile_hi; ++tile) {
-    const int n0 = tile * NT;
-    float acc[4][4];
-    float_tile<T, false>(q, corpus, B, N, D, q_base, n0, sm, acc);
+  float_scan<T, false>(q, corpus, B, N, D, q_base, tile_lo, tile_hi, smem,
+                       [&](const float(&acc)[8][8], int n0) {
+                         __syncthreads();  // every warp is done merging the last tile
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+                         for (int j = 0; j < 8; ++j) {
+                           const int col = warp * 8 + (lane & 7) + 64 * j;
+                           const bool valid = n0 + col < N;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int col = tx + 32 * r;
-        Ss[ty * 4 + i][col] = (n0 + col < N) ? acc[i][r] : -INFINITY;
-      }
-    __syncthreads();
-    merge_tile(Ss, q_base, B, n0, k, top_s, top_i);
-    // the next tile rewrites Ss only after the __syncthreads of its first chunk
+                           for (int i = 0; i < 8; ++i)
+                             Ss[(lane >> 3) * 8 + i][col] = valid ? acc[j][i] : -INFINITY;
+                         }
+                         __syncthreads();
+                         merge_tile<KR, FT_ROWS, SS_LD>(Ss, q_base, B, n0, k, lists, cand_s,
+                                                        cand_i);
+                       });
+  lists.finish(q_base, B, k, cand_s, cand_i);
+}
+
+template <typename T, int KR>
+int launch_partial(const float* q, const T* corpus, int B, int N, int D, int k,
+                   int tiles_per_cta, int n_ctas, float* cand_s, int* cand_i,
+                   cudaStream_t st) {
+  constexpr int smem = partial_smem_bytes<T>();
+  const cudaError_t attr = allow_smem(topk_partial_kernel<T, KR>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(n_ctas, (B + QG - 1) / QG);
+  topk_partial_kernel<T, KR><<<grid, THREADS, smem, st>>>(q, corpus, B, N, D, k,
+                                                          tiles_per_cta, cand_s, cand_i);
+  return (int)cudaSuccess;
+}
+
+template <typename T>
+int launch_partial_k(const float* q, const T* corpus, int B, int N, int D, int k,
+                     int tiles_per_cta, int n_ctas, float* cand_s, int* cand_i,
+                     cudaStream_t st) {
+  switch (list_regs(k)) {
+    case 1:
+      return launch_partial<T, 1>(q, corpus, B, N, D, k, tiles_per_cta, n_ctas, cand_s,
+                                  cand_i, st);
+    case 2:
+      return launch_partial<T, 2>(q, corpus, B, N, D, k, tiles_per_cta, n_ctas, cand_s,
+                                  cand_i, st);
+    case 4:
+      return launch_partial<T, 4>(q, corpus, B, N, D, k, tiles_per_cta, n_ctas, cand_s,
+                                  cand_i, st);
+    default:
+      return launch_partial<T, 8>(q, corpus, B, N, D, k, tiles_per_cta, n_ctas, cand_s,
+                                  cand_i, st);
   }
-  store_candidates(top_s, top_i, q_base, B, k, cand_s, cand_i);
 }
 
 }  // namespace
 
-// q: (B, D) f32 normalized queries; corpus: (N, D) f32 or bf16; D % 4 == 0,
-// both 16-byte aligned. cand_s / cand_i: (B, n_ctas * k) scratch, with
-// n_ctas = ceil(ceil(N / 128) / tiles_per_cta). out_s / out_i: (B, k).
+// q: (B, D) f32 normalized queries; corpus: (N, D) f32 or bf16, with
+// D * itemsize % 16 == 0, both 16-byte aligned. 1 <= k <= min(256, N).
+// cand_s / cand_i: (B, n_ctas * k) scratch, with
+// n_ctas = ceil(ceil(N / 512) / tiles_per_cta); tmp_s / tmp_i:
+// (B, ceil(n_ctas / 8) * k) scratch. out_s / out_i: (B, k).
 extern "C" int rag_cosine_topk(const void* q, const void* corpus, int corpus_is_bf16,
                                int B, int N, int D, int k, int tiles_per_cta, int n_ctas,
-                               void* cand_s, void* cand_i, void* out_s, void* out_i,
-                               void* stream) {
-  if (k < 1 || k > 32 || B < 1 || N < 1 || D % 4 != 0 || tiles_per_cta < 1) {
+                               void* cand_s, void* cand_i, void* tmp_s, void* tmp_i,
+                               void* out_s, void* out_i, void* stream) {
+  const int itemsize = corpus_is_bf16 ? 2 : 4;
+  if (k < 1 || k > 32 * MAX_KR || k > N || B < 1 || D < 1 || (D * itemsize) % 16 != 0 ||
+      tiles_per_cta < 1 || n_ctas < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid(n_ctas, (B + QG - 1) / QG);
-  if (corpus_is_bf16) {
-    topk_partial_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(corpus), B, N, D, k,
-        tiles_per_cta, static_cast<float*>(cand_s), static_cast<int*>(cand_i));
-  } else {
-    topk_partial_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(corpus), B, N, D, k,
-        tiles_per_cta, static_cast<float*>(cand_s), static_cast<int*>(cand_i));
-  }
-  return launch_topk_merge(cand_s, cand_i, B, n_ctas * k, k, out_s, out_i, st);
+  const float* qf = static_cast<const float*>(q);
+  float* cs = static_cast<float*>(cand_s);
+  int* ci = static_cast<int*>(cand_i);
+  const int err =
+      corpus_is_bf16
+          ? launch_partial_k(qf, static_cast<const __nv_bfloat16*>(corpus), B, N, D, k,
+                             tiles_per_cta, n_ctas, cs, ci, st)
+          : launch_partial_k(qf, static_cast<const float*>(corpus), B, N, D, k,
+                             tiles_per_cta, n_ctas, cs, ci, st);
+  if (err != cudaSuccess) return err;
+  return launch_topk_merge(cand_s, cand_i, B, n_ctas, k, tmp_s, tmp_i, out_s, out_i, st);
 }

@@ -20,15 +20,17 @@
 // B = 32, estimated before measuring). int8 tensor-core MMA (mma.sync or
 // wgmma s8) would lift the second bound and is later work.
 //
-// Design: B1's (topk.cu): contiguous spans of 128-row tiles across ~4 CTAs
-// per SM, the int8 score tile of topk_common.cuh (16-byte loads, int32 dp4a
-// accumulators), the per-row scale applied as the tile lands in shared
-// memory, and the shared warp-list selection and candidate merge.
+// Design: B1's first one (topk.cu): contiguous spans of 128-row tiles
+// across ~4 CTAs per SM, the int8 score tile of topk_common.cuh (16-byte
+// loads, int32 dp4a accumulators), the per-row scale applied as the tile
+// lands in shared memory, and the shared warp-list selection (k <= 256, KR
+// list registers a lane) and candidate merge.
 
 #include "topk_common.cuh"
 
 namespace {
 
+template <int KR>
 __global__ void __launch_bounds__(THREADS)
 topk_int8_partial_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ corpus,
                          const float* __restrict__ scales, int B, int N, int D, int k,
@@ -44,9 +46,8 @@ topk_int8_partial_kernel(const int8_t* __restrict__ q, const int8_t* __restrict_
   const int tile_lo = blockIdx.x * tiles_per_cta;
   const int tile_hi = min(tile_lo + tiles_per_cta, n_tiles);
 
-  float top_s[4];
-  int top_i[4];
-  init_lists(top_s, top_i);
+  WarpLists<KR> lists;
+  lists.init(q_base, B, k, cand_s, cand_i);
 
   for (int tile = tile_lo; tile < tile_hi; ++tile) {
     const int n0 = tile * NT;
@@ -62,29 +63,53 @@ topk_int8_partial_kernel(const int8_t* __restrict__ q, const int8_t* __restrict_
         Ss[ty * 4 + i][col] = valid ? __int2float_rn(acc[i][r]) * sc : -INFINITY;
     }
     __syncthreads();
-    merge_tile(Ss, q_base, B, n0, k, top_s, top_i);
+    merge_tile<KR, NT>(Ss, q_base, B, n0, k, lists, cand_s, cand_i);
   }
-  store_candidates(top_s, top_i, q_base, B, k, cand_s, cand_i);
+  lists.finish(q_base, B, k, cand_s, cand_i);
+}
+
+template <int KR>
+void launch_partial(const int8_t* q, const int8_t* corpus, const float* scales, int B, int N,
+                    int D, int k, int tiles_per_cta, int n_ctas, float* cand_s, int* cand_i,
+                    cudaStream_t st) {
+  const dim3 grid(n_ctas, (B + QG - 1) / QG);
+  topk_int8_partial_kernel<KR><<<grid, THREADS, 0, st>>>(q, corpus, scales, B, N, D, k,
+                                                         tiles_per_cta, cand_s, cand_i);
 }
 
 }  // namespace
 
 // q: (B, D) int8 quantized queries; corpus: (N, D) int8; scales: (N,) f32;
-// D % 16 == 0, q and corpus 16-byte aligned. cand_s / cand_i:
-// (B, n_ctas * k) scratch, n_ctas = ceil(ceil(N / 128) / tiles_per_cta).
+// D % 16 == 0, q and corpus 16-byte aligned; 1 <= k <= min(256, N). cand_s / cand_i:
+// (B, n_ctas * k) scratch, n_ctas = ceil(ceil(N / 128) / tiles_per_cta);
+// tmp_s / tmp_i: (B, ceil(n_ctas / 8) * k) scratch.
 // out_s / out_i: (B, k) scores (before the query scale) and indices.
 extern "C" int rag_cosine_topk_int8(const void* q, const void* corpus, const void* scales,
                                     int B, int N, int D, int k, int tiles_per_cta,
-                                    int n_ctas, void* cand_s, void* cand_i, void* out_s,
-                                    void* out_i, void* stream) {
-  if (k < 1 || k > 32 || k > N || B < 1 || D % 16 != 0 || tiles_per_cta < 1) {
+                                    int n_ctas, void* cand_s, void* cand_i, void* tmp_s,
+                                    void* tmp_i, void* out_s, void* out_i, void* stream) {
+  if (k < 1 || k > 32 * MAX_KR || k > N || B < 1 || D % 16 != 0 || tiles_per_cta < 1 ||
+      n_ctas < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid(n_ctas, (B + QG - 1) / QG);
-  topk_int8_partial_kernel<<<grid, THREADS, 0, st>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(corpus),
-      static_cast<const float*>(scales), B, N, D, k, tiles_per_cta,
-      static_cast<float*>(cand_s), static_cast<int*>(cand_i));
-  return launch_topk_merge(cand_s, cand_i, B, n_ctas * k, k, out_s, out_i, st);
+  const int8_t* qi = static_cast<const int8_t*>(q);
+  const int8_t* c = static_cast<const int8_t*>(corpus);
+  const float* sc = static_cast<const float*>(scales);
+  float* cs = static_cast<float*>(cand_s);
+  int* ci = static_cast<int*>(cand_i);
+  switch (list_regs(k)) {
+    case 1:
+      launch_partial<1>(qi, c, sc, B, N, D, k, tiles_per_cta, n_ctas, cs, ci, st);
+      break;
+    case 2:
+      launch_partial<2>(qi, c, sc, B, N, D, k, tiles_per_cta, n_ctas, cs, ci, st);
+      break;
+    case 4:
+      launch_partial<4>(qi, c, sc, B, N, D, k, tiles_per_cta, n_ctas, cs, ci, st);
+      break;
+    default:
+      launch_partial<8>(qi, c, sc, B, N, D, k, tiles_per_cta, n_ctas, cs, ci, st);
+  }
+  return launch_topk_merge(cand_s, cand_i, B, n_ctas, k, tmp_s, tmp_i, out_s, out_i, st);
 }

@@ -31,9 +31,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # every pointer and the stream are c_void_p: a default int would cut them
 _SIGNATURES = {
-    "rag_cosine_topk": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "rag_cosine_topk": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                        _P],
     "rag_cosine_topk_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                             _P],
+                             _P, _P, _P],
     "rag_stream_probe": [_P, _I, _I, _I, _I, _P, _P, _P],
     "rag_dot_probe": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "rag_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -22,8 +22,12 @@ import torch
 
 from rag_serving_system_torch.ops import _build
 
-MAX_K = 32        # the kernels keep each running list in one warp's lanes
-_TILE_ROWS = 128  # corpus rows per tile in csrc/topk_common.cuh (NT)
+MAX_K = 256  # each running list is 8 registers of a warp's 32 lanes at most
+# (corpus rows per tile, CTAs per SM) of the score tiles in
+# csrc/topk_common.cuh: the float tile (FT_ROWS; its ring fills an SM's
+# shared memory) and the int8 tile (NT)
+FLOAT_TILE = (512, 1)
+INT8_TILE = (128, 4)
 _PLAIN_ROWS = 262_144  # row block of the plain int8 scan (bounds its scratch)
 
 
@@ -78,40 +82,51 @@ def cosine_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
                          f"queries {tuple(queries.shape)}")
     n, d = corpus.shape
     b = queries.shape[0]
-    if d % 4 or not 1 <= k <= min(MAX_K, n) or b < 1:
-        raise ValueError(f"cosine_topk: needs D % 4 == 0 and 1 <= k <= "
-                         f"min({MAX_K}, N); got D={d}, k={k}, N={n}, B={b}")
+    if (d * corpus.element_size()) % 16 or not 1 <= k <= min(MAX_K, n) or b < 1:
+        raise ValueError(f"cosine_topk: needs D * itemsize % 16 == 0 and 1 <= k <= "
+                         f"min(MAX_K={MAX_K}, N); got D={d}, k={k}, N={n}, B={b}")
     if not corpus.is_contiguous() or corpus.data_ptr() % 16:
         raise ValueError("cosine_topk: the corpus must be contiguous and 16-byte aligned")
     q = _kernel_queries(corpus, queries, normalize_queries).contiguous()
 
     dev = corpus.device
-    tiles_per_cta, n_ctas = split_tiles(n, dev)
-    cand_s = torch.empty((b, n_ctas * k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((b, n_ctas * k), dtype=torch.int32, device=dev)
-    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    tiles_per_cta, n_ctas = split_tiles(n, b, dev, FLOAT_TILE)
+    bufs = _merge_buffers(b, n_ctas, k, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.rag_cosine_topk(
             q.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
-            b, n, d, k, tiles_per_cta, n_ctas, cand_s.data_ptr(),
-            cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            b, n, d, k, tiles_per_cta, n_ctas, *(t.data_ptr() for t in bufs),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rag_cosine_topk")
     cosine_topk.launches += 1
-    return out_s, out_i
+    return bufs[-2], bufs[-1]
 
 
 cosine_topk.launches = 0
 
 
-def split_tiles(n: int, dev: torch.device) -> tuple[int, int]:
-    """(tiles_per_cta, n_ctas) for n rows in 128-row tiles: one wave of
-    CTAs, a few per SM, each streaming a contiguous span."""
-    n_tiles = math.ceil(n / _TILE_ROWS)
+def _merge_buffers(b: int, n_ctas: int, k: int, dev: torch.device):
+    """The top-k kernels' scratch and outputs: (scores, indices) of the
+    n_ctas candidate lists, of the merge tree's first level (8 lists to
+    one), and (B, k)."""
+    out = []
+    for width in (n_ctas * k, (n_ctas + 7) // 8 * k, k):
+        out += [torch.empty((b, width), dtype=torch.float32, device=dev),
+                torch.empty((b, width), dtype=torch.int32, device=dev)]
+    return out
+
+
+def split_tiles(n: int, b: int, dev: torch.device,
+                tile: tuple[int, int]) -> tuple[int, int]:
+    """(tiles_per_cta, n_ctas) for n rows in tiles of `tile` = (rows, CTAs
+    per SM): one wave of CTAs over all ceil(b / 32) query groups, each CTA
+    streaming a contiguous span."""
+    rows, per_sm = tile
+    n_tiles = math.ceil(n / rows)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles_per_cta = max(1, math.ceil(n_tiles / (4 * sms)))
+    wave = max(1, per_sm * sms // math.ceil(b / 32))
+    tiles_per_cta = max(1, math.ceil(n_tiles / wave))
     return tiles_per_cta, math.ceil(n_tiles / tiles_per_cta)
 
 
@@ -239,28 +254,24 @@ def cosine_topk_int8(corpus_q, corpus_scales, queries, k: int,
                          f"corpus {tuple(corpus_q.shape)}")
     if d % 16 or not 1 <= k <= min(MAX_K, n):
         raise ValueError(f"cosine_topk_int8: needs D % 16 == 0 and 1 <= k <= "
-                         f"min({MAX_K}, N); got D={d}, k={k}, N={n}")
+                         f"min(MAX_K={MAX_K}, N); got D={d}, k={k}, N={n}")
     if not corpus_q.is_contiguous() or corpus_q.data_ptr() % 16:
         raise ValueError("cosine_topk_int8: the corpus must be contiguous and "
                          "16-byte aligned")
     qn, qi, qscale = _int8_queries(queries, normalize_queries)
     qi = qi.contiguous()
     b = qi.shape[0]
-    tiles_per_cta, n_ctas = split_tiles(n, dev)
-    cand_s = torch.empty((b, n_ctas * k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((b, n_ctas * k), dtype=torch.int32, device=dev)
-    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    tiles_per_cta, n_ctas = split_tiles(n, b, dev, INT8_TILE)
+    bufs = _merge_buffers(b, n_ctas, k, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.rag_cosine_topk_int8(
             qi.data_ptr(), corpus_q.data_ptr(), corpus_scales.data_ptr(),
-            b, n, d, k, tiles_per_cta, n_ctas, cand_s.data_ptr(),
-            cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            b, n, d, k, tiles_per_cta, n_ctas, *(t.data_ptr() for t in bufs),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rag_cosine_topk_int8")
     cosine_topk_int8.launches += 1
-    return _int8_finish(out_s, out_i, qn, qscale, corpus_mean)
+    return _int8_finish(bufs[-2], bufs[-1], qn, qscale, corpus_mean)
 
 
 cosine_topk_int8.launches = 0

@@ -37,7 +37,13 @@ def _randn(dev, shape, seed, dtype=torch.float32):
     (777, 5, 1, torch.float32),        # N a multiple of no tile, k = 1
     (5000, 64, 16, torch.float32),     # two query groups of 32
     (4099, 3, 2, torch.bfloat16),
-    (300, 2, 32, torch.float32),       # the widest list a warp holds
+    (300, 2, 32, torch.float32),       # the widest list of one register a lane
+    (1300, 4, 33, torch.float32),      # two registers a lane, N % 512 != 0
+    (777, 5, 64, torch.float32),
+    (2000, 3, 64, torch.bfloat16),
+    (5000, 40, 100, torch.float32),    # four registers, two query groups
+    (3001, 2, 256, torch.float32),     # eight registers: MAX_K
+    (3001, 2, 256, torch.bfloat16),
 ])
 def test_topk_kernel_matches_plain(dev, n, b, k, dtype):
     corpus = tt.l2_normalize(_randn(dev, (n, 1024), n)).to(dtype)
@@ -45,9 +51,39 @@ def test_topk_kernel_matches_plain(dev, n, b, k, dtype):
     before = tt.cosine_topk.launches
     s, i = tt.cosine_topk(corpus, q, k)
     assert tt.cosine_topk.launches == before + 1
-    rs, ri = tt.cosine_topk_reference(corpus, q, k)
-    torch.testing.assert_close(s, rs, atol=1e-5, rtol=0)
-    assert torch.equal(i, ri)
+    rs, ri = tt.cosine_topk_reference(corpus, q, k + 1)
+    torch.testing.assert_close(s, rs[:, :k], atol=1e-5, rtol=0)
+    if k <= 32:
+        assert torch.equal(i, ri[:, :k])
+    else:
+        # a long list spans scores a few 1e-5 apart: the kernel's summation
+        # order (an fmaf chain) and cuBLAS's may swap two ranks whose plain
+        # scores lie within 1e-6, and nowhere else
+        assert not _swaps_beyond_near_ties(i, rs, ri).any()
+
+
+@pytest.mark.parametrize("d,dtype", [(20, torch.float32), (72, torch.float32),
+                                     (40, torch.bfloat16), (88, torch.bfloat16)])
+def test_topk_kernel_ragged_depth(dev, d, dtype):
+    """Rows of 80, 288, 80 and 176 bytes: the last 64-byte chunk of each row
+    is partly past D and must read as 0."""
+    corpus = tt.l2_normalize(_randn(dev, (1500, d), d)).to(dtype)
+    q = _randn(dev, (3, d), d + 1)
+    s, i = tt.cosine_topk(corpus, q, 40)
+    rs, ri = tt.cosine_topk_reference(corpus, q, 41)
+    torch.testing.assert_close(s, rs[:, :40], atol=1e-5, rtol=0)
+    assert not _swaps_beyond_near_ties(i, rs, ri).any()
+
+
+def _swaps_beyond_near_ties(i, rs, ri, tie=1e-6):
+    """Ranks where the kernel's index differs from the plain one with no
+    plain-score near-tie beside them. rs / ri hold k + 1 plain columns."""
+    k = i.shape[1]
+    gaps = (rs[:, :-1] - rs[:, 1:]).abs()
+    near = torch.zeros_like(i, dtype=torch.bool)
+    near |= gaps[:, :k] < tie
+    near[:, 1:] |= gaps[:, :k - 1] < tie
+    return (i != ri[:, :k]) & ~near
 
 
 def test_topk_kernel_ties_lowest_index_first(dev):
@@ -57,6 +93,17 @@ def test_topk_kernel_ties_lowest_index_first(dev):
     rs, ri = tt.cosine_topk_reference(corpus, pat[:2].clone(), 16)
     assert torch.equal(i, ri) and torch.equal(s, rs)
     assert i[0].tolist() == list(range(0, 64, 4))
+
+
+def test_topk_kernel_ties_cross_list_registers(dev):
+    """150 exact ties a query at k = 48: the list's entries 31 and 32 sit in
+    two registers, the 600 rows in two tiles of two CTAs."""
+    pat = torch.where(_randn(dev, (4, 64), 9) > 0, 0.125, -0.125)
+    corpus = pat[torch.arange(600, device=dev) % 4].contiguous()
+    s, i = tt.cosine_topk(corpus, pat[:2].clone(), 48)
+    rs, ri = tt.cosine_topk_reference(corpus, pat[:2].clone(), 48)
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+    assert i[0].tolist() == list(range(0, 192, 4))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
@@ -97,7 +144,11 @@ def test_kernel_wrappers_check_inputs(dev):
         ta.flash_attention(q, q[:, :, :2], q[:, :, :2],
                            torch.ones((1, 64), device=dev))
     with pytest.raises(ValueError):                # k beyond a warp's list
-        tt.cosine_topk(_randn(dev, (100, 64), 8), _randn(dev, (1, 64), 9), 33)
+        tt.cosine_topk(_randn(dev, (300, 64), 8), _randn(dev, (1, 64), 9), 257)
+    with pytest.raises(ValueError):                # k > N
+        tt.cosine_topk(_randn(dev, (100, 64), 8), _randn(dev, (1, 64), 9), 101)
+    with pytest.raises(ValueError):                # bf16 rows of 40 bytes
+        tt.cosine_topk(_randn(dev, (100, 20), 8, torch.bfloat16), _randn(dev, (1, 20), 9), 4)
     assert np.isfinite(tt.cosine_topk(_randn(dev, (100, 64), 8),
                                       _randn(dev, (1, 64), 9), 4)[0].cpu().numpy()).all()
 
@@ -113,8 +164,11 @@ def _int8_corpus(dev, n, d, seed):
     (1000, 1024, 32, 16),
     (777, 1024, 5, 1),       # N a multiple of no tile, k = 1
     (5000, 1024, 64, 16),    # two query groups of 32
-    (300, 80, 2, 32),        # D not a multiple of the 128-byte chunk; widest list
+    (300, 80, 2, 32),        # D not a multiple of the 128-byte chunk; one register
     (4099, 64, 3, 2),
+    (300, 80, 2, 33),        # two list registers a lane
+    (1000, 1024, 4, 64),
+    (3000, 128, 2, 256),     # eight: MAX_K
 ])
 def test_topk_int8_kernel_bit_identical_to_plain(dev, n, d, b, k):
     c, scales = _int8_corpus(dev, n, d, n + d)
@@ -137,6 +191,17 @@ def test_topk_int8_kernel_ties_lowest_index_first(dev):
     rs, ri = tt.cosine_topk_int8_reference(c, scales, q, 16)
     assert torch.equal(i, ri) and torch.equal(s, rs)
     assert i[0].tolist() == list(range(0, 64, 4))
+
+
+def test_topk_int8_kernel_ties_cross_list_registers(dev):
+    pat, _ = _int8_corpus(dev, 4, 128, 3)
+    c = pat[torch.arange(900, device=dev) % 4].contiguous()
+    scales = torch.full((1, 900), 0.01, device=dev)
+    q = pat[:2].float()
+    s, i = tt.cosine_topk_int8(c, scales, q, 48)
+    rs, ri = tt.cosine_topk_int8_reference(c, scales, q, 48)
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+    assert i[0].tolist() == list(range(0, 192, 4))
 
 
 def test_topk_int8_chunked_kernel_matches_plain(dev):
@@ -178,7 +243,12 @@ def test_stream_probe_matches_plain(dev, dtype, n, d, block_n):
 
 @pytest.mark.parametrize("dtype,highest", [(torch.float32, True), (torch.float32, False),
                                            (torch.bfloat16, True), (torch.int8, True)])
-@pytest.mark.parametrize("n,d,b,block_n", [(5000, 1024, 40, 512), (1024, 64, 3, 256)])
+@pytest.mark.parametrize("n,d,b,block_n", [
+    (5000, 1024, 40, 512),
+    (1024, 64, 3, 256),
+    (2500, 1024, 3, 128),    # 2432 rows: the last 512-row tile is ragged
+    (72000, 64, 5, 128),     # 141 tiles: two a CTA, the last CTA one ragged tile
+])
 def test_dot_probe_matches_plain(dev, dtype, highest, n, d, b, block_n):
     if dtype == torch.int8:
         c, _ = _int8_corpus(dev, n, d, 12)
@@ -197,14 +267,14 @@ def test_dot_probe_matches_plain(dev, dtype, highest, n, d, b, block_n):
 
 
 def test_int8_and_probe_wrappers_check_inputs(dev):
-    c, scales = _int8_corpus(dev, 200, 64, 14)
+    c, scales = _int8_corpus(dev, 300, 64, 14)
     q = _randn(dev, (2, 64), 15)
     for bad in (dict(corpus_q=c.float()),                    # not int8
                 dict(corpus_scales=scales[:, :100]),         # wrong length
                 dict(corpus_scales=scales.double()),         # not f32
                 dict(corpus_q=c[:, :40].contiguous(), queries=q[:, :40]),  # D % 16
-                dict(k=33), dict(k=0),
-                dict(corpus_q=c[::2], corpus_scales=scales[:, :100])):  # strided
+                dict(k=257), dict(k=0),
+                dict(corpus_q=c[::2], corpus_scales=scales[:, :150])):  # strided
         args = dict(corpus_q=c, corpus_scales=scales, queries=q, k=4)
         args.update(bad)
         with pytest.raises(ValueError):
@@ -216,6 +286,6 @@ def test_int8_and_probe_wrappers_check_inputs(dev):
     with pytest.raises(ValueError):                           # int8 corpus, f32 queries
         tp.dot_probe(c, q, 128)
     with pytest.raises(ValueError):                           # block_n > N
-        tp.stream_probe(c, 256)
+        tp.stream_probe(c, 512)
     with pytest.raises(ValueError):                           # D * itemsize % 16
         tp.stream_probe(_randn(dev, (256, 6), 17), 128)

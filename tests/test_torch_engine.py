@@ -193,7 +193,8 @@ def _engine_pair(corpus, **over):
     dict(retrieval_corpus_dtype="int8"),
     dict(retrieval_corpus_dtype="int8", topk_chunk_rows=15),   # 3 chunks, ragged tail
     dict(retriever="ivf", ivf_clusters=4, ivf_nprobe=2, ivf_recall_gate=0.0),
-], ids=["int8", "int8_chunked", "ivf"])
+    dict(max_k=48),        # k = 40 over the 40-row corpus: lists past 32
+], ids=["int8", "int8_chunked", "ivf", "max_k_48"])
 def test_engine_serves_retrieval_settings_like_jax(corpus, over):
     je, te = _engine_pair(corpus, **over)
     if over.get("retriever") == "ivf":   # k-means inits differ: share JAX's index
@@ -238,15 +239,29 @@ def test_engine_bfloat16_corpus_follows_the_kernel(corpus):
     (dict(decode_mode="continuous"), "DECODE_MODE"),
     (dict(quant_weights="int8"), "QUANT_WEIGHTS"),
     (dict(quant_act="int8"), "QUANT_ACT"),
-    (dict(max_k=48), "MAX_K"),
+    (dict(max_k=257), "MAX_K"),
     (dict(spec_gamma=2), "SPEC_DECODE"),
     (dict(mesh_shape="2,1"), "MESH_SHAPE"),
     (dict(weights_dir="/nonexistent"), "WEIGHTS_DIR"),
 ])
 def test_unimplemented_settings_raise(corpus, over, var):
     docs, emb = corpus
+    if var == "MAX_K":   # the gate clamps max_k to the corpus first: 300 rows
+        rng = np.random.default_rng(1)
+        docs = [f"doc {i}" for i in range(300)]
+        emb = rng.standard_normal((300, 64)).astype(np.float32)
     with pytest.raises(ValueError, match=var):
         port_engine.RagEngine(tiny_settings(**over), docs, emb, device="cpu")
+
+
+def test_max_k_above_the_kernels_clamps_to_a_small_corpus(corpus):
+    """MAX_K=300 over 40 documents retrieves k = 40, as the JAX engine
+    clamps it: the port builds and serves."""
+    docs, emb = corpus
+    te = port_engine.RagEngine(tiny_settings(max_k=300), docs, emb, device="cpu")
+    assert te.max_k == 40
+    assert [len(r) for r in te.embed_and_retrieve(QUERIES[:2], [300, 2])] == [40, 2]
+    assert all(isinstance(r["result"], str) for r in te.process(QUERIES[:2], [2, 2]))
 
 
 def test_default_device_is_cuda_and_raises_without_it(corpus):

@@ -97,3 +97,15 @@ def test_interface_probes(kind):
     assert len(r.retrieve(q[0], 3)) == 3
     big = tr.TorchRetriever(emb[:5], docs[:5], max_k=16, device="cpu")
     assert big.max_k == 5 and len(big.retrieve(q[0], 16)) == 5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_torch_retriever_refuses_k_beyond_the_kernels(dtype):
+    """min(max_k, N) above MAX_K = 256 raises at construction, not at the
+    first batch; a max_k the corpus clamps below it builds."""
+    emb, docs, q = _corpus(5)                      # 300 rows
+    with pytest.raises(ValueError, match="MAX_K=256"):
+        tr.TorchRetriever(emb, docs, max_k=257, corpus_dtype=dtype, device="cpu")
+    r = tr.TorchRetriever(emb[:40], docs[:40], max_k=257, corpus_dtype=dtype,
+                          device="cpu")
+    assert r.max_k == 40 and len(r.retrieve(q[0], 300)) == 40

@@ -32,6 +32,7 @@ def _assert_same(ours, ref):
     (300, 5, 2),
     (1000, 5, 16),
     (130, 1, 16),
+    (300, 3, 48),     # a list wider than one register a lane
 ])
 def test_matches_oracle_and_pallas(n, b, k):
     rng = np.random.default_rng(n + b + k)
@@ -44,6 +45,19 @@ def test_matches_oracle_and_pallas(n, b, k):
     _assert_same(ours, jt.cosine_topk_pallas(jnp.asarray(corpus),
                                              jnp.asarray(queries), k,
                                              block_n=128, interpret=True))
+
+
+@pytest.mark.parametrize("n,b", [(300, 2), (700, 3)])
+def test_widest_list_matches_oracle(n, b):
+    """k = MAX_K = 256, against the oracle only (interpret mode would take
+    256 selection rounds a block)."""
+    rng = np.random.default_rng(n + b)
+    corpus = _unit(rng.standard_normal((n, 64)))
+    queries = rng.standard_normal((b, 64)).astype(np.float32)
+    ours = tt.cosine_topk(torch.tensor(corpus), torch.tensor(queries), tt.MAX_K)
+    assert tt.MAX_K == 256 and ours[1].shape == (b, 256)
+    _assert_same(ours, jt.cosine_topk_reference(jnp.asarray(corpus),
+                                                jnp.asarray(queries), 256))
 
 
 def test_bfloat16_corpus_matches_pallas():
