@@ -6,12 +6,18 @@ every module here keeps its counterpart's tensor layouts at its public
 functions, so the two can be held against each other on the same inputs.
 
 - device.py  the explicit device and dtype (TORCH_DEVICE, default cuda)
+- config.py  the settings read from the environment
 - ops/       the kernels' wrappers, each beside its plain PyTorch version,
              and the nvcc build (sources in csrc/)
 - models/    e5 (XLM-RoBERTa) encoder and Qwen2 decoder as functions on
              dicts of tensors in the JAX (in, out) layout
-- core/      serving engine and batch processor
+- core/      serving engine, batch processor, request queues, retrievers
+- api/       the HTTP surface (aiohttp)
+- utils/     the memo LRU, stage timers, the RESP client
 - main.py    the HTTP server (python -m rag_serving_system_torch.main)
+
+The package imports nothing of `rag_serving_system_tpu`: where it needs a
+host module of the JAX package, it keeps its own copy, under the same name.
 
 The slice served is the cold request path with PREFIX_CACHE=0; settings the
 port does not implement make the engine raise (core/engine.py).

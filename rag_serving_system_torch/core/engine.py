@@ -24,14 +24,12 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from rag_serving_system_tpu.config import Settings
-from rag_serving_system_tpu.models.configs import decoder_config_for, encoder_config_for
-from rag_serving_system_tpu.models.tokenizer import HashTokenizer, pad_and_stack
-from rag_serving_system_tpu.utils.lru import LockedLRU
-from rag_serving_system_tpu.utils.timing import StageTimer
+from rag_serving_system_torch.config import Settings
 from rag_serving_system_torch.device import resolve_device, torch_dtype
+from rag_serving_system_torch.models.configs import decoder_config_for, encoder_config_for
 from rag_serving_system_torch.models.e5 import encode
 from rag_serving_system_torch.models.qwen2 import generate, generate_packed
+from rag_serving_system_torch.models.tokenizer import HashTokenizer, pad_and_stack
 from rag_serving_system_torch.models.weights import (
     init_decoder_params,
     init_encoder_params,
@@ -44,6 +42,8 @@ from rag_serving_system_torch.ops.topk import (
     cosine_topk_int8_chunked,
     quantize_corpus_int8_chunked,
 )
+from rag_serving_system_torch.utils.lru import LockedLRU
+from rag_serving_system_torch.utils.timing import StageTimer
 
 logger = logging.getLogger(__name__)
 

@@ -4,7 +4,7 @@
 
 Settings → corpus → engine (models and corpus on TORCH_DEVICE, default cuda)
 → queue backend (Redis iff REDIS_URL) → batch processor → the HTTP surface
-of `rag_serving_system_tpu/api/endpoints.py` (aiohttp, imported only here).
+of `api/endpoints.py` (aiohttp, imported only here).
 The counterpart of `main.py` in role "all".
 """
 
@@ -16,10 +16,10 @@ import os
 
 import numpy as np
 
-from rag_serving_system_tpu.config import get_settings
-from rag_serving_system_tpu.core.request_queue import make_queue
+from rag_serving_system_torch.config import get_settings
 from rag_serving_system_torch.core.batch_processor import BatchProcessor
 from rag_serving_system_torch.core.engine import RagEngine
+from rag_serving_system_torch.core.request_queue import make_queue
 
 logger = logging.getLogger("rag_serving_system_torch.main")
 
@@ -45,7 +45,7 @@ def build_processor(settings=None, documents=None, doc_embeddings=None):
 
 def build_app(settings=None, warmup: bool = True):
     """(app, processor, engine, settings) with the processor running."""
-    from rag_serving_system_tpu.api.endpoints import create_api
+    from rag_serving_system_torch.api.endpoints import create_api
 
     processor, engine, request_queue, settings = build_processor(settings)
     if warmup:
@@ -57,7 +57,7 @@ def build_app(settings=None, warmup: bool = True):
 
 
 def main() -> None:
-    from rag_serving_system_tpu.api.endpoints import run_app
+    from rag_serving_system_torch.api.endpoints import run_app
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")

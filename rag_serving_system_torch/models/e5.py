@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from rag_serving_system_tpu.models.configs import EncoderConfig
+from rag_serving_system_torch.models.configs import EncoderConfig
 from rag_serving_system_torch.models.layers import (
     attention,
     dense,

@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from rag_serving_system_tpu.models.configs import DecoderConfig
+from rag_serving_system_torch.models.configs import DecoderConfig
 from rag_serving_system_torch.models.layers import (
     NEG_INF,
     apply_rope,

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rag_serving_system_tpu.models.configs import DecoderConfig, EncoderConfig
+from rag_serving_system_torch.models.configs import DecoderConfig, EncoderConfig
 
 
 def _trunc_normal(g: torch.Generator, shape, dtype, device, std=0.02):

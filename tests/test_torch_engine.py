@@ -20,12 +20,13 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
-from rag_serving_system_tpu.config import Settings  # noqa: E402
+from rag_serving_system_tpu import config as jax_config  # noqa: E402
 from rag_serving_system_tpu.core import engine as jax_engine  # noqa: E402
 from rag_serving_system_tpu.core.retriever import _l2n  # noqa: E402
-from rag_serving_system_tpu.core.request_queue import make_queue  # noqa: E402
+from rag_serving_system_torch import config as port_config  # noqa: E402
 from rag_serving_system_torch.core import engine as port_engine  # noqa: E402
 from rag_serving_system_torch.core.batch_processor import BatchProcessor  # noqa: E402
+from rag_serving_system_torch.core.request_queue import make_queue  # noqa: E402
 from rag_serving_system_torch.models.weights import (  # noqa: E402
     ivf_index_from_jax,
     params_from_jax,
@@ -36,9 +37,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUERIES = ["what is w1 w2", "tell me w5", "w7 w8 w9 w10", "another question w3"]
 
 
-def tiny_settings(**over):
-    """The verify skill's tiny buckets. Prompt buckets 32,128 put the 4-row
-    batch's ~55-token prompts in the 128 bucket, where the packed gate
+def tiny_settings(cls=None, **over):
+    """The verify skill's tiny buckets, as the port's `Settings` (or `cls`,
+    the JAX package's). Prompt buckets 32,128 put the 4-row batch's
+    ~55-token prompts in the 128 bucket, where the packed gate
     t <= 0.85 * bsz * plen opens for the 256-token stream."""
     base = dict(model_preset="tiny", dtype="float32", do_sample=False,
                 prefix_cache=False, batch_buckets=[1, 4], max_batch_size=4,
@@ -50,7 +52,11 @@ def tiny_settings(**over):
                 spec_gamma=0, mesh_shape="", weights_dir=None,
                 embed_model_name="e5", llm_model_name="qwen")
     base.update(over)
-    return Settings(**base)
+    return (cls or port_config.Settings)(**base)
+
+
+def jax_settings(**over):
+    return tiny_settings(jax_config.Settings, **over)
 
 
 @pytest.fixture(scope="module")
@@ -70,10 +76,10 @@ def _scaled(tree, f):
 @pytest.fixture(scope="module", params=[True, False], ids=["packed", "padded_only"])
 def engines(request, corpus):
     docs, emb = corpus
-    s = tiny_settings(packed_prefill=request.param)
-    je = jax_engine.RagEngine(s, docs, emb)
+    je = jax_engine.RagEngine(jax_settings(packed_prefill=request.param), docs, emb)
     je.dec_params = _scaled(je.dec_params, 8.0)
-    te = port_engine.RagEngine(s, docs, emb, device="cpu")
+    te = port_engine.RagEngine(tiny_settings(packed_prefill=request.param), docs, emb,
+                               device="cpu")
     te.enc_params = params_from_jax(jax.device_get(je.enc_params))
     te.dec_params = params_from_jax(jax.device_get(je.dec_params))
     return je, te
@@ -148,10 +154,10 @@ def _http(method, url, body=None):
 
 
 def test_http_post_and_poll(corpus, tmp_path, monkeypatch):
-    """POST /rag → poll GET /rag/result/{id} through the reused create_api,
-    with the port's main.build_app wiring the engine and processor."""
+    """POST /rag → poll GET /rag/result/{id} through the port's create_api,
+    with main.build_app wiring the engine and processor."""
     pytest.importorskip("aiohttp")
-    from rag_serving_system_tpu.api.endpoints import ServerThread
+    from rag_serving_system_torch.api.endpoints import ServerThread
     from rag_serving_system_torch.main import build_app
 
     docs, emb = corpus
@@ -182,9 +188,8 @@ def test_http_post_and_poll(corpus, tmp_path, monkeypatch):
 def _engine_pair(corpus, **over):
     """A JAX and a port engine on one corpus, sharing the JAX weights."""
     docs, emb = corpus
-    s = tiny_settings(**over)
-    je = jax_engine.RagEngine(s, docs, emb)
-    te = port_engine.RagEngine(s, docs, emb, device="cpu")
+    je = jax_engine.RagEngine(jax_settings(**over), docs, emb)
+    te = port_engine.RagEngine(tiny_settings(**over), docs, emb, device="cpu")
     te.enc_params = params_from_jax(jax.device_get(je.enc_params))
     return je, te
 
@@ -278,8 +283,8 @@ def test_copied_constants_equal_jax():
     for buckets, n in (([1, 2, 4, 8], 3), ([1, 2, 4, 8], 8), ([1, 2, 4, 8], 9)):
         assert port_engine.pick_bucket(buckets, n) == jax_engine.pick_bucket(buckets, n)
     for over in (dict(), dict(max_batch_size=48), dict(batch_buckets=[8, 2, 2])):
-        s = tiny_settings(**over)
-        assert port_engine._batch_buckets(s) == jax_engine._batch_buckets(s)
+        assert (port_engine._batch_buckets(tiny_settings(**over))
+                == jax_engine._batch_buckets(jax_settings(**over)))
     x = np.random.default_rng(0).standard_normal((5, 8)).astype(np.float32)
     x[2] = 0.0
     np.testing.assert_array_equal(port_engine._l2n(x), _l2n(x))
@@ -296,11 +301,13 @@ def test_port_never_imports_jax():
             "rag_serving_system_torch.core.engine",
             "rag_serving_system_torch.core.batch_processor",
             "rag_serving_system_torch.core.retriever",
+            "rag_serving_system_torch.core.request_queue",
             "rag_serving_system_torch.main"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "print('jax' in sys.modules, 'aiohttp' in sys.modules)")
+            "print('jax' in sys.modules, 'aiohttp' in sys.modules,\n"
+            "      any(m.startswith('rag_serving_system_tpu') for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["False", "False"]
+    assert out.stdout.split() == ["False", "False", "False"]

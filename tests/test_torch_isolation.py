@@ -1,0 +1,167 @@
+"""PyTorch port: it imports nothing of the JAX package, and its copies of the
+JAX package's host modules (settings, model presets, tokenizer, queue,
+RESP client) agree with their originals.
+
+The isolation check runs in a subprocess whose `sys.meta_path` refuses
+`jax`, `jaxlib` and `rag_serving_system_tpu`: every module of the port and
+`chip_smoke` must import there, and one query must be served end to end on
+the CPU through `main.build_processor` at the tiny presets."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from rag_serving_system_tpu import config as jax_config  # noqa: E402
+from rag_serving_system_tpu.models import configs as jax_configs  # noqa: E402
+from rag_serving_system_tpu.models import tokenizer as jax_tok  # noqa: E402
+from rag_serving_system_tpu.utils import resp as jax_resp  # noqa: E402
+from rag_serving_system_torch import config as port_config  # noqa: E402
+from rag_serving_system_torch.models import configs as port_configs  # noqa: E402
+from rag_serving_system_torch.models import tokenizer as port_tok  # noqa: E402
+from rag_serving_system_torch.utils import resp as port_resp  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_ISOLATED = r'''
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "rag_serving_system_tpu")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+import rag_serving_system_torch
+names = [m.name for m in pkgutil.walk_packages(rag_serving_system_torch.__path__,
+                                               "rag_serving_system_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401
+
+import numpy as np
+from rag_serving_system_torch.config import Settings
+from rag_serving_system_torch.main import build_processor
+
+rng = np.random.default_rng(0)
+docs = [" ".join(f"w{rng.integers(0, 50)}" for _ in range(12)) for _ in range(20)]
+emb = rng.standard_normal((20, 64)).astype(np.float32)
+s = Settings(model_preset="tiny", dtype="float32", prefix_cache=False,
+             batch_buckets=[1, 2], max_batch_size=2, encode_len_buckets=[16, 32],
+             prompt_len_buckets=[64, 128], max_new_tokens=3, max_k=4,
+             max_wait_time=0.1, polling_interval=0.05, redis_url=None)
+processor, engine, queue, _ = build_processor(s, docs, emb)
+processor.start()
+try:
+    rid = queue.add_request("what is w3 w7", 2)
+    result = queue.get_result(rid, timeout=120)
+finally:
+    processor.stop(drain_timeout=5.0)
+    processor.join(timeout=10)
+assert isinstance(result, dict) and isinstance(result.get("result"), str), result
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print("MODULES", len(names), "LEAKED", leaked)
+'''
+
+
+def test_port_runs_with_the_jax_package_blocked():
+    env = dict(os.environ, TORCH_DEVICE="cpu")
+    out = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    line = [x for x in out.stdout.splitlines() if x.startswith("MODULES")][-1]
+    n_modules = int(line.split()[1])
+    assert n_modules >= 25, line          # every module of the package was imported
+    assert line.endswith("LEAKED []"), line
+
+
+def _strings(seed: int, n: int = 40) -> list:
+    """Seeded strings: ASCII words and punctuation, and words with accents,
+    CJK and emoji (the non-ASCII path)."""
+    rng = np.random.default_rng(seed)
+    ascii_words = ["the", "Boiling", "point", "of", "water", "is", "100", "C", "x_1",
+                   "?", ",", "(a)", "don't", "3.14", "A-B", "  ", "\t", "end."]
+    other = ["café", "naïve", "Zürich", "東京", "日本語の文", "😀", "ß", "Ωmega", "façade"]
+    out = []
+    for i in range(n):
+        pool = ascii_words + (other if i % 2 else [])
+        out.append(" ".join(rng.choice(pool, size=int(rng.integers(0, 30)))))
+    return out + ["", "   ", "a" * 300]
+
+
+@pytest.mark.parametrize("vocab,pad,eos", [(512, 0, 1), (151936, 151643, 151645),
+                                           (250002, 1, 2)])
+def test_tokenizer_copy_gives_the_jax_ids(vocab, pad, eos):
+    ours = port_tok.HashTokenizer(vocab, pad_id=pad, eos_id=eos)
+    ref = jax_tok.HashTokenizer(vocab, pad_id=pad, eos_id=eos)
+    texts = _strings(vocab)
+    assert ours.encode_many(texts) == ref.encode_many(texts)
+    ids = ours.encode(texts[3])
+    assert ours.decode(ids) == ref.decode(ids)
+    rows = ours.encode_many(texts[:6])
+    for pad_side, trunc in (("right", "right"), ("left", "left")):
+        for got, want in zip(port_tok.pad_and_stack(rows, 16, pad, pad_side, trunc),
+                             jax_tok.pad_and_stack(rows, 16, pad, pad_side, trunc)):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_model_presets_equal_jax():
+    for name in ("E5_LARGE", "E5_TINY", "QWEN25_15B", "QWEN2_TINY", "LLAMA32_1B"):
+        assert (dataclasses.asdict(getattr(port_configs, name))
+                == dataclasses.asdict(getattr(jax_configs, name))), name
+    for preset in ("tiny", "full", "llama", "other"):
+        assert (dataclasses.asdict(port_configs.encoder_config_for(preset))
+                == dataclasses.asdict(jax_configs.encoder_config_for(preset)))
+        assert (dataclasses.asdict(port_configs.decoder_config_for(preset))
+                == dataclasses.asdict(jax_configs.decoder_config_for(preset)))
+    assert port_configs.E5_TINY.head_dim == jax_configs.E5_TINY.head_dim
+
+
+_ENV = {"PORT": "8123", "MAX_BATCH_SIZE": "16", "MAX_WAIT_TIME": "0.25",
+        "POLLING_INTERVAL": "0.01", "DOCUMENT_TEXT_FILE": "d.json",
+        "DOCUMENT_EMBEDDINGS_FILE": "e.npy", "EMBED_MODEL_NAME": "e5",
+        "LLM_MODEL_NAME": "qwen", "REDIS_URL": "redis://localhost:1/0",
+        "COMPUTE_DTYPE": "float32", "BATCH_BUCKETS": "1,8", "ENCODE_LEN_BUCKETS": "16",
+        "PROMPT_LEN_BUCKETS": "64,256", "PACKED_PREFILL": "false",
+        "PACKED_T_STEP": "256", "MAX_NEW_TOKENS": "4", "DECODE_MODE": "continuous",
+        "DO_SAMPLE": "0", "SPEC_DECODE": "2", "EOS_BIAS": "1.5", "MAX_K": "300",
+        "MESH_SHAPE": "2,1", "WEIGHTS_DIR": "/w", "MODEL_PRESET": "tiny",
+        "RETRIEVAL_CORPUS_DTYPE": "int8", "TOPK_CHUNK_ROWS": "99", "RETRIEVER": "ivf",
+        "IVF_CLUSTERS": "7", "IVF_NPROBE": "3", "IVF_RECALL_GATE": "0.5",
+        "PREFIX_CACHE": "0", "QUERY_CACHE_SIZE": "5", "QUANT_WEIGHTS": "int8",
+        "QUANT_ACT": "int8", "HOST": "127.0.0.1"}
+
+
+@pytest.mark.parametrize("env", [{}, _ENV], ids=["defaults", "environment"])
+def test_settings_copy_equals_jax(monkeypatch, env):
+    for var in _ENV:
+        monkeypatch.delenv(var, raising=False)
+    defaults = port_config.Settings()
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    ours, ref = port_config.Settings(), jax_config.Settings()
+    fields = [f.name for f in dataclasses.fields(ours)]
+    assert len(fields) == len(_ENV)
+    for name in fields:
+        assert getattr(ours, name) == getattr(ref, name), name
+        # _ENV sets every variable the port reads, each to a non-default value
+        assert (getattr(ours, name) != getattr(defaults, name)) == bool(env), name
+
+
+def test_resp_wire_encoding_equals_jax():
+    cmds = [("RPUSH", "rag_service:requests", '{"id": "a"}'), ("LPOP", b"k"),
+            ("SETEX", "rag_service:result:x", 3600, b"\x00\xff"), ("BLPOP", "q", 0.1)]
+    for cmd in cmds:
+        assert port_resp.RespClient._encode(cmd) == jax_resp.RespClient._encode(cmd)
+    c = port_resp.RespClient.from_url("redis://example:7000/3")
+    assert c._addr == ("example", 7000) and c._db == 3

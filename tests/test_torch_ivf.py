@@ -11,8 +11,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from rag_serving_system_tpu.config import Settings  # noqa: E402
 from rag_serving_system_tpu.ops import ivf as jivf  # noqa: E402
+from rag_serving_system_torch.config import Settings  # noqa: E402
 from rag_serving_system_torch.core import engine as port_engine  # noqa: E402
 from rag_serving_system_torch.models.weights import ivf_index_from_jax  # noqa: E402
 from rag_serving_system_torch.ops import ivf as tivf  # noqa: E402
