@@ -36,7 +36,6 @@ from rag_serving_system_torch.models.weights import (
 )
 from rag_serving_system_torch.ops.ivf import build_ivf, ivf_search
 from rag_serving_system_torch.ops.topk import (
-    MAX_K,
     cosine_topk,
     cosine_topk_int8,
     cosine_topk_int8_chunked,
@@ -79,9 +78,8 @@ def _l2n(x: np.ndarray) -> np.ndarray:  # rag_serving_system_tpu/core/retriever.
     return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
 
 
-def unsupported_settings(settings: Settings, n_docs: int) -> list[str]:
-    """The settings this port does not implement yet over a corpus of
-    n_docs rows, each with its value."""
+def unsupported_settings(settings: Settings) -> list[str]:
+    """The settings this port does not implement yet, each with its value."""
     bad = []
     if settings.prefix_cache:
         bad.append("PREFIX_CACHE=1 (run the port with PREFIX_CACHE=0)")
@@ -91,11 +89,6 @@ def unsupported_settings(settings: Settings, n_docs: int) -> list[str]:
         bad.append(f"QUANT_WEIGHTS={settings.quant_weights}")
     if settings.quant_act != "none":
         bad.append(f"QUANT_ACT={settings.quant_act}")
-    # the engine retrieves min(MAX_K, n_docs), as the JAX engine does; IVF
-    # runs no top-k kernel
-    if settings.retriever != "ivf" and min(settings.max_k, n_docs) > MAX_K:
-        bad.append(f"MAX_K={settings.max_k} over {n_docs} documents (the top-k "
-                   f"kernels keep k <= {MAX_K})")
     if settings.spec_gamma > 0:
         bad.append(f"SPEC_DECODE={settings.spec_gamma}")
     if settings.mesh_shape and np.prod(
@@ -127,7 +120,7 @@ class RagEngine:
     def __init__(self, settings: Settings, documents: List[str],
                  doc_embeddings: np.ndarray, device: str | torch.device | None = None):
         emb = np.asarray(doc_embeddings, dtype=np.float32)
-        bad = unsupported_settings(settings, emb.shape[0] if emb.ndim else 0)
+        bad = unsupported_settings(settings)
         if bad:
             raise ValueError("rag_serving_system_torch does not implement: "
                              + "; ".join(bad))

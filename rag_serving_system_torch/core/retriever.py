@@ -28,7 +28,6 @@ import torch
 from rag_serving_system_torch.device import resolve_device
 from rag_serving_system_torch.ops.ivf import build_ivf, ivf_search
 from rag_serving_system_torch.ops.topk import (
-    MAX_K,
     cosine_topk,
     cosine_topk_int8_chunked,
     quantize_corpus_int8_chunked,
@@ -110,8 +109,8 @@ class TorchRetriever(_DeviceRetriever):
     """One device, the whole corpus resident: exact top-k over an f32 or
     bf16 corpus (kernel B1), or an int8 one (kernel B4), split into
     TOPK_CHUNK_ROWS-row chunks (default 4,194,304). bf16 and int8 can
-    reorder near-ties against the f32 oracle. Raises at construction when
-    min(max_k, N) exceeds the kernels' MAX_K."""
+    reorder near-ties against the f32 oracle. Any max_k is served (clamped
+    to N)."""
 
     def __init__(self, embeddings: np.ndarray, documents: Sequence[str],
                  max_k: int = 16, corpus_dtype: str = "float32",
@@ -123,9 +122,6 @@ class TorchRetriever(_DeviceRetriever):
         self.n = corpus.shape[0]
         self._dim = corpus.shape[1] if corpus.ndim == 2 else 0
         self.max_k = max(1, min(max_k, self.n))
-        if self.max_k > MAX_K:
-            raise ValueError(f"TorchRetriever: max_k={max_k} over {self.n} documents; "
-                             f"the top-k kernels keep k <= MAX_K={MAX_K}")
         if corpus_dtype == "int8":
             chunk_rows = int(os.environ.get("TOPK_CHUNK_ROWS", str(4_194_304)))
             self.corpus_chunks, self.corpus_mean = quantize_corpus_int8_chunked(

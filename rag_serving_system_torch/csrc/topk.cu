@@ -109,7 +109,65 @@ int launch_partial_k(const float* q, const T* corpus, int B, int N, int D, int k
   }
 }
 
+// The scores alone, for k beyond the warp lists (select.cu ranks them): the
+// float tile of topk_partial_kernel with a store epilogue, so each score is
+// bit-identical to the one B1 ranks. out: (B, N), row stride N.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+score_rows_kernel(const float* __restrict__ q, const T* __restrict__ corpus, int B, int N,
+                  int D, int tiles_per_cta, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q_base = blockIdx.y * QG;
+  const int n_tiles = (N + FT_ROWS - 1) / FT_ROWS;
+  const int tile_lo = blockIdx.x * tiles_per_cta;
+  const int tile_hi = min(tile_lo + tiles_per_cta, n_tiles);
+  float_scan<T, false>(q, corpus, B, N, D, q_base, tile_lo, tile_hi, smem,
+                       [&](const float(&acc)[8][8], int n0) {
+#pragma unroll
+                         for (int j = 0; j < 8; ++j) {
+                           const int n = n0 + warp * 8 + (lane & 7) + 64 * j;
+#pragma unroll
+                           for (int i = 0; i < 8; ++i) {
+                             const int b = q_base + (lane >> 3) * 8 + i;
+                             if (n < N && b < B) out[(int64_t)b * N + n] = acc[j][i];
+                           }
+                         }
+                       });
+}
+
+template <typename T>
+int launch_scores(const float* q, const T* corpus, int B, int N, int D, int tiles_per_cta,
+                  int n_ctas, float* out, cudaStream_t st) {
+  constexpr int smem = FloatTile<T>::RING_BYTES;
+  const cudaError_t attr = allow_smem(score_rows_kernel<T>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  score_rows_kernel<T><<<dim3(n_ctas, (B + QG - 1) / QG), THREADS, smem, st>>>(
+      q, corpus, B, N, D, tiles_per_cta, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The (B, N) f32 scores of q against corpus, as rag_cosine_topk computes
+// them (same arguments; n_ctas = ceil(ceil(N / 512) / tiles_per_cta)).
+extern "C" int rag_score_rows(const void* q, const void* corpus, int corpus_is_bf16, int B,
+                              int N, int D, int tiles_per_cta, int n_ctas, void* out,
+                              void* stream) {
+  const int itemsize = corpus_is_bf16 ? 2 : 4;
+  if (B < 1 || N < 1 || D < 1 || (D * itemsize) % 16 != 0 || tiles_per_cta < 1 || n_ctas < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const float* qf = static_cast<const float*>(q);
+  float* o = static_cast<float*>(out);
+  return corpus_is_bf16
+             ? launch_scores(qf, static_cast<const __nv_bfloat16*>(corpus), B, N, D,
+                             tiles_per_cta, n_ctas, o, st)
+             : launch_scores(qf, static_cast<const float*>(corpus), B, N, D, tiles_per_cta,
+                             n_ctas, o, st);
+}
 
 // q: (B, D) f32 normalized queries; corpus: (N, D) f32 or bf16, with
 // D * itemsize % 16 == 0, both 16-byte aligned. 1 <= k <= min(256, N).

@@ -77,7 +77,55 @@ void launch_partial(const int8_t* q, const int8_t* corpus, const float* scales, 
                                                          tiles_per_cta, cand_s, cand_i);
 }
 
+// The scores alone, for k beyond the warp lists (select.cu ranks them): the
+// int8 tile with the row scale applied as in topk_int8_partial_kernel, so
+// each score is bit-identical to the one B4 ranks. out: (B, N), row stride N.
+__global__ void __launch_bounds__(THREADS)
+score_rows_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ corpus,
+                       const float* __restrict__ scales, int B, int N, int D,
+                       int tiles_per_cta, float* __restrict__ out) {
+  __shared__ Int8TileSmem sm;
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const int q_base = blockIdx.y * QG;
+  const int n_tiles = (N + NT - 1) / NT;
+  const int tile_lo = blockIdx.x * tiles_per_cta;
+  const int tile_hi = min(tile_lo + tiles_per_cta, n_tiles);
+  for (int tile = tile_lo; tile < tile_hi; ++tile) {
+    const int n0 = tile * NT;
+    int acc[4][4];
+    int8_tile(q, corpus, B, N, D, q_base, n0, sm, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int n = n0 + tx + 32 * r;
+      if (n >= N) continue;
+      const float sc = scales[n];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int b = q_base + ty * 4 + i;
+        if (b < B) out[(int64_t)b * N + n] = __int2float_rn(acc[i][r]) * sc;
+      }
+    }
+  }
+}
+
 }  // namespace
+
+// The (B, N) f32 scores (before the query scale) of q against the int8
+// corpus, as rag_cosine_topk_int8 computes them (same arguments;
+// n_ctas = ceil(ceil(N / 128) / tiles_per_cta)).
+extern "C" int rag_score_rows_int8(const void* q, const void* corpus, const void* scales,
+                                   int B, int N, int D, int tiles_per_cta, int n_ctas,
+                                   void* out, void* stream) {
+  if (B < 1 || N < 1 || D % 16 != 0 || tiles_per_cta < 1 || n_ctas < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  score_rows_int8_kernel<<<dim3(n_ctas, (B + QG - 1) / QG), THREADS, 0,
+                           reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(corpus),
+      static_cast<const float*>(scales), B, N, D, tiles_per_cta, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
 
 // q: (B, D) int8 quantized queries; corpus: (N, D) int8; scales: (N,) f32;
 // D % 16 == 0, q and corpus 16-byte aligned; 1 <= k <= min(256, N). cand_s / cand_i:

@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("topk.cu", "topk_int8.cu", "probes.cu", "flash_attention.cu")
+SOURCES = ("topk.cu", "topk_int8.cu", "select.cu", "probes.cu", "flash_attention.cu")
 HEADERS = ("topk_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -35,6 +35,9 @@ _SIGNATURES = {
                         _P],
     "rag_cosine_topk_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                              _P, _P, _P],
+    "rag_score_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "rag_score_rows_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "rag_select_topk": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "rag_stream_probe": [_P, _I, _I, _I, _I, _P, _P, _P],
     "rag_dot_probe": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "rag_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -10,7 +10,11 @@ lower corpus index first, as `lax.top_k` does.
 `cosine_topk` and `cosine_topk_int8` are the kernels' wrappers: a CPU
 tensor takes the plain version (`cosine_topk_reference`,
 `cosine_topk_int8_reference`); a CUDA tensor launches `csrc/topk.cu` or
-`csrc/topk_int8.cu`, or raises.
+`csrc/topk_int8.cu`, or raises. Any k <= N is served, as by the JAX engine:
+up to LIST_K the kernels keep each query's running list in a warp's
+registers; beyond it they write the scores of chunks of rows, and
+`select_topk` (`csrc/select.cu`, a radix select and a bitonic sort) ranks
+them, with no `torch.topk` or `torch.sort` on the card.
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ import torch
 
 from rag_serving_system_torch.ops import _build
 
-MAX_K = 256  # each running list is 8 registers of a warp's 32 lanes at most
+LIST_K = 256  # each running list is 8 registers of a warp's 32 lanes at most
+# beyond LIST_K: (B, rows) f32 scores are written and selected this many
+# bytes at a time (512 MB: 4,194,304 rows at B = 32)
+SCORE_CHUNK_BYTES = 1 << 29
 # (corpus rows per tile, CTAs per SM) of the score tiles in
 # csrc/topk_common.cuh: the float tile (FT_ROWS; its ring fills an SM's
 # shared memory) and the int8 tile (NT)
@@ -82,17 +89,31 @@ def cosine_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
                          f"queries {tuple(queries.shape)}")
     n, d = corpus.shape
     b = queries.shape[0]
-    if (d * corpus.element_size()) % 16 or not 1 <= k <= min(MAX_K, n) or b < 1:
-        raise ValueError(f"cosine_topk: needs D * itemsize % 16 == 0 and 1 <= k <= "
-                         f"min(MAX_K={MAX_K}, N); got D={d}, k={k}, N={n}, B={b}")
+    if (d * corpus.element_size()) % 16 or not 1 <= k <= n or b < 1:
+        raise ValueError(f"cosine_topk: needs D * itemsize % 16 == 0 and 1 <= k <= N; "
+                         f"got D={d}, k={k}, N={n}, B={b}")
     if not corpus.is_contiguous() or corpus.data_ptr() % 16:
         raise ValueError("cosine_topk: the corpus must be contiguous and 16-byte aligned")
     q = _kernel_queries(corpus, queries, normalize_queries).contiguous()
 
     dev = corpus.device
+    lib = _build.library()
+    if k > LIST_K:
+        def scores(lo: int, hi: int) -> torch.Tensor:
+            out = torch.empty((b, hi - lo), dtype=torch.float32, device=dev)
+            tiles_per_cta, n_ctas = split_tiles(hi - lo, b, dev, FLOAT_TILE)
+            with torch.cuda.device(dev):
+                err = lib.rag_score_rows(
+                    q.data_ptr(), corpus.data_ptr() + lo * d * corpus.element_size(),
+                    int(corpus.dtype == torch.bfloat16), b, hi - lo, d, tiles_per_cta,
+                    n_ctas, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            _build.check(err, "rag_score_rows")
+            cosine_topk.launches += 1
+            return out
+
+        return scan_select(n, k, score_chunk_rows(b, FLOAT_TILE[0]), scores)
     tiles_per_cta, n_ctas = split_tiles(n, b, dev, FLOAT_TILE)
     bufs = _merge_buffers(b, n_ctas, k, dev)
-    lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.rag_cosine_topk(
             q.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
@@ -104,6 +125,80 @@ def cosine_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
 
 
 cosine_topk.launches = 0
+
+
+def select_topk_plain(scores: torch.Tensor, k: int, indices: torch.Tensor | None = None,
+                      base: int = 0):
+    """Plain version of `select_topk`: `stable_topk`, then each position's
+    index (base + position, or indices[position])."""
+    s, pos = stable_topk(scores, k)
+    if indices is None:
+        return s, (pos + base).to(torch.int32)
+    return s, torch.gather(indices, 1, pos)
+
+
+def select_topk(scores: torch.Tensor, k: int, indices: torch.Tensor | None = None,
+                base: int = 0):
+    """The k best of each row of (B, L) f32 scores, as `stable_topk` orders
+    them (score desc, then position asc; -0.0 equals +0.0): ((B, k) scores,
+    (B, k) i32 indices), an index being base + position, or indices[b,
+    position] when (B, L) i32 indices are given. Launches the radix select
+    and bitonic sort of `csrc/select.cu` on a CUDA tensor."""
+    if scores.device.type == "cpu":
+        return select_topk_plain(scores, k, indices, base)
+    b, ln = scores.shape
+    if (scores.device.type != "cuda" or scores.dtype != torch.float32
+            or not scores.is_contiguous() or not 1 <= k <= ln or b > 65535
+            or (indices is not None and (indices.shape != scores.shape
+                                         or indices.dtype != torch.int32
+                                         or indices.device != scores.device
+                                         or not indices.is_contiguous()))):
+        raise ValueError(f"select_topk: scores {scores.dtype} {tuple(scores.shape)} on "
+                         f"{scores.device}, k={k}; needs contiguous (B <= 65535, L) f32 "
+                         "on a CUDA device, 1 <= k <= L, and (B, L) i32 indices or none")
+    dev = scores.device
+    p = 1 << max(1, (k - 1).bit_length())   # the sort's width: a power of two >= k
+    keys = torch.empty((b, p), dtype=torch.int32, device=dev)
+    pos = torch.empty((b, p), dtype=torch.int32, device=dev)
+    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().rag_select_topk(
+            scores.data_ptr(), None if indices is None else indices.data_ptr(), base,
+            b, ln, ln, k, p, keys.data_ptr(), pos.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "rag_select_topk")
+    select_topk.launches += 1
+    return out_s, out_i
+
+
+select_topk.launches = 0
+
+
+def score_chunk_rows(b: int, tile_rows: int) -> int:
+    """Rows whose (b, rows) f32 scores fill SCORE_CHUNK_BYTES, in whole tiles."""
+    return max(tile_rows, SCORE_CHUNK_BYTES // (4 * b) // tile_rows * tile_rows)
+
+
+def merge_selected(parts: list, k: int):
+    """The k best of several (scores, indices) lists, each ordered by (score
+    desc, index asc) and together in index order: equal scores keep the
+    lower index first."""
+    if len(parts) == 1:
+        return parts[0]
+    return select_topk(torch.cat([s for s, _ in parts], dim=1), k,
+                       indices=torch.cat([i for _, i in parts], dim=1))
+
+
+def scan_select(n: int, k: int, rows: int, scores):
+    """Top-k over n corpus rows in chunks of `rows`: scores(lo, hi) gives
+    the (B, hi - lo) f32 scores of rows lo .. hi - 1; each chunk's best are
+    selected, then merged."""
+    parts = []
+    for lo in range(0, n, rows):
+        hi = min(n, lo + rows)
+        parts.append(select_topk(scores(lo, hi), min(k, hi - lo), base=lo))
+    return merge_selected(parts, k)
 
 
 def _merge_buffers(b: int, n_ctas: int, k: int, dev: torch.device):
@@ -252,18 +347,33 @@ def cosine_topk_int8(corpus_q, corpus_scales, queries, k: int,
     if queries.dim() != 2 or queries.shape[1] != d or queries.shape[0] < 1:
         raise ValueError(f"cosine_topk_int8: queries {tuple(queries.shape)} vs "
                          f"corpus {tuple(corpus_q.shape)}")
-    if d % 16 or not 1 <= k <= min(MAX_K, n):
-        raise ValueError(f"cosine_topk_int8: needs D % 16 == 0 and 1 <= k <= "
-                         f"min(MAX_K={MAX_K}, N); got D={d}, k={k}, N={n}")
+    if d % 16 or not 1 <= k <= n:
+        raise ValueError(f"cosine_topk_int8: needs D % 16 == 0 and 1 <= k <= N; "
+                         f"got D={d}, k={k}, N={n}")
     if not corpus_q.is_contiguous() or corpus_q.data_ptr() % 16:
         raise ValueError("cosine_topk_int8: the corpus must be contiguous and "
                          "16-byte aligned")
     qn, qi, qscale = _int8_queries(queries, normalize_queries)
     qi = qi.contiguous()
     b = qi.shape[0]
+    lib = _build.library()
+    if k > LIST_K:
+        def scores(lo: int, hi: int) -> torch.Tensor:
+            out = torch.empty((b, hi - lo), dtype=torch.float32, device=dev)
+            tiles_per_cta, n_ctas = split_tiles(hi - lo, b, dev, INT8_TILE)
+            with torch.cuda.device(dev):
+                err = lib.rag_score_rows_int8(
+                    qi.data_ptr(), corpus_q.data_ptr() + lo * d,
+                    corpus_scales.data_ptr() + lo * 4, b, hi - lo, d, tiles_per_cta,
+                    n_ctas, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            _build.check(err, "rag_score_rows_int8")
+            cosine_topk_int8.launches += 1
+            return out
+
+        s, i = scan_select(n, k, score_chunk_rows(b, INT8_TILE[0]), scores)
+        return _int8_finish(s, i, qn, qscale, corpus_mean)
     tiles_per_cta, n_ctas = split_tiles(n, b, dev, INT8_TILE)
     bufs = _merge_buffers(b, n_ctas, k, dev)
-    lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.rag_cosine_topk_int8(
             qi.data_ptr(), corpus_q.data_ptr(), corpus_scales.data_ptr(),
@@ -282,7 +392,7 @@ def cosine_topk_int8_chunked(chunks, queries, k: int, corpus_mean=None,
     """Exact merge of per-chunk `cosine_topk_int8` winners. `chunks` is
     [(values (C, D) int8, scales (1, C) f32), ...] in corpus order. Returns
     ((B, k) scores, (B, k) global indices); equal scores rank the lower
-    global index first."""
+    global index first. Beyond LIST_K the merge is `select_topk`."""
     all_s, all_i = [], []
     base = 0
     for values, scales in chunks:
@@ -293,5 +403,7 @@ def cosine_topk_int8_chunked(chunks, queries, k: int, corpus_mean=None,
         base += values.shape[0]
     if len(chunks) == 1:
         return all_s[0], all_i[0]
+    if k > LIST_K:
+        return merge_selected(list(zip(all_s, all_i)), k)
     top_s, pos = stable_topk(torch.cat(all_s, dim=1), k)
     return top_s, torch.gather(torch.cat(all_i, dim=1), 1, pos)

@@ -42,7 +42,7 @@ def _randn(dev, shape, seed, dtype=torch.float32):
     (777, 5, 64, torch.float32),
     (2000, 3, 64, torch.bfloat16),
     (5000, 40, 100, torch.float32),    # four registers, two query groups
-    (3001, 2, 256, torch.float32),     # eight registers: MAX_K
+    (3001, 2, 256, torch.float32),     # eight registers: LIST_K
     (3001, 2, 256, torch.bfloat16),
 ])
 def test_topk_kernel_matches_plain(dev, n, b, k, dtype):
@@ -143,8 +143,8 @@ def test_kernel_wrappers_check_inputs(dev):
     with pytest.raises(ValueError):
         ta.flash_attention(q, q[:, :, :2], q[:, :, :2],
                            torch.ones((1, 64), device=dev))
-    with pytest.raises(ValueError):                # k beyond a warp's list
-        tt.cosine_topk(_randn(dev, (300, 64), 8), _randn(dev, (1, 64), 9), 257)
+    with pytest.raises(ValueError):                # k = 0
+        tt.cosine_topk(_randn(dev, (300, 64), 8), _randn(dev, (1, 64), 9), 0)
     with pytest.raises(ValueError):                # k > N
         tt.cosine_topk(_randn(dev, (100, 64), 8), _randn(dev, (1, 64), 9), 101)
     with pytest.raises(ValueError):                # bf16 rows of 40 bytes
@@ -168,7 +168,7 @@ def _int8_corpus(dev, n, d, seed):
     (4099, 64, 3, 2),
     (300, 80, 2, 33),        # two list registers a lane
     (1000, 1024, 4, 64),
-    (3000, 128, 2, 256),     # eight: MAX_K
+    (3000, 128, 2, 256),     # eight: LIST_K
 ])
 def test_topk_int8_kernel_bit_identical_to_plain(dev, n, d, b, k):
     c, scales = _int8_corpus(dev, n, d, n + d)
@@ -273,7 +273,7 @@ def test_int8_and_probe_wrappers_check_inputs(dev):
                 dict(corpus_scales=scales[:, :100]),         # wrong length
                 dict(corpus_scales=scales.double()),         # not f32
                 dict(corpus_q=c[:, :40].contiguous(), queries=q[:, :40]),  # D % 16
-                dict(k=257), dict(k=0),
+                dict(k=301), dict(k=0),
                 dict(corpus_q=c[::2], corpus_scales=scales[:, :150])):  # strided
         args = dict(corpus_q=c, corpus_scales=scales, queries=q, k=4)
         args.update(bad)
@@ -289,3 +289,98 @@ def test_int8_and_probe_wrappers_check_inputs(dev):
         tp.stream_probe(c, 512)
     with pytest.raises(ValueError):                           # D * itemsize % 16
         tp.stream_probe(_randn(dev, (256, 6), 17), 128)
+
+
+def _assert_ties_in_index_order(s, i):
+    same = s[:, 1:] == s[:, :-1]
+    assert (i[:, 1:][same] > i[:, :-1][same]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,chunk_bytes", [
+    (1 << 20, 257, None),
+    (1000, 1000, None),          # k = N
+    (1 << 20, 4096, None),
+    (1 << 20, 1024, 1 << 24),    # 8 score chunks of 131,072 rows, then a merge
+])
+def test_topk_beyond_the_warp_lists_matches_plain(dev, dtype, n, k, chunk_bytes):
+    """k > LIST_K: the score kernel and select_topk against
+    cosine_topk_reference, with 64 duplicated rows (exact ties, lower index
+    first) and one query equal to a duplicated row. No torch.sort or
+    torch.topk runs on this path."""
+    corpus = tt.l2_normalize(_randn(dev, (n, 1024), n + k))
+    corpus[n // 2:n // 2 + 64] = corpus[:64]
+    corpus = corpus.to(dtype)
+    q = _randn(dev, (32, 1024), n + k + 1)
+    q[0] = corpus[5].float()
+
+    def refuse(*a, **kw):
+        raise AssertionError("torch.sort / torch.topk on the select path")
+
+    before = tt.select_topk.launches
+    with mock.patch.object(torch, "sort", refuse), mock.patch.object(torch, "topk", refuse):
+        if chunk_bytes:
+            with mock.patch.object(tt, "SCORE_CHUNK_BYTES", chunk_bytes):
+                s, i = tt.cosine_topk(corpus, q, k)
+        else:
+            s, i = tt.cosine_topk(corpus, q, k)
+    assert tt.select_topk.launches == before + (1 if chunk_bytes is None else 9)
+    kk = min(k + 1, n)
+    rs, ri = tt.cosine_topk_reference(corpus, q, kk)
+    torch.testing.assert_close(s, rs[:, :k], atol=1e-5, rtol=0)
+    if kk > k:
+        assert not _swaps_beyond_near_ties(i, rs, ri).any()
+    else:
+        assert torch.equal(torch.sort(i, dim=1)[0], torch.sort(ri, dim=1)[0])
+    _assert_ties_in_index_order(s, i)
+    assert i[0, :2].tolist() == [5, n // 2 + 5] and s[0, 0] == s[0, 1]
+
+
+@pytest.mark.parametrize("n,k", [(1 << 20, 257), (1000, 1000), (1 << 20, 4096)])
+def test_topk_int8_beyond_the_warp_lists_bit_identical(dev, n, k):
+    c, scales = _int8_corpus(dev, n, 1024, n + k)
+    c[n // 2:n // 2 + 64] = c[:64]
+    scales[:, n // 2:n // 2 + 64] = scales[:, :64]
+    q = _randn(dev, (32, 1024), k)
+    mean = _randn(dev, (1, 1024), k + 1) * 0.03
+    s, i = tt.cosine_topk_int8(c, scales, q, k, corpus_mean=mean)
+    rs, ri = tt.cosine_topk_int8_reference(c, scales, q, k, corpus_mean=mean)
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+    _assert_ties_in_index_order(s, i)
+
+
+def test_topk_int8_chunked_beyond_the_warp_lists_bit_identical(dev):
+    """Three chunks (the last ragged), k = 1024: per-chunk selects, then a
+    select over the 3 x 1024 candidates."""
+    sizes = (400_000, 400_000, 248_576)
+    chunks = [_int8_corpus(dev, m, 1024, 40 + j) for j, m in enumerate(sizes)]
+    chunks[2][0][:64] = chunks[0][0][:64]           # ties across chunks
+    chunks[2][1][:, :64] = chunks[0][1][:, :64]
+    q = _randn(dev, (32, 1024), 41)
+    s, i = tt.cosine_topk_int8_chunked(chunks, q, 1024)
+    with mock.patch.object(tt, "cosine_topk_int8", tt.cosine_topk_int8_reference):
+        rs, ri = tt.cosine_topk_int8_chunked(chunks, q, 1024)
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+
+
+@pytest.mark.parametrize("b,n,k", [
+    (3, 5000, 300),
+    (2, 50_000, 20_000),      # a sort of 32,768: steps across shared-memory tiles
+    (1, 4096, 4096),
+    (65, 777, 700),
+])
+def test_select_topk_matches_plain(dev, b, n, k):
+    """Scores on a coarse grid: many exact ties, -0.0 beside +0.0, and a row
+    of one value (every key equal to the k-th); positions mapped through
+    indices too."""
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    s = torch.round(torch.randn((b, n), generator=g, device=dev) * 10) / 10
+    s[:, ::7] = 0.0
+    s[:, 3::7] = -0.0
+    s[-1] = 0.25
+    idx = torch.randint(0, 1 << 30, (b, n), generator=g, device=dev, dtype=torch.int32)
+    for kw in (dict(base=17), dict(indices=idx)):
+        got = tt.select_topk(s, k, **kw)
+        want = tt.select_topk_plain(s, k, **kw)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])

@@ -244,19 +244,43 @@ def test_engine_bfloat16_corpus_follows_the_kernel(corpus):
     (dict(decode_mode="continuous"), "DECODE_MODE"),
     (dict(quant_weights="int8"), "QUANT_WEIGHTS"),
     (dict(quant_act="int8"), "QUANT_ACT"),
-    (dict(max_k=257), "MAX_K"),
+    (dict(max_k=300), "MAX_K"),
     (dict(spec_gamma=2), "SPEC_DECODE"),
     (dict(mesh_shape="2,1"), "MESH_SHAPE"),
     (dict(weights_dir="/nonexistent"), "WEIGHTS_DIR"),
 ])
 def test_unimplemented_settings_raise(corpus, over, var):
+    """Each setting the port does not implement raises at construction.
+    MAX_K is implemented at any value: MAX_K=300 over 300 rows (k = N, past
+    the warp lists' 256) retrieves the JAX engine's ids."""
     docs, emb = corpus
-    if var == "MAX_K":   # the gate clamps max_k to the corpus first: 300 rows
-        rng = np.random.default_rng(1)
-        docs = [f"doc {i}" for i in range(300)]
-        emb = rng.standard_normal((300, 64)).astype(np.float32)
+    if var == "MAX_K":
+        _assert_max_k_like_jax(over["max_k"], 300)
+        return
     with pytest.raises(ValueError, match=var):
         port_engine.RagEngine(tiny_settings(**over), docs, emb, device="cpu")
+
+
+def _assert_max_k_like_jax(max_k: int, n: int):
+    """Both engines over n seeded rows at MAX_K=max_k retrieve the same ids
+    for requests of k = n, 257, 2 and n - 1 (each clamped to max_k)."""
+    rng = np.random.default_rng(1)
+    docs = [f"doc {i}" for i in range(n)]
+    emb = rng.standard_normal((n, 64)).astype(np.float32)
+    emb[7] = emb[3]                     # an exact tie: the lower index first
+    je = jax_engine.RagEngine(jax_settings(max_k=max_k), docs, emb)
+    te = port_engine.RagEngine(tiny_settings(max_k=max_k), docs, emb, device="cpu")
+    te.enc_params = params_from_jax(jax.device_get(je.enc_params))
+    assert te.max_k == je.max_k == min(max_k, n)
+    ks = [n, 257, 2, n - 1]
+    got = te.embed_and_retrieve(QUERIES, ks)
+    assert got == je.embed_and_retrieve(QUERIES, ks)
+    assert [len(r) for r in got] == [min(k, max_k) for k in ks]
+
+
+@pytest.mark.parametrize("max_k,n", [(257, 300), (1000, 300)], ids=["k257", "k_is_n"])
+def test_engine_serves_max_k_beyond_the_warp_lists_like_jax(max_k, n):
+    _assert_max_k_like_jax(max_k, n)
 
 
 def test_max_k_above_the_kernels_clamps_to_a_small_corpus(corpus):

@@ -100,12 +100,22 @@ def test_interface_probes(kind):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
-def test_torch_retriever_refuses_k_beyond_the_kernels(dtype):
-    """min(max_k, N) above MAX_K = 256 raises at construction, not at the
-    first batch; a max_k the corpus clamps below it builds."""
+def test_torch_retriever_refuses_k_beyond_the_kernels(dtype, monkeypatch):
+    """There is no k beyond the kernels any more: max_k past the warp
+    lists' 256, up to N, serves the JAX retriever's ids (SimpleRetriever for
+    f32; TpuRetriever over 3 int8 chunks of at most 120 rows), k = N
+    included."""
+    monkeypatch.setenv("TOPK_CHUNK_ROWS", "120")
     emb, docs, q = _corpus(5)                      # 300 rows
-    with pytest.raises(ValueError, match="MAX_K=256"):
-        tr.TorchRetriever(emb, docs, max_k=257, corpus_dtype=dtype, device="cpu")
+    ks = [300, 257, 5, 1, 299, 300]
+    ours = tr.TorchRetriever(emb, docs, max_k=300, corpus_dtype=dtype, device="cpu")
+    if dtype == "float32":
+        ref = jr.SimpleRetriever(emb, docs)
+    else:
+        ref = jr.TpuRetriever(emb, docs, corpus_dtype="int8", use_pallas=False, max_k=300)
+    got = ours.batch_retrieve(q, ks)
+    assert [len(r) for r in got] == ks
+    assert got == ref.batch_retrieve(q, ks)
     r = tr.TorchRetriever(emb[:40], docs[:40], max_k=257, corpus_dtype=dtype,
                           device="cpu")
     assert r.max_k == 40 and len(r.retrieve(q[0], 300)) == 40

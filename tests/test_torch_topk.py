@@ -49,13 +49,13 @@ def test_matches_oracle_and_pallas(n, b, k):
 
 @pytest.mark.parametrize("n,b", [(300, 2), (700, 3)])
 def test_widest_list_matches_oracle(n, b):
-    """k = MAX_K = 256, against the oracle only (interpret mode would take
+    """k = LIST_K = 256, against the oracle only (interpret mode would take
     256 selection rounds a block)."""
     rng = np.random.default_rng(n + b)
     corpus = _unit(rng.standard_normal((n, 64)))
     queries = rng.standard_normal((b, 64)).astype(np.float32)
-    ours = tt.cosine_topk(torch.tensor(corpus), torch.tensor(queries), tt.MAX_K)
-    assert tt.MAX_K == 256 and ours[1].shape == (b, 256)
+    ours = tt.cosine_topk(torch.tensor(corpus), torch.tensor(queries), tt.LIST_K)
+    assert tt.LIST_K == 256 and ours[1].shape == (b, 256)
     _assert_same(ours, jt.cosine_topk_reference(jnp.asarray(corpus),
                                                 jnp.asarray(queries), 256))
 
@@ -115,3 +115,49 @@ def test_cuda_wrapper_refuses_other_devices():
     c = torch.empty((8, 64), device="meta")
     with pytest.raises(ValueError):
         tt.cosine_topk(c, torch.empty((1, 64), device="meta"), 2)
+
+
+@pytest.mark.parametrize("n,k", [(300, 257), (300, 300), (700, 512)])
+def test_beyond_the_warp_lists_matches_oracle(n, k):
+    """k past LIST_K, k = N included, with duplicated rows: the JAX oracle's
+    ids and scores."""
+    rng = np.random.default_rng(n + k)
+    corpus = _unit(rng.standard_normal((n, 64)))
+    corpus[n // 2:n // 2 + 40] = corpus[:40]      # 40 exact ties a query
+    queries = rng.standard_normal((3, 64)).astype(np.float32)
+    ours = tt.cosine_topk(torch.tensor(corpus), torch.tensor(queries), k)
+    assert ours[1].shape == (3, k)
+    _assert_same(ours, jt.cosine_topk_reference(jnp.asarray(corpus),
+                                                jnp.asarray(queries), k))
+
+
+def _tied_scores(seed, b=4, n=1000):
+    """Scores on a coarse grid (many exact ties), with -0.0 and +0.0."""
+    rng = np.random.default_rng(seed)
+    s = np.round(rng.standard_normal((b, n)), 1).astype(np.float32)
+    s[:, ::7] = 0.0
+    s[:, 3::7] = -0.0
+    return torch.tensor(s)
+
+
+@pytest.mark.parametrize("rows", [64, 100, 1000])
+@pytest.mark.parametrize("k", [1, 257, 999, 1000])
+def test_scan_select_chunks_equal_one_stable_topk(rows, k):
+    """The chunk loop and merge of the k > LIST_K path (scores of `rows`
+    rows at a time, each chunk's best selected, then merged) give the
+    ids and scores of one stable sort of the whole row: ties, -0.0 against
+    +0.0, and chunk boundaries included."""
+    full = _tied_scores(rows + k)
+    got = tt.scan_select(full.shape[1], k, rows, lambda lo, hi: full[:, lo:hi].contiguous())
+    want_s, want_pos = tt.stable_topk(full, k)
+    assert torch.equal(got[1], want_pos.to(torch.int32))
+    assert torch.equal(got[0], want_s)
+
+
+def test_select_topk_plain_maps_positions_to_indices():
+    s = _tied_scores(9, b=2, n=50)
+    idx = torch.arange(1000, 1050, dtype=torch.int32).repeat(2, 1).contiguous()
+    a = tt.select_topk(s, 20, indices=idx)
+    b = tt.select_topk(s, 20, base=1000)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert int(b[1].min()) >= 1000

@@ -194,3 +194,21 @@ def test_cuda_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         tt.cosine_topk_int8(c, torch.empty((1, 8), device="meta"),
                             torch.empty((1, 64), device="meta"), 2)
+
+
+@pytest.mark.parametrize("chunk_rows", [120, 1000])
+def test_chunked_beyond_the_warp_lists_equals_one_array(chunk_rows):
+    """k = 300 of 360 rows (past LIST_K) over int8 chunks of 120 rows (the
+    merge is select_topk) and in one chunk: the ids and scores of the plain
+    scan over the whole corpus, duplicated rows included."""
+    rng = np.random.default_rng(chunk_rows)
+    emb = rng.standard_normal((360, 64)).astype(np.float32)
+    emb[200:230] = emb[10:40]
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    q = torch.tensor(rng.standard_normal((3, 64)).astype(np.float32))
+    chunks, mean = tt.quantize_corpus_int8_chunked(emb, chunk_rows=chunk_rows)
+    s, i = tt.cosine_topk_int8_chunked(chunks, q, 300, corpus_mean=mean)
+    whole, _ = tt.quantize_corpus_int8_chunked(emb, chunk_rows=360)
+    rs, ri = tt.cosine_topk_int8_reference(whole[0][0], whole[0][1], q, 300,
+                                           corpus_mean=mean)
+    assert torch.equal(i, ri) and torch.equal(s, rs)
