@@ -1,5 +1,5 @@
 // Online-softmax causal attention for prefill, padded (kernel B2) and packed
-// (kernel B3), sharing one body.
+// (kernel B3), sharing one body per element type.
 //
 // Replaces: rag_serving_system_tpu/ops/attention.py:_flash_kernel (wrapper
 // flash_attention; a (B, S) key-padding mask plus causal) and
@@ -7,33 +7,56 @@
 // flash_attention_packed; one (1, T) stream of back-to-back segments, token i
 // attends to j iff seg[i] == seg[j] and j <= i).
 //
-// What bounds it here: prefill attention at the serving shapes (Hq = 12,
-// Hk = 2, D = 128, segments or buckets of 128-1024 tokens) does about
-// 4 * D flops per (query, visible key) pair against 2 * D bytes of K/V per
-// key, so it is compute-bound; this first kernel runs the products on the
-// FP32 CUDA cores rather than the bf16 tensor cores (mma / wgmma), which is
-// where the next version gains. The (S, S) score matrix never reaches
-// device memory. Measured on an H100 80GB HBM3 at a 700 W limit: B2 2.26 ms
-// at B = 32, S = 512 in bf16 (11.4 TFLOP/s of causal work), B3 1.91 ms for
-// a T = 8192 stream of 32 segments.
+// Semantics of both kernels: masked scores take NEG_INF = -1e30 as in the
+// TPU kernel; a row whose visible keys are all masked ends with m == NEG_INF
+// and writes 0; query head h reads kv head h / (Hq / Hk), and K/V are never
+// repeated. The (S, S) score matrix never reaches device memory.
+//   B2: key tiles from 0 to the tile holding the block's last row (the
+//       causal diagonal); the key mask comes from mask[b, j].
+//   B3: key tiles from the one holding the segment start of the block's
+//       first token, found by a binary search over the ascending segment ids
+//       (the TPU kernel got it as a scalar-prefetched `qstart`), so the work
+//       grows with sum(len^2), not T^2.
 //
-// Design: one CTA per (q-block of 64 rows, q-head, batch row), four warps of
-// 16 query rows each. The q-block sits in shared memory, pre-scaled by
-// 1/sqrt(D) as the TPU kernel scales it; 32-key K/V tiles stream through
-// shared memory in f32 (bf16 inputs are widened on load). For a tile, lane j
-// scores key j against the warp's 16 rows (float4 reads of a padded K row
-// and broadcast float4 reads of Q), the warp reduces max and sum by shuffles,
-// and the probabilities pass through shared memory to the P.V update, where
-// lane c owns output columns c, c + 32, ... The running (m, l, acc) stays in
-// registers. GQA reads kv head h / (Hq / Hk); K/V are never repeated.
-//   B2: the key loop runs from tile 0 to the tile holding the block's last
-//       row (the causal diagonal); the key mask comes from mask[b, j].
-//   B3: the key loop starts at the tile holding the segment start of the
-//       block's first token, found by a binary search over the ascending
-//       segment ids (the TPU kernel got it as a scalar-prefetched `qstart`),
-//       so the work grows with sum(len^2), not T^2.
-// Masked scores take NEG_INF = -1e30 as in the TPU kernel; a row whose
-// visible keys are all masked ends with m == NEG_INF and writes 0.
+// bf16 (the served dtype): a tensor-core kernel in the FlashAttention-2 form.
+//   What bounds it: prefill attention at the serving shapes (Hq = 12,
+//   Hk = 2, D = 128, 128-1024 tokens a row) does 4 * D flops per visible
+//   (query, key) pair against 2 * D bytes of K/V per key: bf16 tensor-core
+//   issue, not bytes. The first version ran the products on the FP32 CUDA
+//   cores: 2.28 ms (B2, B = 32, S = 512) and 1.90 ms (B3, T = 8192, 32
+//   segments) on an NVIDIA H100 80GB HBM3 at a 700 W limit. This one's times
+//   are in PERF.md, beside the bound.
+//   Design: a CTA of WARPS warps (4 or 8) owns 16 * WARPS query rows of one
+//   head; each warp owns 16 rows. Q is copied once into shared memory and
+//   kept in registers as mma A fragments (ldmatrix). Tiles of 64 keys of K
+//   and V (16 KB each at D = 128) and their 64 mask or segment tags stream
+//   through a 2-stage ring of 16-byte cp.async copies, with one block barrier
+//   a tile: the barrier that publishes tile t also frees the stage of tile
+//   t - 1, which then receives tile t + 1 while tile t is computed. Rows of
+//   the ring and of Q are XOR-swizzled (16-byte column ^ row & 7), so each
+//   8-row ldmatrix read falls in 8 distinct bank groups. S = Q K^T and
+//   O += P V run on mma.sync.m16n8k16 bf16 with f32 accumulators (K through
+//   ldmatrix, V through ldmatrix.trans: no transpose is written). The
+//   softmax runs on the S fragments in registers: scores scaled by
+//   1/sqrt(D) * log2(e) in f32, masked, a row max over the 4 lanes of a quad
+//   (two shfl_xor), exp2f; two adjacent n8 C fragments become one bf16 A
+//   fragment of P with no trip through shared memory; l sums the f32
+//   probabilities. Key tiles strictly below the diagonal check only the key
+//   tag; the diagonal tile and the last (ragged) tile also check j <= i and
+//   j < S. A warp skips the products of a tile wholly above its rows. The
+//   epilogue divides by l, writes 0 on dead rows, and stores bf16 through
+//   shared memory as 16-byte rows.
+//
+// f32: the first kernel, on the FP32 CUDA cores, unchanged (the f32 engine is
+// held token-identical to the plain versions): one CTA per (q-block of 64
+// rows, q-head, batch row), four warps of 16 query rows each. The q-block
+// sits in shared memory, pre-scaled by 1/sqrt(D) as the TPU kernel scales
+// it; 32-key K/V tiles stream through shared memory. For a tile, lane j
+// scores key j against the warp's 16 rows, the warp reduces max and sum by
+// shuffles, and the probabilities pass through shared memory to the P.V
+// update, where lane c owns output columns c, c + 32, ... The running
+// (m, l, acc) stays in registers. 1.48 ms (B2) and 1.43 ms (B3) at the
+// shapes above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,9 +73,7 @@ constexpr float NEG_INF = -1.0e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -240,35 +261,369 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(AttnArgs a) {
   }
 }
 
-template <typename T, int D, bool PACKED>
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BK = 64;  // keys per tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Byte offset of 16-byte column c of row r in a tile of rows of rb bytes,
+// XOR-swizzled by the row's low 3 bits.
+__device__ __forceinline__ unsigned swz(int r, int c, int rb) {
+  return (unsigned)(r * rb + ((c ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned& r0, unsigned& r1,
+                                        unsigned& r2, unsigned& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned& r0, unsigned& r1,
+                                          unsigned& r2, unsigned& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+template <int D, int NW>
+struct TcSmem {
+  static constexpr int RB = D * 2;                   // bytes of a row
+  static constexpr int Q_BYTES = 16 * NW * RB;
+  static constexpr int KV_BYTES = TC_BK * RB;
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES + TC_BK * 4;  // K, V, key tags
+  static constexpr int BYTES = Q_BYTES + 2 * STAGE_BYTES;
+};
+
+template <int D, bool PACKED, int NW>
+__global__ void __launch_bounds__(NW * 32) flash_tc_kernel(AttnArgs a) {
+  using L = TcSmem<D, NW>;
+  constexpr int CH = D / 8;       // 16-byte columns of a row
+  constexpr int KC = D / 16;      // k-steps of Q K^T
+  constexpr int NT = TC_BK / 8;   // n8 tiles of S
+  constexpr int DT = D / 8;       // n8 tiles of O
+  constexpr int BQR = 16 * NW;    // query rows of the CTA
+  constexpr int NTH = NW * 32;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  __shared__ int seg_start;
+
+  const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(a.q);
+  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(a.v);
+  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int q0 = blockIdx.x * BQR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (a.Hq / a.Hk);
+  const int S = a.S;
+  const unsigned sbase = static_cast<unsigned>(__cvta_generic_to_shared(tc_smem));
+  const unsigned q_s = sbase;
+  const unsigned ring = sbase + L::Q_BYTES;
+
+  if (PACKED) {
+    if (tid == 0) {
+      // first index of the segment holding token q0 (segments ascend)
+      const int target = a.seg[q0];
+      int lo = 0, hi = q0;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (a.seg[mid] < target) lo = mid + 1; else hi = mid;
+      }
+      seg_start = lo;
+    }
+    __syncthreads();
+  }
+  const int last_row = min(q0 + BQR - 1, S - 1);
+  const int kt_begin = PACKED ? seg_start / TC_BK : 0;
+  const int kt_end = a.causal ? last_row / TC_BK : (S - 1) / TC_BK;
+
+  // the Q block, once
+  for (int idx = tid; idx < BQR * CH; idx += NTH) {
+    const int r = idx / CH, c = idx - (idx / CH) * CH;
+    const int qi = q0 + r;
+    cp_async16(q_s + swz(r, c, L::RB),
+               Q + (((int64_t)b * S + min(qi, S - 1)) * a.Hq + h) * D + c * 8, qi < S);
+  }
+  // K, V and the 64 key tags of tile kt into ring stage st
+  auto issue = [&](int kt, int st) {
+    const unsigned ks = ring + st * L::STAGE_BYTES;
+    const unsigned vs = ks + L::KV_BYTES;
+    const int k0 = kt * TC_BK;
+    for (int idx = tid; idx < TC_BK * CH; idx += NTH) {
+      const int r = idx / CH, c = idx - (idx / CH) * CH;
+      const int kj = k0 + r;
+      const int64_t off = (((int64_t)b * S + min(kj, S - 1)) * a.Hk + hk) * D + c * 8;
+      cp_async16(ks + swz(r, c, L::RB), K + off, kj < S);
+      cp_async16(vs + swz(r, c, L::RB), V + off, kj < S);
+    }
+    if (tid < TC_BK) {
+      const int kj = k0 + tid;
+      const int* src = PACKED ? a.seg + min(kj, S - 1) : a.mask + (int64_t)b * S + min(kj, S - 1);
+      cp_async4(vs + L::KV_BYTES + tid * 4, src, kj < S);
+    }
+  };
+  issue(kt_begin, 0);
+  cp_async_commit();
+
+  // this thread's rows: g and g + 8 of the warp's 16
+  const int wrow = warp * 16;
+  const int g = lane >> 2;
+  const int qd = lane & 3;
+  const int row_a = q0 + wrow + g;
+  const int row_b = row_a + 8;
+  int tag_a = 0, tag_b = 0;
+  if (PACKED) {
+    tag_a = row_a < S ? a.seg[row_a] : -1;
+    tag_b = row_b < S ? a.seg[row_b] : -1;
+  }
+  const float scale = a.sm_scale * LOG2E;
+
+  unsigned qa[KC][4];
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+
+  for (int kt = kt_begin, it = 0; kt <= kt_end; ++kt, ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
+    if (it == 0) {
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        const int m = lane >> 3;
+        const int r = wrow + (lane & 7) + 8 * (m & 1);
+        ldsm_x4(q_s + swz(r, 2 * kc + (m >> 1), L::RB), qa[kc][0], qa[kc][1], qa[kc][2],
+                qa[kc][3]);
+      }
+    }
+    if (kt < kt_end) issue(kt + 1, (it + 1) & 1);
+    cp_async_commit();
+
+    const int k0 = kt * TC_BK;
+    // a warp whose rows all precede the tile's first key has nothing to add
+    if (a.causal && k0 > q0 + wrow + 15) continue;
+    const unsigned ks = ring + (it & 1) * L::STAGE_BYTES;
+    const unsigned vs = ks + L::KV_BYTES;
+    const int* tags = reinterpret_cast<const int*>(tc_smem + (vs - sbase) + L::KV_BYTES);
+
+    // S = Q K^T: 16 rows x 64 keys a warp
+    float sc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        const int m = lane >> 3;
+        const int r = 16 * jp + 8 * (m >> 1) + (lane & 7);
+        unsigned b0, b1, b2, b3;
+        ldsm_x4(ks + swz(r, 2 * kc + (m & 1), L::RB), b0, b1, b2, b3);
+        mma_bf16(sc[2 * jp], qa[kc], b0, b1);
+        mma_bf16(sc[2 * jp + 1], qa[kc], b2, b3);
+      }
+    }
+
+    // mask and scale; the diagonal and the ragged last tile also check
+    // j <= i and j < S
+    const bool edge = (a.causal && k0 + TC_BK - 1 > q0 + wrow) || k0 + TC_BK > S;
+    float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c0 = 8 * j + 2 * qd;
+      const int2 t = *reinterpret_cast<const int2*>(tags + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tg = (e & 1) ? t.y : t.x;
+        const int row_tag = (e >> 1) ? tag_b : tag_a;
+        bool ok = PACKED ? tg == row_tag : tg > 0;
+        if (edge) {
+          const int kj = k0 + c0 + (e & 1);
+          const int qi = (e >> 1) ? row_b : row_a;
+          ok = ok && kj < S && (!a.causal || kj <= qi);
+        }
+        const float s = ok ? sc[j][e] * scale : NEG_INF;
+        sc[j][e] = s;
+        if (e >> 1) mx_b = fmaxf(mx_b, s); else mx_a = fmaxf(mx_a, s);
+      }
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 2));
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    // a row live only now clears what its masked tiles added: exp2(-1e30 - m) = 0
+    const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      sc[j][0] = exp2f(sc[j][0] - mn_a);
+      sc[j][1] = exp2f(sc[j][1] - mn_a);
+      sc[j][2] = exp2f(sc[j][2] - mn_b);
+      sc[j][3] = exp2f(sc[j][3] - mn_b);
+      sum_a += sc[j][0] + sc[j][1];
+      sum_b += sc[j][2] + sc[j][3];
+    }
+    l_a = l_a * al_a + sum_a;  // this lane's columns; the quad is summed at the end
+    l_b = l_b * al_b + sum_b;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      o[j][0] *= al_a;
+      o[j][1] *= al_a;
+      o[j][2] *= al_b;
+      o[j][3] *= al_b;
+    }
+
+    // O += P V: P's C fragments of n8 tiles 2kc and 2kc + 1 are the A
+    // fragment of keys 16kc .. 16kc + 15
+#pragma unroll
+    for (int kc = 0; kc < TC_BK / 16; ++kc) {
+      const unsigned pa[4] = {pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
+                              pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
+                              pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
+                              pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        const int m = lane >> 3;
+        const int r = 16 * kc + 8 * (m & 1) + (lane & 7);
+        unsigned v0, v1, v2, v3;
+        ldsm_x4_t(vs + swz(r, 2 * dp + (m >> 1), L::RB), v0, v1, v2, v3);
+        mma_bf16(o[2 * dp], pa, v0, v1);
+        mma_bf16(o[2 * dp + 1], pa, v2, v3);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+  // epilogue: O / l, 0 on dead rows, staged as bf16 in the warp's own Q rows
+  l_a += __shfl_xor_sync(FULL, l_a, 1);
+  l_a += __shfl_xor_sync(FULL, l_a, 2);
+  l_b += __shfl_xor_sync(FULL, l_b, 1);
+  l_b += __shfl_xor_sync(FULL, l_b, 2);
+  const float inv_a = m_a > NEG_INF * 0.5f ? 1.f / fmaxf(l_a, 1e-30f) : 0.f;
+  const float inv_b = m_b > NEG_INF * 0.5f ? 1.f / fmaxf(l_b, 1e-30f) : 0.f;
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    const int c = 2 * j * 4 + 2 * qd;  // element column of this lane's pair
+    *reinterpret_cast<unsigned*>(tc_smem + swz(wrow + g, c >> 3, L::RB) + (c & 7) * 2) =
+        pack_bf16(o[j][0] * inv_a, o[j][1] * inv_a);
+    *reinterpret_cast<unsigned*>(tc_smem + swz(wrow + g + 8, c >> 3, L::RB) + (c & 7) * 2) =
+        pack_bf16(o[j][2] * inv_b, o[j][3] * inv_b);
+  }
+  __syncwarp();
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, c = idx - (idx / CH) * CH;
+    const int qi = q0 + wrow + r;
+    if (qi < S) {
+      *reinterpret_cast<uint4*>(O + (((int64_t)b * S + qi) * a.Hq + h) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(tc_smem + swz(wrow + r, c, L::RB));
+    }
+  }
+}
+
+template <int D, bool PACKED, int NW>
+int launch_tc(const AttnArgs& a, cudaStream_t st) {
+  constexpr int bytes = TcSmem<D, NW>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<D, PACKED, NW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.S + 16 * NW - 1) / (16 * NW), a.Hq, a.B);
+  flash_tc_kernel<D, PACKED, NW><<<grid, NW * 32, bytes, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool PACKED>
+int launch_tc_warps(const AttnArgs& a, int warps, cudaStream_t st) {
+  if (warps == 8) return launch_tc<D, PACKED, 8>(a, st);
+  if (warps == 4) return launch_tc<D, PACKED, 4>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch_tc(const AttnArgs& a, int D, int packed, int warps, cudaStream_t st) {
+  if (D == 128)
+    return packed ? launch_tc_warps<128, true>(a, warps, st)
+                  : launch_tc_warps<128, false>(a, warps, st);
+  if (D == 64)
+    return packed ? launch_tc_warps<64, true>(a, warps, st)
+                  : launch_tc_warps<64, false>(a, warps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D, bool PACKED>
 int launch(const AttnArgs& a, cudaStream_t st) {
   const size_t bytes = sizeof(float) * smem_floats<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, D, PACKED>,
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<float, D, PACKED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.S + BQ - 1) / BQ, a.Hq, a.B);
-  flash_kernel<T, D, PACKED><<<grid, THREADS, bytes, st>>>(a);
+  flash_kernel<float, D, PACKED><<<grid, THREADS, bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const AttnArgs& a, int D, int packed, cudaStream_t st) {
-  if (D == 128) return packed ? launch<T, 128, true>(a, st) : launch<T, 128, false>(a, st);
-  if (D == 64) return packed ? launch<T, 64, true>(a, st) : launch<T, 64, false>(a, st);
+int dispatch_f32(const AttnArgs& a, int D, int packed, cudaStream_t st) {
+  if (D == 128) return packed ? launch<128, true>(a, st) : launch<128, false>(a, st);
+  if (D == 64) return packed ? launch<64, true>(a, st) : launch<64, false>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q/out: (B, S, Hq, D); k/v: (B, S, Hk, D), contiguous, f32 or bf16 alike.
+// q/out: (B, S, Hq, D); k/v: (B, S, Hk, D), contiguous and 16-byte aligned,
+// f32 or bf16 alike; D in {64, 128}.
 // packed == 0 (B2): mask is (B, S) int32, seg unused.
 // packed == 1 (B3): B must be 1, seg is (S,) int32 ascending, mask unused.
+// bf16_warps (4 or 8): warps a CTA of the bf16 kernel, 16 query rows each.
 extern "C" int rag_flash_attention(const void* q, const void* k, const void* v,
                                    const void* mask, const void* seg, void* out,
                                    int is_bf16, int packed, int causal,
                                    int B, int S, int Hq, int Hk, int D, float sm_scale,
-                                   void* stream) {
+                                   int bf16_warps, void* stream) {
   if (B < 1 || S < 1 || Hk < 1 || Hq % Hk != 0 || (packed && B != 1)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -286,5 +641,5 @@ extern "C" int rag_flash_attention(const void* q, const void* k, const void* v,
   a.causal = causal;
   a.sm_scale = sm_scale;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(a, D, packed, st) : dispatch<float>(a, D, packed, st);
+  return is_bf16 ? dispatch_tc(a, D, packed, bf16_warps, st) : dispatch_f32(a, D, packed, st);
 }

@@ -291,9 +291,16 @@ def test_int8_and_probe_wrappers_check_inputs(dev):
         tp.stream_probe(_randn(dev, (256, 6), 17), 128)
 
 
-def _assert_ties_in_index_order(s, i):
-    same = s[:, 1:] == s[:, :-1]
-    assert (i[:, 1:][same] > i[:, :-1][same]).all()
+def _assert_duplicates_in_index_order(i, n, first, count=64):
+    """Rows first .. first + count - 1 duplicate rows 0 .. count - 1 (exact
+    ties): wherever both of a pair are selected, the lower index ranks
+    first."""
+    for row in i.long():
+        pos = torch.full((n,), -1, dtype=torch.long, device=i.device)
+        pos[row] = torch.arange(row.numel(), device=i.device)
+        lo, hi = pos[:count], pos[first:first + count]
+        both = (lo >= 0) & (hi >= 0)
+        assert (lo[both] < hi[both]).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -332,7 +339,7 @@ def test_topk_beyond_the_warp_lists_matches_plain(dev, dtype, n, k, chunk_bytes)
         assert not _swaps_beyond_near_ties(i, rs, ri).any()
     else:
         assert torch.equal(torch.sort(i, dim=1)[0], torch.sort(ri, dim=1)[0])
-    _assert_ties_in_index_order(s, i)
+    _assert_duplicates_in_index_order(i, n, n // 2)
     assert i[0, :2].tolist() == [5, n // 2 + 5] and s[0, 0] == s[0, 1]
 
 
@@ -346,7 +353,7 @@ def test_topk_int8_beyond_the_warp_lists_bit_identical(dev, n, k):
     s, i = tt.cosine_topk_int8(c, scales, q, k, corpus_mean=mean)
     rs, ri = tt.cosine_topk_int8_reference(c, scales, q, k, corpus_mean=mean)
     assert torch.equal(i, ri) and torch.equal(s, rs)
-    _assert_ties_in_index_order(s, i)
+    _assert_duplicates_in_index_order(i, n, n // 2)
 
 
 def test_topk_int8_chunked_beyond_the_warp_lists_bit_identical(dev):
@@ -384,3 +391,63 @@ def test_select_topk_matches_plain(dev, b, n, k):
         want = tt.select_topk_plain(s, k, **kw)
         assert torch.equal(got[1], want[1])
         assert torch.equal(got[0], want[0])
+
+
+def _left_padded_mask(dev, b, s, seed):
+    """Seeded left padding; of two rows or more, the last has every key
+    masked."""
+    rng = np.random.default_rng(seed)
+    pads = rng.integers(0, s, size=b)
+    if b > 1:
+        pads[-1] = s
+    return torch.as_tensor((np.arange(s)[None, :] >= pads[:, None]).astype(np.int32),
+                           device=dev)
+
+
+@pytest.mark.parametrize("warps", [4, 8])
+@pytest.mark.parametrize("b,s,hq,hk,d", [
+    (32, 512, 12, 2, 128),    # the served padded batch
+    (1, 256, 12, 2, 128),     # the lone request
+    (4, 300, 8, 2, 64),       # S not a multiple of the 64-key tile, D = 64
+    (3, 77, 4, 4, 64),
+])
+def test_flash_bf16_tensor_core_matches_plain(dev, warps, b, s, hq, hk, d):
+    """B2's bf16 tensor-core kernel at both CTA widths: within 2e-2 of the
+    plain version at real positions, 0 on rows with no visible key."""
+    q = _randn(dev, (b, s, hq, d), 21, torch.bfloat16)
+    k = _randn(dev, (b, s, hk, d), 22, torch.bfloat16)
+    v = _randn(dev, (b, s, hk, d), 23, torch.bfloat16)
+    mask = _left_padded_mask(dev, b, s, b + s)
+    with mock.patch.object(ta, "bf16_warps", lambda *a: warps):
+        out = ta.flash_attention(q, k, v, mask)
+    ref = ta.flash_attention_plain(q, k, v, mask)
+    real = mask.bool()
+    assert (out.float() - ref.float())[real].abs().max().item() <= 2e-2
+    assert not out[~real].any()
+
+
+@pytest.mark.parametrize("warps", [4, 8])
+@pytest.mark.parametrize("t,d,lens", [
+    (8192, 128, None),                    # the served stream: 32 seeded segments
+    (1000, 64, [300, 1, 150, 64, 260]),   # T not a multiple of the tile
+    (1000, 128, [300, 1, 150, 64, 260]),
+])
+def test_flash_packed_bf16_tensor_core_matches_plain(dev, warps, t, d, lens):
+    """B3's bf16 tensor-core kernel: segments cross q-blocks and key tiles."""
+    if lens is None:
+        rng = np.random.default_rng(2)
+        while True:
+            lens = (64 + np.floor(448 * rng.random(32) ** 2)).astype(int).tolist()
+            if sum(lens) < t:
+                break
+    seg = torch.full((1, t), len(lens), dtype=torch.int32, device=dev)
+    seg[0, :sum(lens)] = torch.repeat_interleave(
+        torch.arange(len(lens), device=dev), torch.tensor(lens, device=dev)).int()
+    q = _randn(dev, (1, t, 12, d), 24, torch.bfloat16)
+    k = _randn(dev, (1, t, 2, d), 25, torch.bfloat16)
+    v = _randn(dev, (1, t, 2, d), 26, torch.bfloat16)
+    with mock.patch.object(ta, "bf16_warps", lambda *a: warps):
+        out = ta.flash_attention_packed(q, k, v, seg)
+    ref = ta.flash_attention_packed_plain(q, k, v, seg)
+    n = sum(lens)
+    assert (out[:, :n].float() - ref[:, :n].float()).abs().max().item() <= 2e-2
