@@ -8,17 +8,25 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
 1. device     - the card (torch and nvidia-smi).
 2. build      - nvcc builds the kernels in rag_serving_system_torch/csrc/.
 3. kernels    - each kernel against its plain PyTorch version at main-path
-                shapes, with CUDA-event times of both: B1 at 1M rows (f32
-                and bf16 corpus, k = 16, 64, 256) and 1000 rows, B2, B3, B4
-                at 1M rows (k = 16, 64, 256) and chunked over 10M rows
-                (10.24 GB of int8 on the card), P1 and P2 at 1M rows.
+                shapes, with CUDA-event times of both, the least time the
+                card could take (bound_ms, from the run's shapes and data),
+                and where one exists the time of one PyTorch call computing
+                the same function (library_ms): B1 at 1M rows (f32 and bf16
+                corpus, k = 16, 64, 256, and k = 1024 through the score
+                kernel and select_topk) and 1000 rows, B2 and B3 in bf16
+                (at 64- and 128-row CTAs) and f32, B4 at 1M rows (k = 16,
+                64, 256, 1024) and chunked over 10M rows (10.24 GB of int8 on
+                the card), select_topk alone, P1 and P2 at 1M rows.
 4. roofline   - profile_topk's 1M-row rows: P1 (stream), P2 (dot) and the
                 top-k kernel (full) for f32, bf16 and int8 corpora.
 5. serve      - the port's engine at full width (e5-large + Qwen2.5-1.5B,
                 random weights from a seed, bf16, PREFIX_CACHE=0, other
                 settings at their defaults) behind the queue and batch
                 processor: one lone request (padded prefill), then 64 at
-                once (packed prefill).
+                once (packed prefill). Then the engine's stage split for a
+                lone request and a batch of 32 (prepare, prefill with its
+                B2/B3 device time, decode; CUDA-synced host clock, mean of
+                3, query cache off).
 6. parity     - a full-width f32 greedy engine answers a lone request and a
                 batch of 8 identically through the kernels and through
                 their plain versions.
@@ -28,8 +36,11 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 version's.
 8. serve_ivf  - RETRIEVER=ivf over a seeded clustered corpus (65,536 rows,
                 256 centres) through its startup recall gate; 32 requests.
+9. serve_wide_k - MAX_K=1000 over squad_real (k = N, past the warp lists'
+                256: the score kernel and select_topk): a lone request, then
+                7; the retrieved ids equal the plain version's.
 
-Each path phase (roofline, serve, serve_int8, serve_ivf) sets every launch
+Each path phase (roofline, serve, serve_int8, serve_ivf, serve_wide_k) sets every launch
 count to 0 just before it and reads the counts just after; each kernel of
 the path must have launched, and every request must come back as
 {"result": str}. Then the nvidia-smi name and power limit, the kernels'
@@ -62,7 +73,14 @@ KERNELS = {
                      "scripts/profile_topk.py:36", "roofline"),
     "dot_probe": ("rag_serving_system_torch/csrc/probes.cu",
                   "scripts/profile_topk.py:51", "roofline"),
+    # B1's selection beyond its warp lists (the TPU kernel's k rounds of max)
+    "select_topk": ("rag_serving_system_torch/csrc/select.cu",
+                    "rag_serving_system_tpu/ops/topk.py:93", "serve_wide_k"),
 }
+# the card's published peaks (H100 SXM, dense, at 700 W): HBM bytes/s and
+# operations/s by type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 SERVE_ENV = {"PREFIX_CACHE": "0", "MODEL_PRESET": "full", "TORCH_DEVICE": "cuda"}
 _BASE_ENV = dict(os.environ)
 
@@ -96,7 +114,8 @@ def wrappers() -> dict:
             "flash_attention_packed": attention.flash_attention_packed,
             "cosine_topk_int8": topk.cosine_topk_int8,
             "stream_probe": probes.stream_probe,
-            "dot_probe": probes.dot_probe}
+            "dot_probe": probes.dot_probe,
+            "select_topk": topk.select_topk}
 
 
 def reset_launches() -> None:
@@ -112,6 +131,16 @@ def require_launched(phase: str, launches: dict) -> None:
     for name, (_, _, path) in KERNELS.items():
         if path == phase:
             require(launches[name] > 0, f"kernel {name} never launched in {phase}")
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """bound_ms: the larger of the bytes over the HBM rate and the operations
+    over the peak rate of their type; bound_by names the larger."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
 
 
 def set_env(**over) -> None:
@@ -163,8 +192,39 @@ def _check_topk(corpus, queries, k, reps=20):
     n_swapped = int((i_k != i_p[:, :k]).sum().item())
     ms = cuda_ms(lambda: topk.cosine_topk(corpus, queries, k), reps)
     plain_ms = cuda_ms(lambda: topk.cosine_topk_reference(corpus, queries, k), 3)
-    return {"n": corpus.shape[0], "b": queries.shape[0], "k": k, "corpus": str(corpus.dtype),
-            "max_abs_err": err, "near_tie_swaps": n_swapped, "ms": ms, "plain_ms": plain_ms}
+    n, d = corpus.shape
+    b = queries.shape[0]
+    # IEEE f32 FMAs for an f32 corpus; bf16 products are exact, so a bf16
+    # corpus could use the bf16 tensor-core rate
+    kind = "f32" if corpus.dtype == torch.float32 else "bf16"
+    return {"n": n, "b": b, "k": k, "corpus": str(corpus.dtype),
+            "path": "warp lists" if k <= topk.LIST_K else "scores + select_topk",
+            "max_abs_err": err, "near_tie_swaps": n_swapped, "ms": ms, "plain_ms": plain_ms,
+            **bound(n * d * corpus.element_size() + b * d * 4 + b * k * 8, 2 * b * n * d, kind),
+            "library_ms": None}
+
+
+def _check_select(dev, seed):
+    """select_topk alone at its k = 1024 shape, (32, 1,048,576) f32 scores
+    on a coarse grid (many exact ties): the plain version's ids and scores
+    exactly. library_ms: one torch.topk call (which does not promise the
+    tie order)."""
+    import torch
+    from rag_serving_system_torch.ops import topk
+
+    b, n, k = 32, 1 << 20, 1024
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scores = torch.round(torch.randn((b, n), generator=g, device=dev) * 1000) / 1000
+    s_k, i_k = topk.select_topk(scores, k)
+    s_p, i_p = topk.select_topk_plain(scores, k)
+    torch.cuda.synchronize()
+    require(torch.equal(i_k, i_p) and torch.equal(s_k, s_p),
+            "select_topk differs from its plain version")
+    return {"b": b, "l": n, "k": k, "max_abs_err": (s_k - s_p).abs().max().item(),
+            "ms": cuda_ms(lambda: topk.select_topk(scores, k), 20),
+            "plain_ms": cuda_ms(lambda: topk.select_topk_plain(scores, k), 3),
+            "library_ms": cuda_ms(lambda: torch.topk(scores, k, dim=1), 20),
+            "library": "torch.topk", **bound(b * n * 4 + b * k * 8, 0, "f32")}
 
 
 def _seeded_qkv(dev, shape_q, shape_kv, dtype, seed):
@@ -173,6 +233,45 @@ def _seeded_qkv(dev, shape_q, shape_kv, dtype, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn(s, generator=g, device=dev).to(dtype)
             for s in (shape_q, shape_kv, shape_kv)]
+
+
+def _timed_call(call):
+    """(CUDA-event ms of call over 10 launches, None) or (None, the error)."""
+    try:
+        return cuda_ms(call, 10), None
+    except Exception as e:  # a library call this PyTorch does not take
+        return None, f"{type(e).__name__}: {e}"[:300]
+
+
+def _sdpa_ms(q, k, v, valid):
+    """One F.scaled_dot_product_attention call on (B, H, S, D) copies of
+    q/k/v with a bool (B, 1, S, S) mask and enable_gqa: library_ms."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return _timed_call(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid,
+                                                              enable_gqa=True))
+
+
+def _attention_widths(fn, check) -> dict:
+    """The bf16 kernel at both CTA widths: each checked, each timed."""
+    from unittest import mock
+
+    from rag_serving_system_torch.ops import attention as att
+
+    out = {}
+    for w in (4, 8):
+        with mock.patch.object(att, "bf16_warps", lambda *a, w=w: w):
+            check(fn())
+            out[f"ms_{w}_warps"] = cuda_ms(fn, 10)
+    return out
+
+
+def _attention_record(out, ref, real, tol, name) -> dict:
+    diff = (out.float() - ref.float())[real].abs()
+    err = diff.max().item()
+    require(err <= tol, f"{name} differs by {err} > {tol}")
+    return {"max_abs_err": err, "mean_abs_err": diff.mean().item(), "tol": tol}
 
 
 def _check_flash(dev, dtype, tol, seed):
@@ -187,17 +286,30 @@ def _check_flash(dev, dtype, tol, seed):
     pads[-1] = s                      # one row with every key masked
     mask = torch.as_tensor((np.arange(s)[None, :] >= pads[:, None]).astype(np.int32),
                            device=dev)
-    out = att.flash_attention(q, k, v, mask)
     ref = att.flash_attention_plain(q, k, v, mask)
     real = mask.bool()
-    err = (out.float() - ref.float())[real].abs().max().item()
-    require(err <= tol, f"flash_attention {dtype} differs by {err} > {tol}")
-    require(not out[~real].any().item(),
-            "flash_attention: fully masked rows are not 0")
+
+    def check(out):
+        require(not out[~real].any().item(), "flash_attention: fully masked rows are not 0")
+        return _attention_record(out, ref, real, tol, f"flash_attention {dtype}")
+
+    rec = check(att.flash_attention(q, k, v, mask))
+    widths = (_attention_widths(lambda: att.flash_attention(q, k, v, mask), check)
+              if dtype == torch.bfloat16 else {})
     ms = cuda_ms(lambda: att.flash_attention(q, k, v, mask), 10)
     plain_ms = cuda_ms(lambda: att.flash_attention_plain(q, k, v, mask), 3)
-    return {"shape": [b, s, hq, hk, d], "dtype": str(dtype), "max_abs_err": err,
-            "tol": tol, "ms": ms, "plain_ms": plain_ms}
+    valid = real[:, None, None, :] & torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                                           device=dev))
+    library_ms, library_error = _sdpa_ms(q, k, v, valid)
+    real_len = (s - pads).astype(np.int64)
+    pairs = int((real_len * (real_len + 1) // 2).sum())   # visible (query, key) pairs
+    nbytes = b * s * (2 * hq + 2 * hk) * d * q.element_size() + b * s * 4
+    return {"shape": [b, s, hq, hk, d], "dtype": str(dtype), **rec, "ms": ms,
+            "warps": att.bf16_warps(b, s, hq) if dtype == torch.bfloat16 else None,
+            **widths, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "F.scaled_dot_product_attention(bool mask, enable_gqa=True)",
+            "library_error": library_error,
+            **bound(nbytes, 4 * d * hq * pairs, "bf16" if dtype == torch.bfloat16 else "f32")}
 
 
 def packed_lengths(seed: int, n_seg: int = 32, t: int = 8192) -> list:
@@ -224,19 +336,56 @@ def _check_flash_packed(dev, dtype, tol, seed):
     seg_np[:n_real] = np.repeat(np.arange(len(lens)), lens)
     seg = torch.as_tensor(seg_np[None], device=dev)
     q, k, v = _seeded_qkv(dev, (1, t, hq, d), (1, t, hk, d), dtype, seed)
-    out = att.flash_attention_packed(q, k, v, seg)
     ref = att.flash_attention_packed_plain(q, k, v, seg)
-    err = (out.float() - ref.float())[0, :n_real].abs().max().item()
-    require(err <= tol, f"flash_attention_packed {dtype} differs by {err} > {tol}")
+    real = torch.zeros((1, t), dtype=torch.bool, device=dev)
+    real[0, :n_real] = True
+
+    def check(out):
+        return _attention_record(out, ref, real, tol, f"flash_attention_packed {dtype}")
+
+    rec = check(att.flash_attention_packed(q, k, v, seg))
+    widths = (_attention_widths(lambda: att.flash_attention_packed(q, k, v, seg), check)
+              if dtype == torch.bfloat16 else {})
     ms = cuda_ms(lambda: att.flash_attention_packed(q, k, v, seg), 10)
     plain_ms = cuda_ms(lambda: att.flash_attention_packed_plain(q, k, v, seg), 3)
+    # library_ms: varlen_attn where this PyTorch has it, else one SDPA call
+    # with the block-diagonal causal mask
+    library, library_ms, library_error = "torch.nn.attention.varlen.varlen_attn", None, None
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+    except ImportError as e:
+        library_error = f"ImportError: {e}"
+    else:
+        all_lens = lens + ([t - n_real] if t > n_real else [])
+        cu = torch.tensor(np.concatenate([[0], np.cumsum(all_lens)]), dtype=torch.int32,
+                          device=dev)
+        mx = max(all_lens)
+        library_ms, library_error = _timed_call(
+            lambda: varlen_attn(q[0], k[0], v[0], cu, cu, mx, mx, is_causal=True))
+    if library_ms is None:
+        sg = seg[0]
+        valid = ((sg[:, None] == sg[None, :])
+                 & torch.tril(torch.ones((t, t), dtype=torch.bool, device=dev)))[None, None]
+        library = "F.scaled_dot_product_attention(block-diagonal bool mask, enable_gqa=True)"
+        library_ms, err2 = _sdpa_ms(q, k, v, valid)
+        library_error = f"{library_error}; {err2}" if err2 else library_error
+    pairs = sum(x * (x + 1) // 2 for x in lens)
+    nbytes = t * (2 * hq + 2 * hk) * d * q.element_size() + t * 4
     return {"t": t, "segments": len(lens), "real_tokens": n_real,
-            "sum_len_sq": int(sum(x * x for x in lens)), "dtype": str(dtype),
-            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms}
+            "sum_len_sq": int(sum(x * x for x in lens)), "dtype": str(dtype), **rec,
+            "ms": ms, "warps": att.bf16_warps(1, t, hq) if dtype == torch.bfloat16 else None,
+            **widths, "plain_ms": plain_ms, "library_ms": library_ms, "library": library,
+            "library_error": library_error,
+            **bound(nbytes, 4 * d * hq * pairs, "bf16" if dtype == torch.bfloat16 else "f32")}
+
+
+def _int8_bound(n, d, b, k) -> dict:
+    return bound(n * d + 4 * n + b * d + b * k * 8, 2 * b * n * d, "int8")
 
 
 def _check_topk_int8(dev, seed):
-    """B4 at 1M rows (k = 16, 64, 256), then chunked over 10M: indices
+    """B4 at 1M rows (k = 16, 64, 256; 1024 through the score kernel and
+    select_topk), then chunked over 10M: indices
     identical and scores bit-identical to the plain version (the int32 dot is
     exact in both, and each score is one correctly rounded product), ties
     included."""
@@ -263,9 +412,9 @@ def _check_topk_int8(dev, seed):
     plain_ms = cuda_ms(lambda: topk.cosine_topk_int8_reference(
         corpus, scales, queries, k, corpus_mean=mean), 3)
     one = {"n": n, "b": b, "k": k, "max_abs_err": (s_k - s_p).abs().max().item(),
-           "ms": ms, "plain_ms": plain_ms}
+           "ms": ms, "plain_ms": plain_ms, "library_ms": None, **_int8_bound(n, d, b, k)}
     wide = []
-    for kw in (64, 256):
+    for kw in (64, 256, 1024):
         s_k, i_k = topk.cosine_topk_int8(corpus, scales, queries, kw, corpus_mean=mean)
         s_p, i_p = topk.cosine_topk_int8_reference(corpus, scales, queries, kw,
                                                    corpus_mean=mean)
@@ -274,10 +423,12 @@ def _check_topk_int8(dev, seed):
         require(torch.equal(s_k, s_p), f"cosine_topk_int8 scores at k={kw} are not "
                 "bit-identical")
         wide.append({"n": n, "b": b, "k": kw, "max_abs_err": (s_k - s_p).abs().max().item(),
+                     "path": "warp lists" if kw <= topk.LIST_K else "scores + select_topk",
                      "ms": cuda_ms(lambda: topk.cosine_topk_int8(
                          corpus, scales, queries, kw, corpus_mean=mean), 5),
                      "plain_ms": cuda_ms(lambda: topk.cosine_topk_int8_reference(
-                         corpus, scales, queries, kw, corpus_mean=mean), 2)})
+                         corpus, scales, queries, kw, corpus_mean=mean), 2),
+                     "library_ms": None, **_int8_bound(n, d, b, kw)})
     del corpus, scales
     torch.cuda.empty_cache()
 
@@ -297,7 +448,7 @@ def _check_topk_int8(dev, seed):
            "corpus_gb": sum(c.numel() for c, _ in chunks) / 1e9,
            "max_abs_err": (s_k - s_p).abs().max().item(),
            "ms": cuda_ms(lambda: topk.cosine_topk_int8_chunked(chunks, queries, k), 4),
-           "plain_ms": plain_ms}
+           "plain_ms": plain_ms, "library_ms": None, **_int8_bound(n10, d, b, k)}
     del chunks
     torch.cuda.empty_cache()
     return one, wide, ten
@@ -330,10 +481,13 @@ def _check_probes(dev, seed):
         err = (out - ref).abs()
         require(bool((err <= tol).all()), f"stream_probe {name} differs beyond "
                 f"its summation-order bound: {err.max().item()}")
+        itemsize = corpus.element_size()
         records.append({"name": "stream_probe", "corpus": name, "n": n, "block_n": block_n,
                         "max_abs_err": err.max().item(), "tol": tol.min().item(),
                         "ms": cuda_ms(lambda: probes.stream_probe(corpus, block_n), 20),
-                        "plain_ms": cuda_ms(lambda: probes.stream_probe_plain(corpus, block_n), 3)})
+                        "plain_ms": cuda_ms(lambda: probes.stream_probe_plain(corpus, block_n), 3),
+                        "library_ms": None,
+                        **bound(n * d * itemsize + (n // block_n) * d * 4, 0, "f32")})
         for highest in ((True, False) if name == "f32" else (True,)):
             out = probes.dot_probe(corpus, q, block_n, highest)
             ref = probes.dot_probe_plain(corpus, q, block_n, highest)
@@ -341,12 +495,17 @@ def _check_probes(dev, seed):
             err = (out - ref).abs()
             require(bool((err <= tol).all()), f"dot_probe {name} highest={highest} "
                     f"differs beyond its summation-order bound: {err.max().item()}")
+            kind = ("int8" if name == "int8" else "f32" if name == "f32" and highest
+                    else "bf16")
             records.append({
                 "name": "dot_probe", "corpus": name, "highest": highest, "n": n, "b": b,
                 "max_abs_err": err.max().item(), "tol": tol.min().item(),
                 "ms": cuda_ms(lambda: probes.dot_probe(corpus, q, block_n, highest), 20),
                 "plain_ms": cuda_ms(lambda: probes.dot_probe_plain(corpus, q, block_n,
-                                                                   highest), 3)})
+                                                                   highest), 3),
+                "library_ms": None,
+                **bound(n * d * itemsize + b * d * q.element_size() + b * 128 * 4,
+                        2 * b * n * d, kind)})
     del base, c8
     torch.cuda.empty_cache()
     return records
@@ -367,7 +526,7 @@ def phase_kernels(dev) -> dict:
         queries = torch.randn((32, 1024), generator=g, device=dev)
         for dtype in ((torch.float32, torch.bfloat16) if n > 1000 else (torch.float32,)):
             c = corpus.to(dtype)
-            for k in ((16, 64, 256) if n > 1000 else (16,)):
+            for k in ((16, 64, 256, 1024) if n > 1000 else (16,)):
                 r = _check_topk(c, queries, k, reps=20 if k == 16 else 5)
                 emit("kernel", name="cosine_topk", **r)
                 out.setdefault("cosine_topk", r)
@@ -390,6 +549,8 @@ def phase_kernels(dev) -> dict:
     for r in _check_probes(dev, seed=5):
         emit("kernel", **r)
         out.setdefault(r["name"], r)
+    out["select_topk"] = _check_select(dev, seed=8)
+    emit("kernel", name="select_topk", **out["select_topk"])
     return out
 
 
@@ -448,9 +609,74 @@ def phase_serve(queries: list) -> dict:
     emit("serve", init_s=t_init, **r, launches=launches,
          batches=processor.batches_processed, stages=engine.timer.summary())
     require_launched("serve", launches)
+    for n in (1, 32):
+        emit("stage_split", **_stage_split(engine, queries[:n]))
     del processor, engine
     torch.cuda.empty_cache()
     return launches
+
+
+def _stage_split(engine, queries: list, reps: int = 3) -> dict:
+    """One batch through the engine's stages on the CUDA-synced host clock,
+    mean of reps after a warm-up, the query cache off (every batch encodes
+    and retrieves): prepare (encode, retrieve, prompt build), prefill (the
+    synchronised call of qwen2.prefill or prefill_packed), its B2/B3 device
+    time (CUDA events around each call), decode (generate minus prefill)."""
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch.models import qwen2
+
+    engine._query_cache = None
+    prefill_s, attn = [], []
+
+    def synced(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def evented(fn):
+        def call(*a, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            attn.append((start, end))
+            return out
+        return call
+
+    ks = [2] * len(queries)
+    route = engine.stage_prompts(engine.prepare(queries, ks))[0]
+    rows = []
+    with mock.patch.object(qwen2, "prefill", synced(qwen2.prefill)), \
+            mock.patch.object(qwen2, "prefill_packed", synced(qwen2.prefill_packed)), \
+            mock.patch.object(qwen2, "flash_attention", evented(qwen2.flash_attention)), \
+            mock.patch.object(qwen2, "flash_attention_packed",
+                              evented(qwen2.flash_attention_packed)):
+        for rep in range(reps + 1):
+            prefill_s.clear()
+            attn.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prompts = engine.prepare(queries, ks)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            engine.finalize_tokens(engine.generate_tokens(prompts))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if rep:   # the first is the warm-up
+                rows.append((t1 - t0, sum(prefill_s), sum(s.elapsed_time(e) for s, e in attn)
+                             / 1e3, t2 - t1 - sum(prefill_s), t2 - t0, len(attn)))
+    mean = [sum(r[i] for r in rows) / len(rows) for i in range(6)]
+    return {"batch": len(queries), "route": route, "prepare_ms": mean[0] * 1e3,
+            "prefill_ms": mean[1] * 1e3, "prefill_attention_ms": mean[2] * 1e3,
+            "attention_launches": int(mean[5]), "decode_ms": mean[3] * 1e3,
+            "process_ms": mean[4] * 1e3, "reps": reps}
 
 
 def phase_parity(queries: list) -> None:
@@ -600,6 +826,47 @@ def phase_serve_ivf(queries: list) -> dict:
     return launches
 
 
+def phase_serve_wide_k(queries: list) -> dict:
+    """MAX_K=1000 over squad_real's 1000 rows: every batch retrieves k = N
+    through the score kernel and select_topk; then the batch's retrieval
+    against the plain version's."""
+    import torch
+    from rag_serving_system_torch.main import build_processor
+    from rag_serving_system_torch.ops import topk
+
+    set_env(DOCUMENT_TEXT_FILE=os.path.join(DATA, "squad_real_contexts.json"),
+            DOCUMENT_EMBEDDINGS_FILE=os.path.join(DATA, "squad_real_embeddings.npy"),
+            MAX_K="1000")
+    processor, engine, request_queue, _ = build_processor()
+    require(engine.max_k == 1000 > topk.LIST_K, f"max_k is {engine.max_k}")
+    reset_launches()
+    r = _drive(processor, request_queue, queries, 7)
+    launches = read_launches()
+    require_launched("serve_wide_k", launches)
+    require(launches["cosine_topk"] > 0, "the score kernel never launched in serve_wide_k")
+    # the served batch's retrieval against the plain version: scores within
+    # 1e-5; ranks may swap only where neighbouring plain scores lie within
+    # 1e-6 (f32 sums in two orders)
+    q = engine._embed_queries(queries[1:8])
+    s_k, i_k = engine._topk(q, engine.max_k)
+    s_p, i_p = topk.cosine_topk_reference(engine.corpus, q, engine.max_k)
+    torch.cuda.synchronize()
+    err = (s_k - s_p).abs().max().item()
+    gaps = (s_p[:, :-1] - s_p[:, 1:]).abs() < 1e-6
+    near = torch.zeros_like(i_k, dtype=torch.bool)
+    near[:, :-1] |= gaps
+    near[:, 1:] |= gaps
+    bad = (i_k != i_p) & ~near
+    emit("serve_wide_k", rows=engine.n_docs, max_k=engine.max_k, **r, launches=launches,
+         stages=engine.timer.summary(), max_abs_err=err,
+         near_tie_swaps=int((i_k != i_p).sum().item()))
+    require(err <= 1e-5, f"k = N retrieval scores differ by {err}")
+    require(not bad.any().item(), "k = N retrieval ranks differ beyond near-ties")
+    del processor, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 def timed(phase: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -640,6 +907,7 @@ def main() -> int:
         timed("parity", phase_parity, queries)
         launches["serve_int8"] = timed("serve_int8", phase_serve_int8, queries[74:107])
         timed("serve_ivf", phase_serve_ivf, queries[107:139])
+        launches["serve_wide_k"] = timed("serve_wide_k", phase_serve_wide_k, queries[139:147])
         emit("timing", of="all", seconds=time.perf_counter() - t_start)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -650,7 +918,8 @@ def main() -> int:
         summary.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[path][name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -297,16 +297,14 @@ __device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned& r0, unsigned& r
                                         unsigned& r2, unsigned& r3) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr)
-               : "memory");
+               : "r"(addr));
 }
 
 __device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned& r0, unsigned& r1,
                                           unsigned& r2, unsigned& r3) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr)
-               : "memory");
+               : "r"(addr));
 }
 
 // c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
@@ -384,22 +382,29 @@ __global__ void __launch_bounds__(NW * 32) flash_tc_kernel(AttnArgs a) {
     cp_async16(q_s + swz(r, c, L::RB),
                Q + (((int64_t)b * S + min(qi, S - 1)) * a.Hq + h) * D + c * 8, qi < S);
   }
-  // K, V and the 64 key tags of tile kt into ring stage st
+  // K, V and the 64 key tags of tile kt into ring stage st. This thread
+  // copies column cc of rows cr, cr + RP, ...: one swizzle, pointers that
+  // advance by a row stride
+  constexpr int RP = NTH / CH;  // rows a pass
+  const int cr = tid / CH, cc = tid - (tid / CH) * CH;
+  const unsigned c_off = swz(cr, cc, L::RB);
+  const int64_t kv_row = (int64_t)a.Hk * D;
+  const __nv_bfloat16* kb = K + ((int64_t)b * S * a.Hk + hk) * D + cc * 8;
+  const __nv_bfloat16* vb = V + ((int64_t)b * S * a.Hk + hk) * D + cc * 8;
   auto issue = [&](int kt, int st) {
-    const unsigned ks = ring + st * L::STAGE_BYTES;
-    const unsigned vs = ks + L::KV_BYTES;
+    const unsigned ks = ring + st * L::STAGE_BYTES + c_off;
     const int k0 = kt * TC_BK;
-    for (int idx = tid; idx < TC_BK * CH; idx += NTH) {
-      const int r = idx / CH, c = idx - (idx / CH) * CH;
-      const int kj = k0 + r;
-      const int64_t off = (((int64_t)b * S + min(kj, S - 1)) * a.Hk + hk) * D + c * 8;
-      cp_async16(ks + swz(r, c, L::RB), K + off, kj < S);
-      cp_async16(vs + swz(r, c, L::RB), V + off, kj < S);
+#pragma unroll
+    for (int i = 0; i < TC_BK / RP; ++i) {
+      const int kj = k0 + cr + i * RP;
+      const int64_t off = (kj < S ? kj : 0) * kv_row;
+      cp_async16(ks + i * RP * L::RB, kb + off, kj < S);
+      cp_async16(ks + L::KV_BYTES + i * RP * L::RB, vb + off, kj < S);
     }
     if (tid < TC_BK) {
       const int kj = k0 + tid;
       const int* src = PACKED ? a.seg + min(kj, S - 1) : a.mask + (int64_t)b * S + min(kj, S - 1);
-      cp_async4(vs + L::KV_BYTES + tid * 4, src, kj < S);
+      cp_async4(ring + st * L::STAGE_BYTES + 2 * L::KV_BYTES + tid * 4, src, kj < S);
     }
   };
   issue(kt_begin, 0);
@@ -411,10 +416,11 @@ __global__ void __launch_bounds__(NW * 32) flash_tc_kernel(AttnArgs a) {
   const int qd = lane & 3;
   const int row_a = q0 + wrow + g;
   const int row_b = row_a + 8;
-  int tag_a = 0, tag_b = 0;
+  int tag_a = 0, tag_b = 0, first_tag = 0;
   if (PACKED) {
     tag_a = row_a < S ? a.seg[row_a] : -1;
     tag_b = row_b < S ? a.seg[row_b] : -1;
+    first_tag = a.seg[min(q0 + wrow, S - 1)];
   }
   const float scale = a.sm_scale * LOG2E;
 
@@ -447,6 +453,12 @@ __global__ void __launch_bounds__(NW * 32) flash_tc_kernel(AttnArgs a) {
     const unsigned ks = ring + (it & 1) * L::STAGE_BYTES;
     const unsigned vs = ks + L::KV_BYTES;
     const int* tags = reinterpret_cast<const int*>(tc_smem + (vs - sbase) + L::KV_BYTES);
+    // nor has a warp any key of a tile whose keys are all masked (B2) or all
+    // of segments before its first row's (B3, segments ascend): skipping it
+    // leaves (m, l, O) exactly as the masked products would
+    if (PACKED ? tags[min(TC_BK - 1, S - 1 - k0)] < first_tag
+               : !__any_sync(FULL, tags[lane] > 0 || tags[lane + 32] > 0))
+      continue;
 
     // S = Q K^T: 16 rows x 64 keys a warp
     float sc[NT][4];
