@@ -14,9 +14,9 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 the same function (library_ms): B1 at 1M rows (f32 and bf16
                 corpus, k = 16, 64, 256, and k = 1024 through the score
                 kernel and select_topk) and 1000 rows, B2 and B3 in bf16
-                (at 64- and 128-row CTAs) and f32, B4 at 1M rows (k = 16,
-                64, 256, 1024) and chunked over 10M rows (10.24 GB of int8 on
-                the card), select_topk alone, P1 and P2 at 1M rows.
+                and f32, B4 at 1M rows (k = 16, 64, 256, 1024) and chunked
+                over 10M rows (10.24 GB of int8 on the card), select_topk
+                alone, P1 and P2 at 1M rows.
 4. roofline   - profile_topk's 1M-row rows: P1 (stream), P2 (dot) and the
                 top-k kernel (full) for f32, bf16 and int8 corpora.
 5. serve      - the port's engine at full width (e5-large + Qwen2.5-1.5B,
@@ -38,19 +38,24 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 256 centres) through its startup recall gate; 32 requests.
 9. serve_wide_k - MAX_K=1000 over squad_real (k = N, past the warp lists'
                 256: the score kernel and select_topk): a lone request, then
-                7; the retrieved ids equal the plain version's.
+                7; the batch's retrieval against the plain version's.
 
-Each path phase (roofline, serve, serve_int8, serve_ivf, serve_wide_k) sets every launch
-count to 0 just before it and reads the counts just after; each kernel of
-the path must have launched, and every request must come back as
-{"result": str}. Then the nvidia-smi name and power limit, the kernels'
-summary line, and the last line {"ok": true, "device": {...}}. Needs a CUDA
-device; exits 1 without one, and when run outside a checkout of the
-repository.
+`python3 chip_smoke.py --stage-split` runs phases 1, 2 and the serve
+engine's stage split alone (5 reps a batch size), for an A/B of two
+checkouts on one card.
+
+Each path phase (roofline, serve, serve_int8, serve_ivf, serve_wide_k) sets
+every launch count to 0 just before it and reads the counts just after;
+each kernel of the path must have launched, and every request must come
+back as {"result": str}. Then the nvidia-smi name and power limit, the
+kernels' summary line, and the last line {"ok": true, "device": {...}}.
+Needs a CUDA device; exits 1 without one, and when run outside a checkout
+of the repository.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import sys
@@ -253,20 +258,6 @@ def _sdpa_ms(q, k, v, valid):
                                                               enable_gqa=True))
 
 
-def _attention_widths(fn, check) -> dict:
-    """The bf16 kernel at both CTA widths: each checked, each timed."""
-    from unittest import mock
-
-    from rag_serving_system_torch.ops import attention as att
-
-    out = {}
-    for w in (4, 8):
-        with mock.patch.object(att, "bf16_warps", lambda *a, w=w: w):
-            check(fn())
-            out[f"ms_{w}_warps"] = cuda_ms(fn, 10)
-    return out
-
-
 def _attention_record(out, ref, real, tol, name) -> dict:
     diff = (out.float() - ref.float())[real].abs()
     err = diff.max().item()
@@ -289,13 +280,9 @@ def _check_flash(dev, dtype, tol, seed):
     ref = att.flash_attention_plain(q, k, v, mask)
     real = mask.bool()
 
-    def check(out):
-        require(not out[~real].any().item(), "flash_attention: fully masked rows are not 0")
-        return _attention_record(out, ref, real, tol, f"flash_attention {dtype}")
-
-    rec = check(att.flash_attention(q, k, v, mask))
-    widths = (_attention_widths(lambda: att.flash_attention(q, k, v, mask), check)
-              if dtype == torch.bfloat16 else {})
+    out = att.flash_attention(q, k, v, mask)
+    require(not out[~real].any().item(), "flash_attention: fully masked rows are not 0")
+    rec = _attention_record(out, ref, real, tol, f"flash_attention {dtype}")
     ms = cuda_ms(lambda: att.flash_attention(q, k, v, mask), 10)
     plain_ms = cuda_ms(lambda: att.flash_attention_plain(q, k, v, mask), 3)
     valid = real[:, None, None, :] & torch.tril(torch.ones((s, s), dtype=torch.bool,
@@ -305,8 +292,7 @@ def _check_flash(dev, dtype, tol, seed):
     pairs = int((real_len * (real_len + 1) // 2).sum())   # visible (query, key) pairs
     nbytes = b * s * (2 * hq + 2 * hk) * d * q.element_size() + b * s * 4
     return {"shape": [b, s, hq, hk, d], "dtype": str(dtype), **rec, "ms": ms,
-            "warps": att.bf16_warps(b, s, hq) if dtype == torch.bfloat16 else None,
-            **widths, "plain_ms": plain_ms, "library_ms": library_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention(bool mask, enable_gqa=True)",
             "library_error": library_error,
             **bound(nbytes, 4 * d * hq * pairs, "bf16" if dtype == torch.bfloat16 else "f32")}
@@ -340,12 +326,8 @@ def _check_flash_packed(dev, dtype, tol, seed):
     real = torch.zeros((1, t), dtype=torch.bool, device=dev)
     real[0, :n_real] = True
 
-    def check(out):
-        return _attention_record(out, ref, real, tol, f"flash_attention_packed {dtype}")
-
-    rec = check(att.flash_attention_packed(q, k, v, seg))
-    widths = (_attention_widths(lambda: att.flash_attention_packed(q, k, v, seg), check)
-              if dtype == torch.bfloat16 else {})
+    rec = _attention_record(att.flash_attention_packed(q, k, v, seg), ref, real, tol,
+                            f"flash_attention_packed {dtype}")
     ms = cuda_ms(lambda: att.flash_attention_packed(q, k, v, seg), 10)
     plain_ms = cuda_ms(lambda: att.flash_attention_packed_plain(q, k, v, seg), 3)
     # library_ms: varlen_attn where this PyTorch has it, else one SDPA call
@@ -360,8 +342,16 @@ def _check_flash_packed(dev, dtype, tol, seed):
         cu = torch.tensor(np.concatenate([[0], np.cumsum(all_lens)]), dtype=torch.int32,
                           device=dev)
         mx = max(all_lens)
-        library_ms, library_error = _timed_call(
-            lambda: varlen_attn(q[0], k[0], v[0], cu, cu, mx, mx, is_causal=True))
+        sig = inspect.signature(varlen_attn)
+        causal = ({"is_causal": True} if "is_causal" in sig.parameters
+                  else {"window_size": (-1, 0)} if "window_size" in sig.parameters else None)
+        if causal is None:
+            library_error = f"varlen_attn{sig} takes no causal mask"
+        else:
+            library_ms, library_error = _timed_call(
+                lambda: varlen_attn(q[0], k[0], v[0], cu, cu, mx, mx, **causal))
+            if library_error:
+                library_error = f"varlen_attn{sig}: {library_error}"
     if library_ms is None:
         sg = seg[0]
         valid = ((sg[:, None] == sg[None, :])
@@ -373,8 +363,7 @@ def _check_flash_packed(dev, dtype, tol, seed):
     nbytes = t * (2 * hq + 2 * hk) * d * q.element_size() + t * 4
     return {"t": t, "segments": len(lens), "real_tokens": n_real,
             "sum_len_sq": int(sum(x * x for x in lens)), "dtype": str(dtype), **rec,
-            "ms": ms, "warps": att.bf16_warps(1, t, hq) if dtype == torch.bfloat16 else None,
-            **widths, "plain_ms": plain_ms, "library_ms": library_ms, "library": library,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library": library,
             "library_error": library_error,
             **bound(nbytes, 4 * d * hq * pairs, "bf16" if dtype == torch.bfloat16 else "f32")}
 
@@ -591,14 +580,18 @@ def _drive(processor, request_queue, queries: list, n_batch: int) -> dict:
             "sample_answer": results[0]}
 
 
+def _serve_env() -> None:
+    set_env(DOCUMENT_TEXT_FILE=os.path.join(DATA, "squad_real_contexts.json"),
+            DOCUMENT_EMBEDDINGS_FILE=os.path.join(DATA, "squad_real_embeddings.npy"))
+
+
 def phase_serve(queries: list) -> dict:
     """The full-width engine behind the queue and the batch processor.
     Returns each kernel's launch count over the served requests."""
     import torch
     from rag_serving_system_torch.main import build_processor
 
-    set_env(DOCUMENT_TEXT_FILE=os.path.join(DATA, "squad_real_contexts.json"),
-            DOCUMENT_EMBEDDINGS_FILE=os.path.join(DATA, "squad_real_embeddings.npy"))
+    _serve_env()
     t0 = time.perf_counter()
     processor, engine, request_queue, _ = build_processor()
     torch.cuda.synchronize()
@@ -614,6 +607,19 @@ def phase_serve(queries: list) -> dict:
     del processor, engine
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_stage_split(queries: list) -> None:
+    """Only the serve engine's stage split, 5 reps a batch size: the A/B
+    mode (`--stage-split`), which also runs from an older checkout of the
+    port."""
+    from rag_serving_system_torch.main import build_processor
+
+    _serve_env()
+    _, engine, _, _ = build_processor()
+    engine.warmup()
+    for n in (1, 32):
+        emit("stage_split", **_stage_split(engine, queries[:n], reps=5))
 
 
 def _stage_split(engine, queries: list, reps: int = 3) -> dict:
@@ -896,6 +902,15 @@ def main() -> int:
         return 1
     with open(os.path.join(DATA, "squad_real_queries.json"), encoding="utf-8") as f:
         queries = json.load(f)
+    if sys.argv[1:] == ["--stage-split"]:
+        smi = phase_device()
+        phase_build()
+        phase_stage_split(queries)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     try:
         t_start = time.perf_counter()
         dev = resolve_device("cuda")

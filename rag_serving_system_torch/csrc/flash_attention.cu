@@ -11,8 +11,10 @@
 // TPU kernel; a row whose visible keys are all masked ends with m == NEG_INF
 // and writes 0; query head h reads kv head h / (Hq / Hk), and K/V are never
 // repeated. The (S, S) score matrix never reaches device memory.
-//   B2: key tiles from 0 to the tile holding the block's last row (the
-//       causal diagonal); the key mask comes from mask[b, j].
+//   B2: key tiles up to the one holding the block's last row (the causal
+//       diagonal); the key mask comes from mask[b, j]. The f32 kernel starts
+//       at tile 0, the bf16 one at the tile of the block's first unmasked
+//       key (the tiles before it add nothing).
 //   B3: key tiles from the one holding the segment start of the block's
 //       first token, found by a binary search over the ascending segment ids
 //       (the TPU kernel got it as a scalar-prefetched `qstart`), so the work
@@ -26,9 +28,11 @@
 //   cores: 2.28 ms (B2, B = 32, S = 512) and 1.90 ms (B3, T = 8192, 32
 //   segments) on an NVIDIA H100 80GB HBM3 at a 700 W limit. This one's times
 //   are in PERF.md, beside the bound.
-//   Design: a CTA of WARPS warps (4 or 8) owns 16 * WARPS query rows of one
-//   head; each warp owns 16 rows. Q is copied once into shared memory and
-//   kept in registers as mma A fragments (ldmatrix). Tiles of 64 keys of K
+//   Design: a CTA of 4 warps owns 64 query rows of one head; each warp owns
+//   16 rows (CTAs of 8 warps and 128 rows were slower at every served shape,
+//   PERF.md). Q is copied once into shared memory and kept in registers as
+//   mma A fragments (ldmatrix); its shared memory is the ring's, so 3 CTAs
+//   fit an SM. Tiles of 64 keys of K
 //   and V (16 KB each at D = 128) and their 64 mask or segment tags stream
 //   through a 2-stage ring of 16-byte cp.async copies, with one block barrier
 //   a tile: the barrier that publishes tile t also frees the stage of tile
@@ -43,9 +47,9 @@
 //   fragment of P with no trip through shared memory; l sums the f32
 //   probabilities. Key tiles strictly below the diagonal check only the key
 //   tag; the diagonal tile and the last (ragged) tile also check j <= i and
-//   j < S. A warp skips the products of a tile wholly above its rows. The
-//   epilogue divides by l, writes 0 on dead rows, and stores bf16 through
-//   shared memory as 16-byte rows.
+//   j < S. A warp skips a tile wholly above its rows, wholly masked (B2) or
+//   wholly of earlier segments (B3). The epilogue divides by l, writes 0 on
+//   dead rows, and stores bf16 through shared memory as 16-byte rows.
 //
 // f32: the first kernel, on the FP32 CUDA cores, unchanged (the f32 engine is
 // held token-identical to the plain versions): one CTA per (q-block of 64
@@ -267,6 +271,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(AttnArgs a) {
 // ---------------------------------------------------------------------------
 
 constexpr int TC_BK = 64;  // keys per tile
+constexpr int NW = 4;      // warps a CTA, 16 query rows each
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Byte offset of 16-byte column c of row r in a tile of rows of rb bytes,
@@ -321,18 +326,22 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-template <int D, int NW>
+// The ring's two stages (K, V, key tags each). The Q block is first copied
+// into stage 1's K rows, read into registers before stage 1 is first
+// filled, and the epilogue stages O there too: 66 KB a CTA at D = 128, so 3
+// CTAs fit an SM.
+template <int D>
 struct TcSmem {
   static constexpr int RB = D * 2;                   // bytes of a row
-  static constexpr int Q_BYTES = 16 * NW * RB;
   static constexpr int KV_BYTES = TC_BK * RB;
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES + TC_BK * 4;  // K, V, key tags
-  static constexpr int BYTES = Q_BYTES + 2 * STAGE_BYTES;
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES + TC_BK * 4;
+  static constexpr int BYTES = 2 * STAGE_BYTES;
+  static_assert(16 * NW * RB <= KV_BYTES, "the Q block fits stage 1's K rows");
 };
 
-template <int D, bool PACKED, int NW>
-__global__ void __launch_bounds__(NW * 32) flash_tc_kernel(AttnArgs a) {
-  using L = TcSmem<D, NW>;
+template <int D, bool PACKED>
+__global__ void __launch_bounds__(NW * 32, 3) flash_tc_kernel(AttnArgs a) {
+  using L = TcSmem<D>;
   constexpr int CH = D / 8;       // 16-byte columns of a row
   constexpr int KC = D / 16;      // k-steps of Q K^T
   constexpr int NT = TC_BK / 8;   // n8 tiles of S
@@ -340,7 +349,7 @@ __global__ void __launch_bounds__(NW * 32) flash_tc_kernel(AttnArgs a) {
   constexpr int BQR = 16 * NW;    // query rows of the CTA
   constexpr int NTH = NW * 32;
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  __shared__ int seg_start;
+  __shared__ int start_key;
 
   const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(a.q);
   const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(a.k);
@@ -354,26 +363,40 @@ __global__ void __launch_bounds__(NW * 32) flash_tc_kernel(AttnArgs a) {
   const int b = blockIdx.z;
   const int hk = h / (a.Hq / a.Hk);
   const int S = a.S;
-  const unsigned sbase = static_cast<unsigned>(__cvta_generic_to_shared(tc_smem));
-  const unsigned q_s = sbase;
-  const unsigned ring = sbase + L::Q_BYTES;
+  const unsigned ring = static_cast<unsigned>(__cvta_generic_to_shared(tc_smem));
+  const unsigned q_s = ring + L::STAGE_BYTES;
+  unsigned char* const q_p = tc_smem + L::STAGE_BYTES;
+  const int last_row = min(q0 + BQR - 1, S - 1);
+  const int kt_end = a.causal ? last_row / TC_BK : (S - 1) / TC_BK;
 
+  // the first key tile with a visible key: B3, the one holding the start of
+  // token q0's segment (a binary search over the ascending ids); B2, the one
+  // holding the first unmasked key up to the last row (none: the diagonal
+  // tile alone, wholly masked). Tiles before it add nothing.
   if (PACKED) {
     if (tid == 0) {
-      // first index of the segment holding token q0 (segments ascend)
       const int target = a.seg[q0];
       int lo = 0, hi = q0;
       while (lo < hi) {
         const int mid = (lo + hi) >> 1;
         if (a.seg[mid] < target) lo = mid + 1; else hi = mid;
       }
-      seg_start = lo;
+      start_key = lo;
     }
+  } else {
+    if (tid == 0) start_key = kt_end * TC_BK;
     __syncthreads();
+    const int* mrow = a.mask + (int64_t)b * S;
+    const int j_end = a.causal ? last_row : S - 1;
+    for (int j = tid; j <= j_end; j += NTH) {
+      if (mrow[j] > 0) {
+        atomicMin(&start_key, j);
+        break;
+      }
+    }
   }
-  const int last_row = min(q0 + BQR - 1, S - 1);
-  const int kt_begin = PACKED ? seg_start / TC_BK : 0;
-  const int kt_end = a.causal ? last_row / TC_BK : (S - 1) / TC_BK;
+  __syncthreads();
+  const int kt_begin = start_key / TC_BK;
 
   // the Q block, once
   for (int idx = tid; idx < BQR * CH; idx += NTH) {
@@ -443,6 +466,7 @@ __global__ void __launch_bounds__(NW * 32) flash_tc_kernel(AttnArgs a) {
         ldsm_x4(q_s + swz(r, 2 * kc + (m >> 1), L::RB), qa[kc][0], qa[kc][1], qa[kc][2],
                 qa[kc][3]);
       }
+      __syncthreads();  // every warp holds its Q before stage 1 is refilled
     }
     if (kt < kt_end) issue(kt + 1, (it + 1) & 1);
     cp_async_commit();
@@ -452,7 +476,7 @@ __global__ void __launch_bounds__(NW * 32) flash_tc_kernel(AttnArgs a) {
     if (a.causal && k0 > q0 + wrow + 15) continue;
     const unsigned ks = ring + (it & 1) * L::STAGE_BYTES;
     const unsigned vs = ks + L::KV_BYTES;
-    const int* tags = reinterpret_cast<const int*>(tc_smem + (vs - sbase) + L::KV_BYTES);
+    const int* tags = reinterpret_cast<const int*>(tc_smem + (vs - ring) + L::KV_BYTES);
     // nor has a warp any key of a tile whose keys are all masked (B2) or all
     // of segments before its first row's (B3, segments ascend): skipping it
     // leaves (m, l, O) exactly as the masked products would
@@ -551,8 +575,9 @@ __global__ void __launch_bounds__(NW * 32) flash_tc_kernel(AttnArgs a) {
     }
   }
   cp_async_wait_all();
+  __syncthreads();  // every warp is done with the ring
 
-  // epilogue: O / l, 0 on dead rows, staged as bf16 in the warp's own Q rows
+  // epilogue: O / l, 0 on dead rows, staged as bf16 in stage 1's K rows
   l_a += __shfl_xor_sync(FULL, l_a, 1);
   l_a += __shfl_xor_sync(FULL, l_a, 2);
   l_b += __shfl_xor_sync(FULL, l_b, 1);
@@ -562,9 +587,9 @@ __global__ void __launch_bounds__(NW * 32) flash_tc_kernel(AttnArgs a) {
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int c = 2 * j * 4 + 2 * qd;  // element column of this lane's pair
-    *reinterpret_cast<unsigned*>(tc_smem + swz(wrow + g, c >> 3, L::RB) + (c & 7) * 2) =
+    *reinterpret_cast<unsigned*>(q_p + swz(wrow + g, c >> 3, L::RB) + (c & 7) * 2) =
         pack_bf16(o[j][0] * inv_a, o[j][1] * inv_a);
-    *reinterpret_cast<unsigned*>(tc_smem + swz(wrow + g + 8, c >> 3, L::RB) + (c & 7) * 2) =
+    *reinterpret_cast<unsigned*>(q_p + swz(wrow + g + 8, c >> 3, L::RB) + (c & 7) * 2) =
         pack_bf16(o[j][2] * inv_b, o[j][3] * inv_b);
   }
   __syncwarp();
@@ -573,36 +598,25 @@ __global__ void __launch_bounds__(NW * 32) flash_tc_kernel(AttnArgs a) {
     const int qi = q0 + wrow + r;
     if (qi < S) {
       *reinterpret_cast<uint4*>(O + (((int64_t)b * S + qi) * a.Hq + h) * D + c * 8) =
-          *reinterpret_cast<const uint4*>(tc_smem + swz(wrow + r, c, L::RB));
+          *reinterpret_cast<const uint4*>(q_p + swz(wrow + r, c, L::RB));
     }
   }
 }
 
-template <int D, bool PACKED, int NW>
+template <int D, bool PACKED>
 int launch_tc(const AttnArgs& a, cudaStream_t st) {
-  constexpr int bytes = TcSmem<D, NW>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<D, PACKED, NW>,
+  constexpr int bytes = TcSmem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<D, PACKED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.S + 16 * NW - 1) / (16 * NW), a.Hq, a.B);
-  flash_tc_kernel<D, PACKED, NW><<<grid, NW * 32, bytes, st>>>(a);
+  flash_tc_kernel<D, PACKED><<<grid, NW * 32, bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool PACKED>
-int launch_tc_warps(const AttnArgs& a, int warps, cudaStream_t st) {
-  if (warps == 8) return launch_tc<D, PACKED, 8>(a, st);
-  if (warps == 4) return launch_tc<D, PACKED, 4>(a, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-int dispatch_tc(const AttnArgs& a, int D, int packed, int warps, cudaStream_t st) {
-  if (D == 128)
-    return packed ? launch_tc_warps<128, true>(a, warps, st)
-                  : launch_tc_warps<128, false>(a, warps, st);
-  if (D == 64)
-    return packed ? launch_tc_warps<64, true>(a, warps, st)
-                  : launch_tc_warps<64, false>(a, warps, st);
+int dispatch_tc(const AttnArgs& a, int D, int packed, cudaStream_t st) {
+  if (D == 128) return packed ? launch_tc<128, true>(a, st) : launch_tc<128, false>(a, st);
+  if (D == 64) return packed ? launch_tc<64, true>(a, st) : launch_tc<64, false>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -630,12 +644,11 @@ int dispatch_f32(const AttnArgs& a, int D, int packed, cudaStream_t st) {
 // f32 or bf16 alike; D in {64, 128}.
 // packed == 0 (B2): mask is (B, S) int32, seg unused.
 // packed == 1 (B3): B must be 1, seg is (S,) int32 ascending, mask unused.
-// bf16_warps (4 or 8): warps a CTA of the bf16 kernel, 16 query rows each.
 extern "C" int rag_flash_attention(const void* q, const void* k, const void* v,
                                    const void* mask, const void* seg, void* out,
                                    int is_bf16, int packed, int causal,
                                    int B, int S, int Hq, int Hk, int D, float sm_scale,
-                                   int bf16_warps, void* stream) {
+                                   void* stream) {
   if (B < 1 || S < 1 || Hk < 1 || Hq % Hk != 0 || (packed && B != 1)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -653,5 +666,5 @@ extern "C" int rag_flash_attention(const void* q, const void* k, const void* v,
   a.causal = causal;
   a.sm_scale = sm_scale;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch_tc(a, D, packed, bf16_warps, st) : dispatch_f32(a, D, packed, st);
+  return is_bf16 ? dispatch_tc(a, D, packed, st) : dispatch_f32(a, D, packed, st);
 }

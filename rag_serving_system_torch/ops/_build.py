@@ -41,7 +41,7 @@ _SIGNATURES = {
     "rag_stream_probe": [_P, _I, _I, _I, _I, _P, _P, _P],
     "rag_dot_probe": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "rag_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, ctypes.c_float, _I, _P],
+                            _I, _I, ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()

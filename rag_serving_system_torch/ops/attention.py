@@ -8,8 +8,7 @@ visible keys are all masked output 0, as the TPU kernels emit.
 
 Each wrapper takes its plain version for a CPU tensor and launches
 `csrc/flash_attention.cu` for a CUDA tensor, or raises: a tensor-core kernel
-for bf16 (CTAs of 4 or 8 warps, `bf16_warps`), the FP32 CUDA-core kernel for
-f32.
+for bf16, the FP32 CUDA-core kernel for f32.
 """
 
 from __future__ import annotations
@@ -60,27 +59,17 @@ def _check_qkv(name: str, q, k, v) -> None:
         raise ValueError(f"{name}: q/k/v must be 16-byte aligned")
 
 
-def bf16_warps(b: int, s: int, hq: int) -> int:
-    """Warps a CTA of the bf16 kernel: 8 (128 query rows) when that grid
-    still gives every SM two CTAs, else 4 (64 rows), so a small prefill (one
-    request of 256 tokens: 48 CTAs of 64 rows) spreads over more SMs."""
-    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
-    return 8 if b * hq * -(-s // 128) >= 2 * sms else 4
-
-
 def _launch(q, k, v, mask, seg, packed: bool, causal: bool) -> torch.Tensor:
     b, s, hq, d = q.shape
     out = torch.empty_like(q)
     lib = _build.library()
-    bf16 = q.dtype == torch.bfloat16
     with torch.cuda.device(q.device):
         err = lib.rag_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(),
             None if seg is None else seg.data_ptr(), out.data_ptr(),
-            int(bf16), int(packed), int(causal), b, s, hq, k.shape[2], d,
-            1.0 / math.sqrt(d), bf16_warps(b, s, hq) if bf16 else 0,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            int(q.dtype == torch.bfloat16), int(packed), int(causal), b, s, hq,
+            k.shape[2], d, 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "rag_flash_attention")
     return out
 

@@ -404,35 +404,32 @@ def _left_padded_mask(dev, b, s, seed):
                            device=dev)
 
 
-@pytest.mark.parametrize("warps", [4, 8])
 @pytest.mark.parametrize("b,s,hq,hk,d", [
     (32, 512, 12, 2, 128),    # the served padded batch
     (1, 256, 12, 2, 128),     # the lone request
     (4, 300, 8, 2, 64),       # S not a multiple of the 64-key tile, D = 64
     (3, 77, 4, 4, 64),
 ])
-def test_flash_bf16_tensor_core_matches_plain(dev, warps, b, s, hq, hk, d):
-    """B2's bf16 tensor-core kernel at both CTA widths: within 2e-2 of the
-    plain version at real positions, 0 on rows with no visible key."""
+def test_flash_bf16_tensor_core_matches_plain(dev, b, s, hq, hk, d):
+    """B2's bf16 tensor-core kernel: within 2e-2 of the plain version at
+    real positions, 0 on rows with no visible key."""
     q = _randn(dev, (b, s, hq, d), 21, torch.bfloat16)
     k = _randn(dev, (b, s, hk, d), 22, torch.bfloat16)
     v = _randn(dev, (b, s, hk, d), 23, torch.bfloat16)
     mask = _left_padded_mask(dev, b, s, b + s)
-    with mock.patch.object(ta, "bf16_warps", lambda *a: warps):
-        out = ta.flash_attention(q, k, v, mask)
+    out = ta.flash_attention(q, k, v, mask)
     ref = ta.flash_attention_plain(q, k, v, mask)
     real = mask.bool()
     assert (out.float() - ref.float())[real].abs().max().item() <= 2e-2
     assert not out[~real].any()
 
 
-@pytest.mark.parametrize("warps", [4, 8])
 @pytest.mark.parametrize("t,d,lens", [
     (8192, 128, None),                    # the served stream: 32 seeded segments
     (1000, 64, [300, 1, 150, 64, 260]),   # T not a multiple of the tile
     (1000, 128, [300, 1, 150, 64, 260]),
 ])
-def test_flash_packed_bf16_tensor_core_matches_plain(dev, warps, t, d, lens):
+def test_flash_packed_bf16_tensor_core_matches_plain(dev, t, d, lens):
     """B3's bf16 tensor-core kernel: segments cross q-blocks and key tiles."""
     if lens is None:
         rng = np.random.default_rng(2)
@@ -446,8 +443,7 @@ def test_flash_packed_bf16_tensor_core_matches_plain(dev, warps, t, d, lens):
     q = _randn(dev, (1, t, 12, d), 24, torch.bfloat16)
     k = _randn(dev, (1, t, 2, d), 25, torch.bfloat16)
     v = _randn(dev, (1, t, 2, d), 26, torch.bfloat16)
-    with mock.patch.object(ta, "bf16_warps", lambda *a: warps):
-        out = ta.flash_attention_packed(q, k, v, seg)
+    out = ta.flash_attention_packed(q, k, v, seg)
     ref = ta.flash_attention_packed_plain(q, k, v, seg)
     n = sum(lens)
     assert (out[:, :n].float() - ref[:, :n].float()).abs().max().item() <= 2e-2
