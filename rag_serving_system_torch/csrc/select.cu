@@ -13,21 +13,26 @@
 // asc), so equal scores keep the lower position first, as a stable
 // descending sort does (ops/topk.py:stable_topk). -0.0 and +0.0 are equal.
 //
-// What bounds it: bytes. A row of L scores is read 5 times (4 digit passes
-// and the compaction), 20 * L bytes, against 4 * L that one pass needs; one
-// CTA of 1024 threads per row, so B rows use B SMs. The sort touches k
-// entries only. Measured times are in PERF.md.
+// What bounds it: bytes. The scores are read 6 times (4 digit passes, a
+// count and the compaction), 24 * B * L bytes, against 4 * B * L that one
+// pass needs; each row is split into G slices of 1024-thread CTAs (enough
+// CTAs for two an SM), one kernel a pass. The sort touches k entries only.
+// Measured times are in PERF.md.
 //
 // Design:
-// 1. radix_select_kernel (one CTA per row): the order-preserving 32-bit key
-//    of each score (sign set: flip every bit, else flip the sign bit), four
-//    passes of 8-bit digit histograms in shared memory (warp-aggregated by
-//    __match_any_sync, since scores crowd into a few exponent bins), each
-//    counting only keys that match the digits found so far; from the top,
-//    the bin holding the k-th key fixes the next digit. After four passes the
-//    k-th key and the number r of keys equal to it that are taken are known.
-//    A fifth pass compacts in position order: every key above the k-th, and
-//    the first r keys equal to it (a count and an exclusive scan over each
+// 1. The radix select, on the order-preserving 32-bit key of each score
+//    (sign set: flip every bit, else flip the sign bit). Four passes of 8-bit
+//    digit histograms (radix_hist_kernel: shared-memory counts,
+//    warp-aggregated by __match_any_sync since scores crowd into a few
+//    exponent bins, added into the row's global counts), each counting only
+//    keys that match the digits found so far; then one warp a row
+//    (radix_digit_kernel) finds, from the top, the bin that holds the k-th
+//    key, which fixes the next digit. After four passes the k-th key and the
+//    number r of keys equal to it that are taken are known. The compaction
+//    counts each slice's keys above and equal to the k-th
+//    (compact_count_kernel), then writes in position order every key above
+//    the k-th and the first r equal to it (compact_write_kernel: the earlier
+//    slices' counts, then a count and an exclusive scan over each
 //    16,384-score tile), so exactly k survivors come out.
 // 2. The survivors (key, position), padded with sentinels to P = 2^m >= k,
 //    are sorted by a bitonic network: in shared memory for tiles of 4096, in
@@ -71,86 +76,169 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ row, int L, 
   }
 }
 
-// Row blockIdx.x of the scores (row stride ld): the (key, position) of its k
-// best, in position order, into sk / sp (row stride P), and sentinels (key 0,
-// position INT_MAX, below any score) in slots k .. P - 1.
+// Per-row state of the select in global scratch: the digits of the k-th key
+// found so far (prefix, under mask), and rem, the rank of the k-th key among
+// the keys that match them.
+struct SelState {
+  unsigned prefix, mask, rem, pad;
+};
+
+// The scratch of rag_select_topk holds B states, then (B, 256) digit
+// counts, then (B, G) counts of keys above and (B, G) equal to the k-th:
+// B * (4 + 256 + 2 * G) int32 words.
+
+// One digit pass over slice blockIdx.x (span scores) of row blockIdx.y: the
+// 8-bit digit at `shift` of every key matching the row's prefix, counted in
+// shared memory (warp-aggregated by __match_any_sync: scores crowd into a
+// few exponent bins), then added to the row's global counts.
 __global__ void __launch_bounds__(SEL_THREADS)
-radix_select_kernel(const float* __restrict__ scores, int64_t ld, int L, int k, int P,
-                    unsigned* __restrict__ sk, int* __restrict__ sp) {
-  __shared__ unsigned hist[256];
-  __shared__ unsigned tot[SEL_U * SEL_WARPS];  // packed counts: greater | equal << 16
-  __shared__ unsigned s_digit, s_rem, s_tile;
+radix_hist_kernel(const float* __restrict__ scores, int64_t ld, int L, int span,
+                  const SelState* __restrict__ state, unsigned* __restrict__ hist, int shift) {
+  __shared__ unsigned h[256];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int b = blockIdx.y;
+  const int lo = blockIdx.x * span;
+  const int hi = min(L, lo + span);
+  const float* row = scores + b * ld + lo;
+  const unsigned prefix = state[b].prefix, mask = state[b].mask;
+  for (int d = tid; d < 256; d += SEL_THREADS) h[d] = 0;
+  __syncthreads();
+  for (int t0 = 0; t0 < hi - lo; t0 += SEL_TILE) {
+    float v[SEL_U];
+    load_tile(row, hi - lo, t0, v);
+#pragma unroll
+    for (int u = 0; u < SEL_U; ++u) {
+      const unsigned key = score_key(v[u]);
+      const bool in = t0 + u * SEL_THREADS + tid < hi - lo && (key & mask) == prefix;
+      const unsigned digit = in ? (key >> shift) & 255u : 256u;
+      const unsigned peers = __match_any_sync(FULL_MASK, digit);
+      if (in && lane == __ffs(peers) - 1) atomicAdd(&h[digit], __popc(peers));
+    }
+  }
+  __syncthreads();
+  for (int d = tid; d < 256; d += SEL_THREADS)
+    if (h[d]) atomicAdd(&hist[b * 256 + d], h[d]);
+}
+
+// One warp a row: from the top, the bin holding the rem-th key (rem = k on
+// the first pass) fixes the digit at `shift`; the counts are cleared for the
+// next pass.
+__global__ void radix_digit_kernel(SelState* __restrict__ state, unsigned* __restrict__ hist,
+                                   int k, int shift) {
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
+  unsigned* hb = hist + b * 256;
+  const unsigned rem = shift == 24 ? (unsigned)k : state[b].rem;
+  // lane l holds bins 255 - 8l .. 248 - 8l
+  unsigned c[8];
+  unsigned sum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    c[j] = hb[255 - 8 * lane - j];
+    hb[255 - 8 * lane - j] = 0;
+    sum += c[j];
+  }
+  unsigned incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned n = __shfl_up_sync(FULL_MASK, incl, o);
+    if (lane >= o) incl += n;
+  }
+  unsigned cum = incl - sum;
+  if (cum < rem && rem <= incl) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (cum < rem && rem <= cum + c[j]) {
+        state[b].prefix |= (unsigned)(255 - 8 * lane - j) << shift;
+        state[b].mask |= 255u << shift;
+        state[b].rem = rem - cum;
+      }
+      cum += c[j];
+    }
+  }
+}
+
+// Keys above the k-th and equal to it in slice blockIdx.x of row blockIdx.y.
+__global__ void __launch_bounds__(SEL_THREADS)
+compact_count_kernel(const float* __restrict__ scores, int64_t ld, int L, int span,
+                     const SelState* __restrict__ state, unsigned* __restrict__ cnt_g,
+                     unsigned* __restrict__ cnt_e) {
+  __shared__ unsigned sg, se;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int lo = blockIdx.x * span;
+  const int hi = min(L, lo + span);
+  const float* row = scores + b * ld + lo;
+  const unsigned kth = state[b].prefix;
+  if (tid == 0) sg = se = 0;
+  __syncthreads();
+  unsigned g = 0, e = 0;
+  for (int t0 = 0; t0 < hi - lo; t0 += SEL_TILE) {
+    float v[SEL_U];
+    load_tile(row, hi - lo, t0, v);
+#pragma unroll
+    for (int u = 0; u < SEL_U; ++u) {
+      const unsigned key = score_key(v[u]);
+      if (t0 + u * SEL_THREADS + tid < hi - lo) {
+        g += key > kth;
+        e += key == kth;
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    g += __shfl_xor_sync(FULL_MASK, g, o);
+    e += __shfl_xor_sync(FULL_MASK, e, o);
+  }
+  if ((tid & 31) == 0) {
+    atomicAdd(&sg, g);
+    atomicAdd(&se, e);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    cnt_g[b * gridDim.x + blockIdx.x] = sg;
+    cnt_e[b * gridDim.x + blockIdx.x] = se;
+  }
+}
+
+// Slice blockIdx.x of row blockIdx.y: the (key, position) of every key above
+// the k-th and of the first rem keys equal to it (rem from the state), in
+// position order, into sk / sp (row stride P). A survivor's slot is (keys
+// above it before it) + min(keys equal before it, rem): the earlier slices'
+// counts, then a count and an exclusive scan over each 16,384-score tile.
+// Slice 0 writes sentinels (key 0, position INT_MAX, below any score) into
+// slots k .. P - 1.
+__global__ void __launch_bounds__(SEL_THREADS)
+compact_write_kernel(const float* __restrict__ scores, int64_t ld, int L, int span, int k,
+                     int P, const SelState* __restrict__ state,
+                     const unsigned* __restrict__ cnt_g, const unsigned* __restrict__ cnt_e,
+                     unsigned* __restrict__ sk, int* __restrict__ sp) {
+  __shared__ unsigned tot[SEL_U * SEL_WARPS];  // packed counts: above | equal << 16
+  __shared__ unsigned s_tile;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float* row = scores + blockIdx.x * ld;
-
-  unsigned prefix = 0, mask = 0;
-  unsigned rem = k;  // rank of the k-th key among the keys matching prefix
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int d = tid; d < 256; d += SEL_THREADS) hist[d] = 0;
-    __syncthreads();
-    for (int t0 = 0; t0 < L; t0 += SEL_TILE) {
-      float v[SEL_U];
-      load_tile(row, L, t0, v);
-#pragma unroll
-      for (int u = 0; u < SEL_U; ++u) {
-        const unsigned key = score_key(v[u]);
-        const bool in = t0 + u * SEL_THREADS + tid < L && (key & mask) == prefix;
-        const unsigned digit = in ? (key >> shift) & 255u : 256u;
-        const unsigned peers = __match_any_sync(FULL_MASK, digit);
-        if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[digit], __popc(peers));
-      }
-    }
-    __syncthreads();
-    if (warp == 0) {
-      // lane l holds bins 255 - 8l .. 248 - 8l, counted from the top
-      unsigned c[8];
-      unsigned sum = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        c[j] = hist[255 - 8 * lane - j];
-        sum += c[j];
-      }
-      unsigned incl = sum;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const unsigned n = __shfl_up_sync(FULL_MASK, incl, o);
-        if (lane >= o) incl += n;
-      }
-      unsigned cum = incl - sum;
-      if (cum < rem && rem <= incl) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (cum < rem && rem <= cum + c[j]) {
-            s_digit = 255 - 8 * lane - j;
-            s_rem = rem - cum;
-          }
-          cum += c[j];
-        }
-      }
-    }
-    __syncthreads();
-    prefix |= s_digit << shift;
-    mask |= 255u << shift;
-    rem = s_rem;
+  const int b = blockIdx.y;
+  const int lo = blockIdx.x * span;
+  const int hi = min(L, lo + span);
+  const float* row = scores + b * ld + lo;
+  const unsigned kth = state[b].prefix, rem = state[b].rem;
+  unsigned done_g = 0, done_e = 0;  // survivors before this tile
+  for (int s = 0; s < (int)blockIdx.x; ++s) {
+    done_g += cnt_g[b * gridDim.x + s];
+    done_e += cnt_e[b * gridDim.x + s];
   }
-
-  // prefix is the k-th key; take every key above it and the first rem equal
-  // to it: the slot of a survivor is (keys above it before it) + min(keys
-  // equal before it, rem)
-  const unsigned kth = prefix;
-  unsigned done_g = 0, done_e = 0;  // survivors of earlier tiles
-  unsigned* out_k = sk + (int64_t)blockIdx.x * P;
-  int* out_p = sp + (int64_t)blockIdx.x * P;
-  for (int t0 = 0; t0 < L; t0 += SEL_TILE) {
+  unsigned* out_k = sk + (int64_t)b * P;
+  int* out_p = sp + (int64_t)b * P;
+  for (int t0 = 0; t0 < hi - lo; t0 += SEL_TILE) {
     float v[SEL_U];
-    load_tile(row, L, t0, v);
+    load_tile(row, hi - lo, t0, v);
     unsigned gm = 0, em = 0;
 #pragma unroll
     for (int u = 0; u < SEL_U; ++u) {
       const unsigned key = score_key(v[u]);
-      if (t0 + u * SEL_THREADS + tid < L) {
+      if (t0 + u * SEL_THREADS + tid < hi - lo) {
         gm |= (key > kth ? 1u : 0u) << u;
         em |= (key == kth ? 1u : 0u) << u;
       }
@@ -199,16 +287,18 @@ radix_select_kernel(const float* __restrict__ scores, int64_t ld, int L, int k, 
       if (take) {
         const unsigned slot = gb + min(eb, rem);
         out_k[slot] = score_key(v[u]);
-        out_p[slot] = t0 + u * SEL_THREADS + tid;
+        out_p[slot] = lo + t0 + u * SEL_THREADS + tid;
       }
     }
     done_g += s_tile & 0xffffu;
     done_e += s_tile >> 16;
     __syncthreads();  // tot and s_tile are rewritten by the next tile
   }
-  for (int p = k + tid; p < P; p += SEL_THREADS) {
-    out_k[p] = 0u;
-    out_p[p] = INT_MAX;
+  if (blockIdx.x == 0) {
+    for (int p = k + tid; p < P; p += SEL_THREADS) {
+      out_k[p] = 0u;
+      out_p[p] = INT_MAX;
+    }
   }
 }
 
@@ -295,20 +385,33 @@ __global__ void select_gather_kernel(const float* __restrict__ scores,
 
 // scores: (B, L) f32, row stride ld (>= L); indices: (B, L) i32 with the same
 // stride, or null for index = base + position. 1 <= k <= L; P a power of two
-// >= max(k, 2); sk / sp: (B, P) u32 / i32 scratch. out_s / out_i: (B, k), by
-// (score desc, position asc).
+// >= max(k, 2); G >= 1 CTAs a row in the passes; scratch: scratch_words(B, G)
+// int32 words, zeroed; sk / sp: (B, P) u32 / i32 scratch. out_s / out_i:
+// (B, k), by (score desc, position asc).
 extern "C" int rag_select_topk(const void* scores, const void* indices, int base, int B, int L,
-                               int ld, int k, int P, void* sk, void* sp, void* out_s,
-                               void* out_i, void* stream) {
+                               int ld, int k, int P, int G, void* scratch, void* sk, void* sp,
+                               void* out_s, void* out_i, void* stream) {
   if (B < 1 || L < 1 || ld < L || k < 1 || k > L || P < 2 || P < k || (P & (P - 1)) != 0 ||
-      B > 65535) {
+      B > 65535 || G < 1 || G > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scores);
+  SelState* state = static_cast<SelState*>(scratch);
+  unsigned* hist = reinterpret_cast<unsigned*>(state + B);
+  unsigned* cnt_g = hist + (int64_t)B * 256;
+  unsigned* cnt_e = cnt_g + (int64_t)B * G;
   unsigned* keys = static_cast<unsigned*>(sk);
   int* pos = static_cast<int*>(sp);
-  radix_select_kernel<<<B, SEL_THREADS, 0, st>>>(static_cast<const float*>(scores), ld, L, k,
-                                                 P, keys, pos);
+  const int span = (L + G - 1) / G;
+  const dim3 slices(G, B);
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    radix_hist_kernel<<<slices, SEL_THREADS, 0, st>>>(sc, ld, L, span, state, hist, shift);
+    radix_digit_kernel<<<B, 32, 0, st>>>(state, hist, k, shift);
+  }
+  compact_count_kernel<<<slices, SEL_THREADS, 0, st>>>(sc, ld, L, span, state, cnt_g, cnt_e);
+  compact_write_kernel<<<slices, SEL_THREADS, 0, st>>>(sc, ld, L, span, k, P, state, cnt_g,
+                                                       cnt_e, keys, pos);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int ts = P < SORT_TILE ? P : SORT_TILE;
@@ -326,7 +429,7 @@ extern "C" int rag_select_topk(const void* scores, const void* indices, int base
   if (err != cudaSuccess) return (int)err;
   const int64_t n = (int64_t)B * k;
   select_gather_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(scores), static_cast<const int*>(indices), ld, base, pos, B, P,
-      k, static_cast<float*>(out_s), static_cast<int*>(out_i));
+      sc, static_cast<const int*>(indices), ld, base, pos, B, P, k, static_cast<float*>(out_s),
+      static_cast<int*>(out_i));
   return (int)cudaGetLastError();
 }

@@ -158,6 +158,11 @@ def select_topk(scores: torch.Tensor, k: int, indices: torch.Tensor | None = Non
                          "on a CUDA device, 1 <= k <= L, and (B, L) i32 indices or none")
     dev = scores.device
     p = 1 << max(1, (k - 1).bit_length())   # the sort's width: a power of two >= k
+    # CTAs a row in the select's passes: two an SM over the b rows, at most
+    # one a 16,384-score tile
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = max(1, min(-(-2 * sms // b), -(-ln // 16384)))
+    scratch = torch.zeros(b * (4 + 256 + 2 * g), dtype=torch.int32, device=dev)
     keys = torch.empty((b, p), dtype=torch.int32, device=dev)
     pos = torch.empty((b, p), dtype=torch.int32, device=dev)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -165,8 +170,8 @@ def select_topk(scores: torch.Tensor, k: int, indices: torch.Tensor | None = Non
     with torch.cuda.device(dev):
         err = _build.library().rag_select_topk(
             scores.data_ptr(), None if indices is None else indices.data_ptr(), base,
-            b, ln, ln, k, p, keys.data_ptr(), pos.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            b, ln, ln, k, p, g, scratch.data_ptr(), keys.data_ptr(), pos.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rag_select_topk")
     select_topk.launches += 1
     return out_s, out_i
