@@ -21,13 +21,16 @@
 //       grows with sum(len^2), not T^2.
 //
 // bf16 (the served dtype): a tensor-core kernel in the FlashAttention-2 form.
-//   What bounds it: prefill attention at the serving shapes (Hq = 12,
-//   Hk = 2, D = 128, 128-1024 tokens a row) does 4 * D flops per visible
-//   (query, key) pair against 2 * D bytes of K/V per key: bf16 tensor-core
-//   issue, not bytes. The first version ran the products on the FP32 CUDA
-//   cores: 2.28 ms (B2, B = 32, S = 512) and 1.90 ms (B3, T = 8192, 32
-//   segments) on an NVIDIA H100 80GB HBM3 at a 700 W limit. This one's times
-//   are in PERF.md, beside the bound.
+//   What bounds it: at the serving shapes (Hq = 12, Hk = 2, D = 128,
+//   128-1024 tokens a row) the least time is set by bytes (q, k, v, o read
+//   or written once: 0.035 ms for B2 at B = 32, S = 512; 0.018 ms for B3 at
+//   T = 8192, 32 segments, on an NVIDIA H100 80GB HBM3 at 700 W), the
+//   visible products a quarter to a third of that on the tensor cores. Measured
+//   on that card: 0.107 ms (B2) and 0.182 ms (B3), against 2.28 and 1.90 ms
+//   for the first version on the FP32 CUDA cores. What holds it there is
+//   per-CTA latency, not either rate: a 64-row CTA sees 2-8 key tiles, one
+//   tile in flight, each from L2; and B3 computes the packed stream's pad
+//   tail as a causal segment of its own (PERF.md).
 //   Design: a CTA of 4 warps owns 64 query rows of one head; each warp owns
 //   16 rows (CTAs of 8 warps and 128 rows were slower at every served shape,
 //   PERF.md). Q is copied once into shared memory and kept in registers as

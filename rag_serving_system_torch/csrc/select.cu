@@ -17,7 +17,8 @@
 // count and the compaction), 24 * B * L bytes, against 4 * B * L that one
 // pass needs; each row is split into G slices of 1024-thread CTAs (enough
 // CTAs for two an SM), one kernel a pass. The sort touches k entries only.
-// Measured times are in PERF.md.
+// (32, 1,048,576) scores at k = 1024 take 0.59 ms on an NVIDIA H100 80GB
+// HBM3 at 700 W, against 0.04 ms for one read (PERF.md).
 //
 // Design:
 // 1. The radix select, on the order-preserving 32-bit key of each score

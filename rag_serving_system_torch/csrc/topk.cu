@@ -25,7 +25,9 @@
 // queries x 512 rows). Each tile's scores go to shared memory and are
 // merged into the warps' running lists (k <= 256); a tree of merge kernels
 // reduces the (B, n_ctas, k) candidates to (B, k). Selection, tie order
-// and the merge are shared with kernel B4 (topk_int8.cu).
+// and the merge are shared with kernel B4 (topk_int8.cu). For k > 256,
+// rag_score_rows writes the tile's scores instead and select.cu ranks them
+// (2.29 ms at k = 1024 on the shapes above).
 
 #include "topk_common.cuh"
 

@@ -24,7 +24,9 @@
 // across ~4 CTAs per SM, the int8 score tile of topk_common.cuh (16-byte
 // loads, int32 dp4a accumulators), the per-row scale applied as the tile
 // lands in shared memory, and the shared warp-list selection (k <= 256, KR
-// list registers a lane) and candidate merge.
+// list registers a lane) and candidate merge. For k > 256,
+// rag_score_rows_int8 writes the scaled scores instead and select.cu ranks
+// them.
 
 #include "topk_common.cuh"
 
