@@ -203,7 +203,7 @@ def _check_topk(corpus, queries, k, reps=20):
     # corpus could use the bf16 tensor-core rate
     kind = "f32" if corpus.dtype == torch.float32 else "bf16"
     return {"n": n, "b": b, "k": k, "corpus": str(corpus.dtype),
-            "path": "warp lists" if k <= topk.LIST_K else "scores + select_topk",
+            "path": "warp lists" if k <= topk.LIST_K[corpus.dtype] else "scores + select_topk",
             "max_abs_err": err, "near_tie_swaps": n_swapped, "ms": ms, "plain_ms": plain_ms,
             **bound(n * d * corpus.element_size() + b * d * 4 + b * k * 8, 2 * b * n * d, kind),
             "library_ms": None}
@@ -412,7 +412,8 @@ def _check_topk_int8(dev, seed):
         require(torch.equal(s_k, s_p), f"cosine_topk_int8 scores at k={kw} are not "
                 "bit-identical")
         wide.append({"n": n, "b": b, "k": kw, "max_abs_err": (s_k - s_p).abs().max().item(),
-                     "path": "warp lists" if kw <= topk.LIST_K else "scores + select_topk",
+                     "path": ("warp lists" if kw <= topk.LIST_K[torch.int8]
+                              else "scores + select_topk"),
                      "ms": cuda_ms(lambda: topk.cosine_topk_int8(
                          corpus, scales, queries, kw, corpus_mean=mean), 5),
                      "plain_ms": cuda_ms(lambda: topk.cosine_topk_int8_reference(
@@ -844,7 +845,7 @@ def phase_serve_wide_k(queries: list) -> dict:
             DOCUMENT_EMBEDDINGS_FILE=os.path.join(DATA, "squad_real_embeddings.npy"),
             MAX_K="1000")
     processor, engine, request_queue, _ = build_processor()
-    require(engine.max_k == 1000 > topk.LIST_K, f"max_k is {engine.max_k}")
+    require(engine.max_k == 1000 > topk.LIST_K[torch.float32], f"max_k is {engine.max_k}")
     reset_launches()
     r = _drive(processor, request_queue, queries, 7)
     launches = read_launches()

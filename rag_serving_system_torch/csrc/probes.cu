@@ -14,10 +14,11 @@
 //
 // P2, dot: out[b, l] = sum over n < n_rows with n mod 128 == l of
 // q[b] . c[n]. This is B1's (and B4's) score tile from topk_common.cuh
-// without the selection, on B1's grid (one CTA per SM, 512-row tiles for
-// f32 and bf16; ~4 CTAs per SM, 128-row tiles for int8): IEEE f32 FMAs for
-// f32, bf16 widened to f32, int8 dp4a into int32 (converted to f32 before
-// the fold). With round_bf16 an f32 corpus is rounded to bf16 as it leaves
+// without the selection, on its kernel's grid (one CTA per SM, 512-row
+// tiles for f32 and bf16; for int8, 128-row tiles and as many CTAs an SM as
+// the occupancy calculator counts): IEEE f32 FMAs for f32, bf16 widened to
+// f32, int8 on s8 tensor cores into int32 (converted to f32 before the
+// fold). With round_bf16 an f32 corpus is rounded to bf16 as it leaves
 // the ring (the wrapper rounds q): the TPU's one-pass Precision.DEFAULT.
 // Each CTA folds its tiles' columns into lanes in registers and writes a
 // (B, 128) partial; a second pass sums the CTAs' partials in CTA order.
@@ -146,33 +147,31 @@ dot_probe_kernel(const float* __restrict__ q, const T* __restrict__ corpus, int 
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The int8 tile's fold: fold[nb][i] holds lane int8_row(i) (a tile row is
+// its own lane: tiles are 128 rows) of query q_base + int8_query(nb, i).
+__global__ void __launch_bounds__(THREADS, 2)
 dot_probe_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ corpus,
                       int B, int N, int D, int tiles_per_cta, float* __restrict__ partial) {
-  __shared__ Int8TileSmem sm;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int q_base = blockIdx.y * QG;
   const int n_tiles = (N + NT - 1) / NT;
   const int tile_lo = blockIdx.x * tiles_per_cta;
   const int tile_hi = min(tile_lo + tiles_per_cta, n_tiles);
   float fold[4][4] = {};
-  for (int tile = tile_lo; tile < tile_hi; ++tile) {
-    int acc[4][4];
-    int8_tile(q, corpus, B, N, D, q_base, tile * NT, sm, acc);
+  int8_scan(q, corpus, nullptr, B, N, D, q_base, tile_lo, tile_hi, smem,
+            [&](const int(&acc)[4][4], const float(&)[2], int) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+              for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) fold[i][r] += __int2float_rn(acc[i][r]);
-  }
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
+                for (int i = 0; i < 4; ++i) fold[nb][i] += __int2float_rn(acc[nb][i]);
+            });
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = q_base + ty * 4 + i;
-    if (b >= B) continue;
+  for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-      partial[((int64_t)blockIdx.x * B + b) * LANES + tx + 32 * r] = fold[i][r];
-  }
+    for (int i = 0; i < 4; ++i) {
+      const int b = q_base + int8_query(nb, i);
+      if (b < B) partial[((int64_t)blockIdx.x * B + b) * LANES + int8_row(i)] = fold[nb][i];
+    }
 }
 
 template <typename T>
@@ -245,7 +244,11 @@ extern "C" int rag_dot_probe(const void* q, const void* corpus, int dtype, int r
   const float* qf = static_cast<const float*>(q);
   cudaError_t err;
   if (dtype == INT8) {
-    dot_probe_int8_kernel<<<dim3(n_ctas, (B + QG - 1) / QG), THREADS, 0, st>>>(
+    if (D > I8_MAX_D) return (int)cudaErrorInvalidValue;
+    const int smem = int8_smem_bytes(D, false);
+    err = allow_smem(dot_probe_int8_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    dot_probe_int8_kernel<<<dim3(n_ctas, (B + QG - 1) / QG), THREADS, smem, st>>>(
         static_cast<const int8_t*>(q), static_cast<const int8_t*>(corpus), B, N, D,
         tiles_per_cta, part);
     err = cudaGetLastError();
@@ -264,4 +267,11 @@ extern "C" int rag_dot_probe(const void* q, const void* corpus, int dtype, int r
   sum_rows_kernel<<<(cols + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0, st>>>(
       part, n_ctas, cols, static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// As rag_int8_tile_info (topk_int8.cu), for P2's int8 kernel at depth D.
+extern "C" int rag_dot_probe_int8_info(int D, void* out) {
+  if (D < 16 || D % 16 != 0 || D > I8_MAX_D) return (int)cudaErrorInvalidValue;
+  return int8_kernel_info(dot_probe_int8_kernel, int8_smem_bytes(D, false),
+                          static_cast<int*>(out));
 }

@@ -39,9 +39,32 @@
 //   and 1.75-1.81 ms bf16: the FMAs bound the tile, and the copies do not
 //   hide under them completely (numbers and history in PERF.md).
 //
-// int8 score tile (B4 and P2 on an int8 corpus): 32 queries x 128 rows,
-// 4 x 4 int32 accumulators a thread, __dp4a on packed 4-byte words, chunks
-// loaded through registers (not redesigned yet).
+// int8 score tile (B4 and P2 on an int8 corpus; s8 tensor cores):
+//   A CTA of 256 threads scores 32 queries against tiles of 128 corpus rows
+//   with mma.sync.m16n8k32 s8 x s8 -> s32: A is 16 corpus rows x 32 bytes
+//   (ldmatrix.x4 from the ring), B 8 queries x 32 bytes (ldmatrix.x4 from
+//   the query block: a (B, D) row-major block is already the .col layout).
+//   Warp w owns rows 16w .. 16w + 15 of every tile and all 32 queries: per
+//   32-byte depth step one ldmatrix of A, two of B and four mma. The
+//   (32, D) int8 query block is copied into shared memory once per CTA
+//   (32 KB at D = 1024), each query row padded to a multiple of 128 bytes
+//   and XOR-swizzled by 16-byte column, as the ring is, so every 8-lane
+//   ldmatrix phase reads 8 distinct bank groups. The corpus streams in
+//   128-byte depth chunks of the 128 rows (16 KB a stage) through a 4-stage
+//   ring filled by cp.async (zero-filled past N and D), with the float
+//   tile's per-stage "full" and "empty" mbarriers and no block barrier in
+//   the chunk loop; the ring keeps loading while the selection runs. Integer
+//   sums are exact in any order: |acc| <= D * 127^2 < 2^31 (D <= 4096), and
+//   each score is __int2float_rn(acc) * scale[row], bit-identical to the
+//   plain version. The C fragment (rows g, g + 8 of the warp's 16; queries
+//   2t, 2t + 1 of each n8 block) goes to the epilogue.
+//   Bound: bytes. At 1M x 1024, B = 32 the products need 68.7 G int8
+//   operations, 0.035 ms at the card's 1,979 TOP/s, against 0.32 ms for one
+//   read of the corpus at 3.35 TB/s. Shared memory: 32 * D query bytes +
+//   64 KB of ring (+ 16.5 KB of score tile for B4): 2 CTAs an SM at
+//   D = 1024, 1 at D = 2048; the grid is sized from the occupancy of the
+//   instantiation that runs (rag_int8_tile_info). Times, registers and
+//   spills are in topk_int8.cu's note and PERF.md.
 //
 // Selection: each warp owns 4 queries and keeps each query's running top-k
 // in KR = ceil(k / 32) registers a lane while it merges (KR in 1, 2, 4, 8:
@@ -89,14 +112,34 @@ __device__ __forceinline__ int ft_vec(int row, int v) {
 }
 
 // int8 tile
-constexpr int NT = 128;            // corpus rows per tile
-constexpr int QS_STRIDE = QG + 4;  // keeps the 16-byte broadcast read aligned
-constexpr int KW = 32;             // depth of one chunk (4-byte words)
+constexpr int NT = 128;                       // corpus rows per tile
+constexpr int I8_CHUNK = 128;                 // depth bytes of a row chunk
+constexpr int I8_STAGES = 4;                  // ring depth
+constexpr int I8_STAGE_BYTES = NT * I8_CHUNK;  // 16 KB
+constexpr int I8_MAX_D = 4096;                // the query block fits shared memory
+// score tile rows (floats): 4 of pad put the fragment stores of a warp
+// (8 rows x 4 queries) in 32 distinct banks
+constexpr int SS_LD8 = NT + 4;
 
-struct Int8TileSmem {
-  __align__(16) int Qs[KW][QS_STRIDE];
-  int Cs[NT][KW + 1];
-};
+// Bytes of a query row in the resident block: D padded to whole 128-byte
+// chunks, so every row has 8-vector swizzle groups.
+__host__ __device__ constexpr int int8_qrow_bytes(int D) {
+  return (D + I8_CHUNK - 1) / I8_CHUNK * I8_CHUNK;
+}
+
+// Offset of the ring, of its 2 * I8_STAGES mbarriers, and of B4's score
+// tile in an int8 kernel's dynamic shared memory; its size with and without
+// the score tile.
+__host__ __device__ constexpr int int8_ring_offset(int D) { return QG * int8_qrow_bytes(D); }
+__host__ __device__ constexpr int int8_bar_offset(int D) {
+  return int8_ring_offset(D) + I8_STAGES * I8_STAGE_BYTES;
+}
+__host__ __device__ constexpr int int8_ss_offset(int D) {
+  return int8_bar_offset(D) + 2 * I8_STAGES * 8;
+}
+__host__ __device__ constexpr int int8_smem_bytes(int D, bool score_tile) {
+  return int8_ss_offset(D) + (score_tile ? QG * SS_LD8 * 4 : 0);
+}
 
 // ---------------------------------------------------------------------------
 // Float tile
@@ -368,76 +411,249 @@ __device__ __forceinline__ void float_scan(const float* __restrict__ q,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Shared memory a float-tile kernel asks for beyond 48 KB must be opted
-// into (on the current device, before each launch: it is cheap).
+// Shared memory a kernel asks for beyond 48 KB must be opted into (on the
+// current device, before each launch: it is cheap). The carveout asks for
+// the largest shared-memory split of L1, so as many CTAs fit as the
+// occupancy calculator counts.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
 
 // ---------------------------------------------------------------------------
 // int8 tile
 // ---------------------------------------------------------------------------
 
-// int32 dot products of int8 rows, __dp4a on packed 4-byte words:
-// acc[i][r] = q[q_base + ty*4 + i] . corpus[n0 + tx + 32*r]. D % 16 == 0,
-// both 16-byte aligned. |q|, |c| <= 127 keep |acc| <= D * 127^2, exact in
-// int32. Out-of-range queries and rows read as 0.
-__device__ __forceinline__ void int8_tile(const int8_t* __restrict__ q,
-                                          const int8_t* __restrict__ corpus, int B, int N,
-                                          int D, int q_base, int n0, Int8TileSmem& sm,
-                                          int (&acc)[4][4]) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;
-  const int ty = tid >> 5;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[i][r] = 0;
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0));
+}
 
-  for (int d0 = 0; d0 < D; d0 += KW * 4) {
-    // corpus chunk: 128 rows x 128 bytes, one 16-byte vector per thread per pass
-#pragma unroll
-    for (int it = 0; it < (NT * KW / 4) / THREADS; ++it) {
-      const int idx = tid + it * THREADS;
-      const int row = idx >> 3;
-      const int w4 = (idx & 7) * 4;
-      int4 v = make_int4(0, 0, 0, 0);
-      const int n = n0 + row;
-      if (n < N && d0 + w4 * 4 < D)
-        v = *reinterpret_cast<const int4*>(corpus + (int64_t)n * D + d0 + w4 * 4);
-      sm.Cs[row][w4] = v.x;
-      sm.Cs[row][w4 + 1] = v.y;
-      sm.Cs[row][w4 + 2] = v.z;
-      sm.Cs[row][w4 + 3] = v.w;
-    }
-    // query chunk: 32 queries x 128 bytes, one vector per thread, depth-major
-    {
-      const int b = tid >> 3;
-      const int w4 = (tid & 7) * 4;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (q_base + b < B && d0 + w4 * 4 < D)
-        v = *reinterpret_cast<const int4*>(q + (int64_t)(q_base + b) * D + d0 + w4 * 4);
-      sm.Qs[w4][b] = v.x;
-      sm.Qs[w4 + 1][b] = v.y;
-      sm.Qs[w4 + 2][b] = v.z;
-      sm.Qs[w4 + 3][b] = v.w;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < KW; ++kk) {
-      const int4 qv = *reinterpret_cast<const int4*>(&sm.Qs[kk][ty * 4]);
-      const int qw[4] = {qv.x, qv.y, qv.z, qv.w};
-      int cw[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) cw[r] = sm.Cs[tx + 32 * r][kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][r] = __dp4a(qw[i], cw[r], acc[i][r]);
-    }
-    __syncthreads();
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned& r0, unsigned& r1,
+                                        unsigned& r2, unsigned& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// c += a (16 x 32, row) * b (32 x 8, col), s8 in, s32 accumulate (exact).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte column v of row r in rows of rb bytes (rb a
+// multiple of 128), XOR-swizzled by the row's low 3 bits.
+__device__ __forceinline__ unsigned swz(int r, int v, int rb) {
+  return (unsigned)(r * rb + ((v ^ (r & 7)) << 4));
+}
+
+// One thread's share of the ring's copies: the CTA's chunks in order (tile
+// by tile, 128-byte depth chunk by chunk), 4 vectors a chunk (rows row0,
+// row0 + 32, row0 + 64, row0 + 96 of the tile, 16-byte column `part`). A
+// copy past N or D moves 0 bytes and zero-fills.
+struct Int8Issuer {
+  const char* base;  // a valid address: the source of 0-byte copies
+  const char* row;   // this thread's first row of the tile being issued, depth 0
+  int64_t row_step;  // bytes from one of this thread's rows to the next (32 rows)
+  int64_t tile_step;
+  int D;
+  int rows_left;     // corpus rows from this thread's first row of the tile on
+  int dbytes;        // depth of the next chunk
+  int part;
+  int dc, cpt;       // depth chunk of the next issue, chunks a tile
+  int stage;         // ring stage of the next issue
+  unsigned smem;     // this thread's first vector in stage 0 (shared space)
+
+  __device__ __forceinline__ Int8Issuer(const int8_t* corpus, int N, int D_, int tile_lo,
+                                        unsigned ring) {
+    const int tid = threadIdx.x;
+    const int row0 = tid >> 3;
+    base = reinterpret_cast<const char*>(corpus);
+    D = D_;
+    part = tid & 7;
+    row_step = (int64_t)32 * D;
+    tile_step = (int64_t)NT * D;
+    row = base + ((int64_t)tile_lo * NT + row0) * D;
+    rows_left = N - tile_lo * NT - row0;
+    dbytes = 0;
+    dc = 0;
+    cpt = (D + I8_CHUNK - 1) / I8_CHUNK;
+    stage = 0;
+    smem = ring + swz(row0, part, I8_CHUNK);  // rows row0 + 32 * it share its swizzle
   }
+
+  // Copy the next chunk into its stage; `full` (stage 0's "full" mbarrier;
+  // stage s's is 8 * s bytes on) gets this thread's arrival when they land.
+  __device__ __forceinline__ void issue(unsigned full) {
+    const unsigned s = smem + stage * I8_STAGE_BYTES;
+    const bool d_ok = dbytes + part * 16 < D;
+    const char* src = row + dbytes + part * 16;
+#pragma unroll
+    for (int it = 0; it < NT / 32; ++it) {
+      const bool ok = d_ok && rows_left > it * 32;
+      asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(
+                       s + it * 32 * I8_CHUNK),
+                   "l"(ok ? src + it * row_step : base), "r"(ok ? 16 : 0));
+    }
+    mbar_arrive_copies(full + 8 * stage);
+    if (++dc == cpt) {
+      dc = 0;
+      dbytes = 0;
+      row += tile_step;
+      rows_left -= NT;
+    } else {
+      dbytes += I8_CHUNK;
+    }
+    stage = stage == I8_STAGES - 1 ? 0 : stage + 1;
+  }
+};
+
+// One ring stage's products into this warp's accumulators: ksteps (1-4)
+// 32-byte depth steps from depth d0. acc[nb][i] is row 16 * warp + g +
+// 8 * (i >> 1) of the tile against query 8 * nb + 2 * t + (i & 1), with
+// g = lane >> 2, t = lane & 3 (the m16n8 C fragment).
+__device__ __forceinline__ void int8_chunk(unsigned stage, unsigned qs, int qrow, int d0,
+                                           int ksteps, int (&acc)[4][4]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // A: lanes 0-15 address rows 0-15 at the step's first 16 bytes, lanes
+  // 16-31 the same rows 16 bytes on (a0..a3 of the fragment)
+  const int arow = warp * 16 + (lane & 15);
+  // B: matrix m = lane >> 3 holds queries 8 * (m >> 1) .. + 7 at 16-byte
+  // column (m & 1) of the step: b0, b1 of n8 block 0, then of block 1
+  const int bq = ((lane >> 4) << 3) + (lane & 7);
+  const int bsub = (lane >> 3) & 1;
+#pragma unroll
+  for (int ks = 0; ks < I8_CHUNK / 32; ++ks) {
+    if (ks < ksteps) {
+      unsigned a[4], b[8];
+      ldsm_x4(stage + swz(arow, 2 * ks + (lane >> 4), I8_CHUNK), a[0], a[1], a[2], a[3]);
+      const int vb = (d0 >> 4) + 2 * ks + bsub;
+      ldsm_x4(qs + swz(bq, vb, qrow), b[0], b[1], b[2], b[3]);
+      ldsm_x4(qs + swz(bq + 16, vb, qrow), b[4], b[5], b[6], b[7]);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) mma_s8(acc[nb], a, b[2 * nb], b[2 * nb + 1]);
+    }
+  }
+}
+
+// Score tiles tile_lo .. tile_hi - 1 (128 rows each) of a (N, D) int8
+// corpus against int8 queries q_base .. q_base + 31 of the (B, D) q, on s8
+// tensor cores; D % 16 == 0, D <= I8_MAX_D, both 16-byte aligned. After
+// each tile, all threads call epilogue(acc, sc, n0): acc as int8_chunk
+// leaves it (exact int32 dots; rows past N, queries past B and depth past D
+// read as 0), sc[h] = scales[n0 + 16 * warp + g + 8 * h] (0 past N, or
+// without scales). `smem` holds int8_smem_bytes(D, ...) of dynamic shared
+// memory, 16-byte aligned.
+template <typename Epilogue>
+__device__ __forceinline__ void int8_scan(const int8_t* __restrict__ q,
+                                          const int8_t* __restrict__ corpus,
+                                          const float* __restrict__ scales, int B, int N,
+                                          int D, int q_base, int tile_lo, int tile_hi,
+                                          unsigned char* smem, Epilogue&& epilogue) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int qrow = int8_qrow_bytes(D);
+  const unsigned qs = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const unsigned ring = qs + int8_ring_offset(D);
+  const unsigned full = qs + int8_bar_offset(D);
+  const unsigned empty = full + 8 * I8_STAGES;
+  if (tid == 0) {
+    for (int s = 0; s < I8_STAGES; ++s) {
+      mbar_init(full + 8 * s, THREADS);
+      mbar_init(empty + 8 * s, THREADS / 32);
+    }
+  }
+  // the (32, D) query block, once: 16-byte column v of query b at swz(b, v)
+  const char* qb = reinterpret_cast<const char*>(q);
+  const int qv = qrow / 16;
+  for (int e = tid; e < QG * qv; e += THREADS) {
+    const int b = e / qv;
+    const int v = e - b * qv;
+    const bool ok = q_base + b < B && v * 16 < D;
+    cp_async16(qs + swz(b, v, qrow), ok ? qb + (int64_t)(q_base + b) * D + v * 16 : qb, ok);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int cpt = (D + I8_CHUNK - 1) / I8_CHUNK;
+  const int total = (tile_hi - tile_lo) * cpt;
+  Int8Issuer copies(corpus, N, D, tile_lo, ring);
+  for (int s = 0; s < I8_STAGES - 1 && s < total; ++s) copies.issue(full);
+  int c = 0;      // chunks done
+  int stage = 0;  // stage of chunk c
+  int phase = 0;  // parity of chunk c's use of its stage
+  for (int tile = tile_lo; tile < tile_hi; ++tile) {
+    const int n0 = tile * NT;
+    float sc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + warp * 16 + (lane >> 2) + 8 * h;
+      sc[h] = scales != nullptr && n < N ? scales[n] : 0.f;  // lands during the chunks
+    }
+    int acc[4][4];
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nb][i] = 0;
+    for (int dc = 0; dc < cpt; ++dc, ++c) {
+      // chunk c + 3 refills the stage of chunk c - 1 once every warp is done
+      // with it; chunks c + 1 and c + 2 are in flight meanwhile
+      const int prev = stage == 0 ? I8_STAGES - 1 : stage - 1;
+      const int prev_phase = stage == 0 ? phase ^ 1 : phase;
+      mbar_wait(full + 8 * stage, phase);
+      const int left = D - dc * I8_CHUNK;
+      int8_chunk(ring + stage * I8_STAGE_BYTES, qs, qrow, dc * I8_CHUNK,
+                 left >= I8_CHUNK ? I8_CHUNK / 32 : (left + 31) / 32, acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * stage);
+      if (c + I8_STAGES - 1 < total) {
+        if (c > 0) mbar_wait(empty + 8 * prev, prev_phase);
+        copies.issue(full);
+      }
+      if (++stage == I8_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    epilogue(acc, sc, n0);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The C fragment's coordinates: acc[nb][i] is tile row int8_row(i), query
+// int8_query(nb, i) of the CTA's 32.
+__device__ __forceinline__ int int8_row(int i) {
+  return (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2) + 8 * (i >> 1);
+}
+__device__ __forceinline__ int int8_query(int nb, int i) {
+  return nb * 8 + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// CTAs an SM, registers and local (stack) bytes a thread, and dynamic shared
+// bytes of an int8-tile kernel at depth D, from the occupancy calculator:
+// out[0..3]. Returns a cudaError_t.
+template <typename Kernel>
+inline int int8_kernel_info(Kernel kernel, int smem, int* out) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, THREADS, smem);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = smem;
+  return (int)err;
 }
 
 // ---------------------------------------------------------------------------

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from rag_serving_system_torch.ops import _build
-from rag_serving_system_torch.ops.topk import FLOAT_TILE, INT8_TILE, split_tiles
+from rag_serving_system_torch.ops.topk import FLOAT_TILE, INT8_MAX_D, int8_grid, split_tiles
 
 LANES = 128  # P2 folds corpus row n into output lane n % 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -109,11 +109,15 @@ def dot_probe(corpus: torch.Tensor, queries: torch.Tensor, block_n: int = 2048,
                          f"queries must be {want}")
     if block_n % LANES:
         raise ValueError(f"dot_probe: block_n={block_n} is not a multiple of {LANES}")
+    if corpus.dtype == torch.int8 and d > INT8_MAX_D:
+        raise ValueError(f"dot_probe: an int8 corpus needs D <= {INT8_MAX_D}, got {d}")
     q = _probe_queries(corpus, queries, highest).contiguous()
     b = q.shape[0]
     rows = n // block_n * block_n
-    tile = INT8_TILE if corpus.dtype == torch.int8 else FLOAT_TILE
-    tiles_per_cta, n_ctas = split_tiles(rows, b, dev, tile)
+    if corpus.dtype == torch.int8:
+        tiles_per_cta, n_ctas = int8_grid("dot", rows, b, 1, d, dev)
+    else:
+        tiles_per_cta, n_ctas = split_tiles(rows, b, dev, FLOAT_TILE)
     partial = torch.empty((n_ctas, b, LANES), dtype=torch.float32, device=dev)
     out = torch.empty((b, LANES), dtype=torch.float32, device=dev)
     round_bf16 = int(corpus.dtype == torch.float32 and not highest)

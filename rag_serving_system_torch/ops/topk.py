@@ -11,30 +11,37 @@ lower corpus index first, as `lax.top_k` does.
 tensor takes the plain version (`cosine_topk_reference`,
 `cosine_topk_int8_reference`); a CUDA tensor launches `csrc/topk.cu` or
 `csrc/topk_int8.cu`, or raises. Any k <= N is served, as by the JAX engine:
-up to LIST_K the kernels keep each query's running list in a warp's
-registers; beyond it they write the scores of chunks of rows, and
+up to LIST_K[corpus dtype] the kernels keep each query's running list in a
+warp's registers; beyond it they write the scores of chunks of rows, and
 `select_topk` (`csrc/select.cu`, a radix select and a bitonic sort) ranks
 them, with no `torch.topk` or `torch.sort` on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from rag_serving_system_torch.ops import _build
 
-LIST_K = 256  # each running list is 8 registers of a warp's 32 lanes at most
+# The largest k each corpus dtype keeps in the warp lists (at most 256: 8
+# registers of a warp's 32 lanes); beyond it the score kernel and
+# select_topk. Each is the largest k at which the lists beat the scores and
+# the select on the card (chip_smoke.py's crossover; PERF.md).
+LIST_K = {torch.float32: 256, torch.bfloat16: 256, torch.int8: 256}
 # beyond LIST_K: (B, rows) f32 scores are written and selected this many
 # bytes at a time (512 MB: 4,194,304 rows at B = 32)
 SCORE_CHUNK_BYTES = 1 << 29
-# (corpus rows per tile, CTAs per SM) of the score tiles in
-# csrc/topk_common.cuh: the float tile (FT_ROWS; its ring fills an SM's
-# shared memory) and the int8 tile (NT)
+# (corpus rows per tile, CTAs per SM) of the float score tile in
+# csrc/topk_common.cuh (FT_ROWS; its ring fills an SM's shared memory)
 FLOAT_TILE = (512, 1)
-INT8_TILE = (128, 4)
+INT8_ROWS = 128   # corpus rows per tile of the int8 score tile (NT)
+INT8_MAX_D = 4096  # its (32, D) query block stays in shared memory
 _PLAIN_ROWS = 262_144  # row block of the plain int8 scan (bounds its scratch)
 
 
@@ -98,7 +105,7 @@ def cosine_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
 
     dev = corpus.device
     lib = _build.library()
-    if k > LIST_K:
+    if k > LIST_K[corpus.dtype]:
         def scores(lo: int, hi: int) -> torch.Tensor:
             out = torch.empty((b, hi - lo), dtype=torch.float32, device=dev)
             tiles_per_cta, n_ctas = split_tiles(hi - lo, b, dev, FLOAT_TILE)
@@ -217,17 +224,60 @@ def _merge_buffers(b: int, n_ctas: int, k: int, dev: torch.device):
     return out
 
 
-def split_tiles(n: int, b: int, dev: torch.device,
-                tile: tuple[int, int]) -> tuple[int, int]:
-    """(tiles_per_cta, n_ctas) for n rows in tiles of `tile` = (rows, CTAs
-    per SM): one wave of CTAs over all ceil(b / 32) query groups, each CTA
-    streaming a contiguous span."""
-    rows, per_sm = tile
+def one_wave(n: int, b: int, rows: int, sms: int, per_sm: int) -> tuple[int, int]:
+    """(tiles_per_cta, n_ctas) for n rows in tiles of `rows`: one wave of
+    per_sm CTAs on each of sms SMs over all ceil(b / 32) query groups, each
+    CTA streaming a contiguous span."""
     n_tiles = math.ceil(n / rows)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     wave = max(1, per_sm * sms // math.ceil(b / 32))
     tiles_per_cta = max(1, math.ceil(n_tiles / wave))
     return tiles_per_cta, math.ceil(n_tiles / tiles_per_cta)
+
+
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def split_tiles(n: int, b: int, dev: torch.device,
+                tile: tuple[int, int]) -> tuple[int, int]:
+    """`one_wave` on dev's SMs for `tile` = (rows, CTAs per SM)."""
+    return one_wave(n, b, tile[0], _sms(dev), tile[1])
+
+
+class TileInfo(NamedTuple):
+    """What the occupancy calculator says of an int8-tile kernel."""
+    ctas_per_sm: int
+    registers: int     # a thread
+    local_bytes: int   # stack frame a thread (ptxas reports no spills)
+    smem_bytes: int    # dynamic shared memory a CTA
+
+
+@functools.lru_cache(maxsize=64)
+def int8_tile_info(kernel: str, k: int, d: int, device_index: int) -> TileInfo:
+    """The int8 tile's kernel that runs on device `device_index` at depth d:
+    "topk" (B4's instantiation for k's list width), "scores" (the score
+    kernel beyond the lists) or "dot" (P2)."""
+    out = (ctypes.c_int * 4)()
+    lib = _build.library()
+    with torch.cuda.device(device_index):
+        if kernel == "dot":
+            err = lib.rag_dot_probe_int8_info(d, ctypes.addressof(out))
+        else:
+            err = lib.rag_int8_tile_info({"topk": 0, "scores": 1}[kernel], k, d,
+                                         ctypes.addressof(out))
+    _build.check(err, f"rag_int8_tile_info({kernel}, k={k}, D={d})")
+    info = TileInfo(*out)
+    if info.ctas_per_sm < 1:
+        raise RuntimeError(f"int8 {kernel} kernel at D={d} fits no SM: {info}")
+    return info
+
+
+def int8_grid(kernel: str, n: int, b: int, k: int, d: int,
+              dev: torch.device) -> tuple[int, int]:
+    """(tiles_per_cta, n_ctas) of an int8-tile kernel: one wave of as many
+    CTAs an SM as fit."""
+    info = int8_tile_info(kernel, k, d, dev.index)
+    return one_wave(n, b, INT8_ROWS, _sms(dev), info.ctas_per_sm)
 
 
 # ---------------------------------------------------------------------------
@@ -352,9 +402,9 @@ def cosine_topk_int8(corpus_q, corpus_scales, queries, k: int,
     if queries.dim() != 2 or queries.shape[1] != d or queries.shape[0] < 1:
         raise ValueError(f"cosine_topk_int8: queries {tuple(queries.shape)} vs "
                          f"corpus {tuple(corpus_q.shape)}")
-    if d % 16 or not 1 <= k <= n:
-        raise ValueError(f"cosine_topk_int8: needs D % 16 == 0 and 1 <= k <= N; "
-                         f"got D={d}, k={k}, N={n}")
+    if d % 16 or not 16 <= d <= INT8_MAX_D or not 1 <= k <= n:
+        raise ValueError(f"cosine_topk_int8: needs D % 16 == 0, 16 <= D <= {INT8_MAX_D} "
+                         f"and 1 <= k <= N; got D={d}, k={k}, N={n}")
     if not corpus_q.is_contiguous() or corpus_q.data_ptr() % 16:
         raise ValueError("cosine_topk_int8: the corpus must be contiguous and "
                          "16-byte aligned")
@@ -362,10 +412,10 @@ def cosine_topk_int8(corpus_q, corpus_scales, queries, k: int,
     qi = qi.contiguous()
     b = qi.shape[0]
     lib = _build.library()
-    if k > LIST_K:
+    if k > LIST_K[torch.int8]:
         def scores(lo: int, hi: int) -> torch.Tensor:
             out = torch.empty((b, hi - lo), dtype=torch.float32, device=dev)
-            tiles_per_cta, n_ctas = split_tiles(hi - lo, b, dev, INT8_TILE)
+            tiles_per_cta, n_ctas = int8_grid("scores", hi - lo, b, k, d, dev)
             with torch.cuda.device(dev):
                 err = lib.rag_score_rows_int8(
                     qi.data_ptr(), corpus_q.data_ptr() + lo * d,
@@ -375,9 +425,9 @@ def cosine_topk_int8(corpus_q, corpus_scales, queries, k: int,
             cosine_topk_int8.launches += 1
             return out
 
-        s, i = scan_select(n, k, score_chunk_rows(b, INT8_TILE[0]), scores)
+        s, i = scan_select(n, k, score_chunk_rows(b, INT8_ROWS), scores)
         return _int8_finish(s, i, qn, qscale, corpus_mean)
-    tiles_per_cta, n_ctas = split_tiles(n, b, dev, INT8_TILE)
+    tiles_per_cta, n_ctas = int8_grid("topk", n, b, k, d, dev)
     bufs = _merge_buffers(b, n_ctas, k, dev)
     with torch.cuda.device(dev):
         err = lib.rag_cosine_topk_int8(
@@ -408,7 +458,7 @@ def cosine_topk_int8_chunked(chunks, queries, k: int, corpus_mean=None,
         base += values.shape[0]
     if len(chunks) == 1:
         return all_s[0], all_i[0]
-    if k > LIST_K:
+    if k > LIST_K[torch.int8]:
         return merge_selected(list(zip(all_s, all_i)), k)
     top_s, pos = stable_topk(torch.cat(all_s, dim=1), k)
     return top_s, torch.gather(torch.cat(all_i, dim=1), 1, pos)

@@ -168,7 +168,12 @@ def _int8_corpus(dev, n, d, seed):
     (4099, 64, 3, 2),
     (300, 80, 2, 33),        # two list registers a lane
     (1000, 1024, 4, 64),
-    (3000, 128, 2, 256),     # eight: LIST_K
+    (3000, 128, 2, 256),     # eight registers: the widest list
+    (1001, 16, 33, 16),      # one 32-byte step, half of it past D; 33 queries
+    (2049, 48, 1, 33),       # a half step at the end of the depth; B = 1
+    (1500, 80, 64, 1),
+    (777, 2048, 33, 256),    # a 64 KB query block (one CTA an SM)
+    (1300, 1024, 1, 33),
 ])
 def test_topk_int8_kernel_bit_identical_to_plain(dev, n, d, b, k):
     c, scales = _int8_corpus(dev, n, d, n + d)
@@ -180,6 +185,33 @@ def test_topk_int8_kernel_bit_identical_to_plain(dev, n, d, b, k):
     rs, ri = tt.cosine_topk_int8_reference(c, scales, q, k, corpus_mean=mean)
     assert torch.equal(i, ri)
     assert torch.equal(s, rs)
+
+
+@pytest.mark.parametrize("d,k", [(1024, 16), (2048, 1), (2048, 256), (48, 33)])
+def test_topk_int8_kernel_largest_dots_exact(dev, d, k):
+    """Rows and queries of +-127 only: |acc| reaches D * 127^2 (33M at
+    D = 2048, past f32's 2^24), and duplicated rows tie exactly."""
+    g = torch.Generator(device=dev).manual_seed(d + k)
+    sign = torch.randint(0, 2, (997, d), generator=g, device=dev, dtype=torch.int8)
+    c = (sign * 2 - 1) * 127
+    c[500:540] = c[3:43]
+    scales = torch.full((1, 997), 0.01, device=dev)
+    q = c[[3, 10, 20]].float()
+    q[2] = -q[2]
+    s, i = tt.cosine_topk_int8(c, scales, q, k, normalize_queries=False)
+    rs, ri = tt.cosine_topk_int8_reference(c, scales, q, k, normalize_queries=False)
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+    assert i[0, 0].item() == 3 and (k == 1 or i[0, 1].item() == 500)
+
+
+def test_int8_tile_fits_the_sm(dev):
+    """The occupancy calculator's count for the instantiations that run: the
+    (32, 1024) query block, the ring and B4's score tile leave room for 2
+    CTAs an SM at D = 1024, in at most 128 registers a thread."""
+    for kernel, k in (("topk", 16), ("topk", 33), ("topk", 256), ("scores", 1), ("dot", 1)):
+        info = tt.int8_tile_info(kernel, k, 1024, dev.index)
+        assert info.ctas_per_sm == 2 and info.registers <= 128, (kernel, k, info)
+    assert tt.int8_tile_info("topk", 16, 2048, dev.index).ctas_per_sm == 1
 
 
 def test_topk_int8_kernel_ties_lowest_index_first(dev):
@@ -266,6 +298,20 @@ def test_dot_probe_matches_plain(dev, dtype, highest, n, d, b, block_n):
     assert ((out - ref).abs() <= tol).all()
 
 
+@pytest.mark.parametrize("n,d,b", [(1280, 16, 33), (2560, 48, 1), (1024, 80, 64),
+                                   (768, 2048, 33)])
+def test_dot_probe_int8_tile_depths(dev, n, d, b):
+    """P2 on the int8 tile at depths with a half 32-byte step, a 64 KB query
+    block, and query counts off the group of 32: exact int32 dots, folded in
+    f32 (the summation-order bound of test_dot_probe_matches_plain)."""
+    c, _ = _int8_corpus(dev, n, d, d)
+    q, _ = _int8_corpus(dev, b, d, d + 1)
+    out = tp.dot_probe(c, q, 128)
+    ref = tp.dot_probe_plain(c, q, 128)
+    tol = _sum_order_tol(tp.abs_terms(c, q, 128), 32)
+    assert ((out - ref).abs() <= tol).all()
+
+
 def test_int8_and_probe_wrappers_check_inputs(dev):
     c, scales = _int8_corpus(dev, 300, 64, 14)
     q = _randn(dev, (2, 64), 15)
@@ -274,7 +320,9 @@ def test_int8_and_probe_wrappers_check_inputs(dev):
                 dict(corpus_scales=scales.double()),         # not f32
                 dict(corpus_q=c[:, :40].contiguous(), queries=q[:, :40]),  # D % 16
                 dict(k=301), dict(k=0),
-                dict(corpus_q=c[::2], corpus_scales=scales[:, :150])):  # strided
+                dict(corpus_q=c[::2], corpus_scales=scales[:, :150]),  # strided
+                dict(corpus_q=torch.zeros((300, 4112), dtype=torch.int8, device=dev),
+                     queries=_randn(dev, (2, 4112), 15))):   # D past the query block
         args = dict(corpus_q=c, corpus_scales=scales, queries=q, k=4)
         args.update(bad)
         with pytest.raises(ValueError):

@@ -49,15 +49,51 @@ def test_matches_oracle_and_pallas(n, b, k):
 
 @pytest.mark.parametrize("n,b", [(300, 2), (700, 3)])
 def test_widest_list_matches_oracle(n, b):
-    """k = LIST_K = 256, against the oracle only (interpret mode would take
-    256 selection rounds a block)."""
+    """k = 256, the widest list the kernels hold, against the oracle only
+    (interpret mode would take 256 selection rounds a block)."""
     rng = np.random.default_rng(n + b)
     corpus = _unit(rng.standard_normal((n, 64)))
     queries = rng.standard_normal((b, 64)).astype(np.float32)
-    ours = tt.cosine_topk(torch.tensor(corpus), torch.tensor(queries), tt.LIST_K)
-    assert tt.LIST_K == 256 and ours[1].shape == (b, 256)
+    ours = tt.cosine_topk(torch.tensor(corpus), torch.tensor(queries), 256)
+    assert max(tt.LIST_K.values()) <= 256 and ours[1].shape == (b, 256)
     _assert_same(ours, jt.cosine_topk_reference(jnp.asarray(corpus),
                                                 jnp.asarray(queries), 256))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("side", [0, 1])
+def test_matches_pallas_beside_the_list_limit(dtype, side):
+    """k just below (at) and just above LIST_K for the corpus dtype, where
+    the card switches from the warp lists to the scores and the select: the
+    plain version against the Pallas kernel in interpret mode."""
+    tdt = getattr(torch, dtype)
+    k = tt.LIST_K[tdt] + side
+    rng = np.random.default_rng(k)
+    corpus = jnp.asarray(_unit(rng.standard_normal((300, 64)))).astype(getattr(jnp, dtype))
+    queries = rng.standard_normal((2, 64)).astype(np.float32)
+    tcorpus = torch.tensor(np.asarray(corpus.astype(jnp.float32))).to(tdt)
+    ours = tt.cosine_topk(tcorpus, torch.tensor(queries), k)
+    assert ours[1].shape == (2, k)
+    _assert_same(ours, jt.cosine_topk_pallas(corpus, jnp.asarray(queries), k,
+                                             block_n=128, interpret=True))
+
+
+@pytest.mark.parametrize("n,b,rows,sms,per_sm,want", [
+    (1 << 20, 32, 128, 132, 2, (32, 256)),    # B4 at 1M rows: one wave of 264 CTAs
+    (1 << 20, 32, 512, 132, 1, (16, 128)),    # the float tile, one CTA an SM
+    (1000, 32, 128, 132, 2, (1, 8)),          # fewer tiles than CTAs: a tile each
+    (1 << 20, 64, 128, 132, 2, (63, 131)),    # two query groups share the wave
+    (4_194_304, 33, 128, 132, 1, (497, 66)),  # D = 2048: one CTA an SM
+    (5, 1, 128, 1, 1, (1, 1)),
+])
+def test_one_wave_grid(n, b, rows, sms, per_sm, want):
+    """The int8 and float tiles' grid: every tile in one span, no more CTAs
+    than one wave holds, no CTA without a tile."""
+    tiles_per_cta, n_ctas = tt.one_wave(n, b, rows, sms, per_sm)
+    assert (tiles_per_cta, n_ctas) == want
+    n_tiles = -(-n // rows)
+    assert n_ctas * -(-b // 32) <= max(1, per_sm * sms)
+    assert (n_ctas - 1) * tiles_per_cta < n_tiles <= n_ctas * tiles_per_cta
 
 
 def test_bfloat16_corpus_matches_pallas():

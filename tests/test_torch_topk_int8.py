@@ -187,6 +187,24 @@ def test_plain_int8_dots_stay_exact_past_2_24():
     assert i[0, :2].tolist() == [3, 7]
 
 
+@pytest.mark.parametrize("side", [0, 1])
+def test_matches_pallas_int8_beside_the_list_limit(side):
+    """k just below (at) and just above LIST_K for an int8 corpus, where the
+    card switches from B4's warp lists to the scores and the select: the
+    plain version against the Pallas kernel in interpret mode."""
+    k = tt.LIST_K[torch.int8] + side
+    corpus, queries = _corpus(k, 300, 64, 2)
+    (cv, cs), = _jax_chunks(jt.quantize_corpus_int8_chunked(corpus, chunk_rows=300)[0])
+    mean = corpus.mean(axis=0, keepdims=True)
+    ours = tt.cosine_topk_int8(torch.tensor(cv), torch.tensor(cs), torch.tensor(queries),
+                               k, corpus_mean=torch.tensor(mean), normalize_queries=False)
+    assert ours[0].shape == (2, k)
+    ref = jt.cosine_topk_pallas_int8(jnp.asarray(cv), jnp.asarray(cs), jnp.asarray(queries),
+                                     k, corpus_mean=jnp.asarray(mean), block_n=128,
+                                     interpret=True, normalize_queries=False)
+    _assert_same(ours, ref)
+
+
 def test_cuda_wrapper_refuses_other_devices():
     """No fallback: a tensor that is neither on the CPU nor on a CUDA device
     raises instead of taking the plain version."""
