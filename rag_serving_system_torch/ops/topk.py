@@ -13,8 +13,9 @@ tensor takes the plain version (`cosine_topk_reference`,
 `csrc/topk_int8.cu`, or raises. Any k <= N is served, as by the JAX engine:
 up to LIST_K[corpus dtype] the kernels keep each query's running list in a
 warp's registers; beyond it they write the scores of chunks of rows, and
-`select_topk` (`csrc/select.cu`, a radix select and a bitonic sort) ranks
-them, with no `torch.topk` or `torch.sort` on the card.
+`select_topk` (`csrc/select.cu`: two reads of the scores, a select over the
+candidates, a bitonic sort) ranks them, with no `torch.topk` or
+`torch.sort` on the card.
 """
 
 from __future__ import annotations
@@ -42,6 +43,9 @@ SCORE_CHUNK_BYTES = 1 << 29
 FLOAT_TILE = (512, 1)
 INT8_ROWS = 128   # corpus rows per tile of the int8 score tile (NT)
 INT8_MAX_D = 4096  # its (32, D) query block stays in shared memory
+SELECT_BINS = 4096    # level 0's bins in csrc/select.cu (the key's top 12 bits)
+SELECT_TILE = 8192    # scores a CTA of the select's full-row passes reads at once
+SELECT_CAND_CAP = 65_536  # candidates a row may stop its digit search at
 _PLAIN_ROWS = 262_144  # row block of the plain int8 scan (bounds its scratch)
 
 
@@ -144,13 +148,31 @@ def select_topk_plain(scores: torch.Tensor, k: int, indices: torch.Tensor | None
     return s, torch.gather(indices, 1, pos)
 
 
+class SelectSizes(NamedTuple):
+    """The launch and scratch sizes of `select_topk` over (b, L) scores."""
+    slices: int          # G: CTAs a row in the passes over the scores
+    width: int           # P: the sort's width, a power of two >= max(k, 2)
+    scratch_words: int   # int32: (b, G, SELECT_BINS) counts, b states, 3 x (b, G)
+    candidates: int      # entries of each of the candidate key and position lists
+
+
+def select_sizes(b: int, ln: int, k: int, sms: int) -> SelectSizes:
+    """One wave of two 512-thread CTAs an SM over the b rows, at most one a
+    SELECT_TILE of scores; a row's candidate list holds what its digit
+    search may stop at, and never more than the row."""
+    g = max(1, min(2 * sms // b, -(-ln // SELECT_TILE)))
+    return SelectSizes(slices=g, width=1 << max(1, (k - 1).bit_length()),
+                       scratch_words=b * (g * SELECT_BINS + 8 + 3 * g),
+                       candidates=b * min(ln, SELECT_CAND_CAP))
+
+
 def select_topk(scores: torch.Tensor, k: int, indices: torch.Tensor | None = None,
                 base: int = 0):
     """The k best of each row of (B, L) f32 scores, as `stable_topk` orders
     them (score desc, then position asc; -0.0 equals +0.0): ((B, k) scores,
     (B, k) i32 indices), an index being base + position, or indices[b,
-    position] when (B, L) i32 indices are given. Launches the radix select
-    and bitonic sort of `csrc/select.cu` on a CUDA tensor."""
+    position] when (B, L) i32 indices are given. Launches the candidate
+    select and bitonic sort of `csrc/select.cu` on a CUDA tensor."""
     if scores.device.type == "cpu":
         return select_topk_plain(scores, k, indices, base)
     b, ln = scores.shape
@@ -164,21 +186,19 @@ def select_topk(scores: torch.Tensor, k: int, indices: torch.Tensor | None = Non
                          f"{scores.device}, k={k}; needs contiguous (B <= 65535, L) f32 "
                          "on a CUDA device, 1 <= k <= L, and (B, L) i32 indices or none")
     dev = scores.device
-    p = 1 << max(1, (k - 1).bit_length())   # the sort's width: a power of two >= k
-    # CTAs a row in the select's passes: two an SM over the b rows, at most
-    # one a 16,384-score tile
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    g = max(1, min(-(-2 * sms // b), -(-ln // 16384)))
-    scratch = torch.zeros(b * (4 + 256 + 2 * g), dtype=torch.int32, device=dev)
-    keys = torch.empty((b, p), dtype=torch.int32, device=dev)
-    pos = torch.empty((b, p), dtype=torch.int32, device=dev)
+    size = select_sizes(b, ln, k, _sms(dev))
+    scratch = torch.empty(size.scratch_words, dtype=torch.int32, device=dev)
+    cand_k, cand_p, keys, pos = (torch.empty(n, dtype=torch.int32, device=dev)
+                                 for n in (size.candidates, size.candidates,
+                                           b * size.width, b * size.width))
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().rag_select_topk(
             scores.data_ptr(), None if indices is None else indices.data_ptr(), base,
-            b, ln, ln, k, p, g, scratch.data_ptr(), keys.data_ptr(), pos.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            b, ln, ln, k, size.width, size.slices, scratch.data_ptr(), cand_k.data_ptr(),
+            cand_p.data_ptr(), keys.data_ptr(), pos.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rag_select_topk")
     select_topk.launches += 1
     return out_s, out_i

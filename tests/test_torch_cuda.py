@@ -441,6 +441,36 @@ def test_select_topk_matches_plain(dev, b, n, k):
         assert torch.equal(got[0], want[0])
 
 
+@pytest.mark.parametrize("kind,b,k", [
+    ("crowded", 32, 1024),     # every score in one 12-bit bin: candidates = L
+    ("crowded", 1, 1),
+    ("equal", 2, 1024),        # every key equal to the k-th: the lowest positions
+    ("equal", 1, 1 << 20),     # k = L
+    ("grid", 65, 1024),
+    ("grid", 1, 1),
+    ("grid", 3, 1 << 20),      # k = L, many ties
+    ("mixed", 4, 1024),        # rows that stop their search at each level, side by side
+])
+def test_select_topk_million_scores_matches_plain(dev, kind, b, k):
+    """L = 1,048,576: a crowded bin (scores in a 1e-3 band around 0.8, on a
+    1e-7 grid: many ties), every score equal, a 0.001 grid of normal scores,
+    and those with cosine-like scores (uniform in [0.6, 0.95]) in one batch,
+    at k = 1, 1024 and L, B = 1 to 65."""
+    n = 1 << 20
+    g = torch.Generator(device=dev).manual_seed(b + k)
+    crowded = 0.8 + torch.round((torch.rand((b, n), generator=g, device=dev) - 0.5) * 1e4) * 1e-7
+    grid = torch.round(torch.randn((b, n), generator=g, device=dev) * 1000) / 1000
+    s = {"crowded": crowded, "equal": torch.full((b, n), 0.8, device=dev), "grid": grid,
+         "mixed": grid}[kind]
+    if kind == "mixed":
+        s[1] = crowded[1]
+        s[2] = 0.6 + 0.35 * torch.rand((n,), generator=g, device=dev)
+        s[3] = 0.8
+    got = tt.select_topk(s, k)
+    want = tt.select_topk_plain(s, k)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
 def _left_padded_mask(dev, b, s, seed):
     """Seeded left padding; of two rows or more, the last has every key
     masked."""

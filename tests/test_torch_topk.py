@@ -96,6 +96,23 @@ def test_one_wave_grid(n, b, rows, sms, per_sm, want):
     assert (n_ctas - 1) * tiles_per_cta < n_tiles <= n_ctas * tiles_per_cta
 
 
+@pytest.mark.parametrize("b,ln,k,sms,want", [
+    (32, 1 << 20, 1024, 132, (8, 1024)),    # the timed select: 256 CTAs, one wave
+    (1, 1 << 20, 1, 132, (128, 2)),         # one row: a slice an 8,192-score tile
+    (65, 777, 700, 132, (1, 1024)),
+    (300, 1 << 20, 16, 132, (1, 16)),       # more rows than a wave holds
+    (3, 50_000, 20_000, 132, (7, 32_768)),
+    (2, 1000, 1000, 132, (1, 1024)),        # k = L
+])
+def test_select_sizes(b, ln, k, sms, want):
+    """The select's slices, sort width, scratch and candidate sizes."""
+    size = tt.select_sizes(b, ln, k, sms)
+    assert (size.slices, size.width) == want
+    assert size.width >= max(k, 2) and size.width & (size.width - 1) == 0
+    assert size.scratch_words == b * (size.slices * tt.SELECT_BINS + 8 + 3 * size.slices)
+    assert size.candidates == b * min(ln, tt.SELECT_CAND_CAP)
+
+
 def test_bfloat16_corpus_matches_pallas():
     """A bf16 corpus meets bf16-rounded queries in both packages."""
     rng = np.random.default_rng(3)
