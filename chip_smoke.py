@@ -12,11 +12,14 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 card could take (bound_ms, from the run's shapes and data),
                 and where one exists the time of one PyTorch call computing
                 the same function (library_ms): B1 at 1M rows (f32 and bf16
-                corpus, k = 16, 64, 256, and k = 1024 through the score
-                kernel and select_topk) and 1000 rows, B2 and B3 in bf16
-                and f32, B4 at 1M rows (k = 16, 64, 256, 1024) and chunked
-                over 10M rows (10.24 GB of int8 on the card), select_topk
-                alone, P1 and P2 at 1M rows.
+                corpus, k = 16, 64, 256, 1024) and 1000 rows, B2 and B3 in
+                bf16 and f32, B4 at 1M rows (k = 16, 64, 256, 1024) and
+                chunked over 10M rows (10.24 GB of int8 on the card),
+                select_topk alone (normal, crowded and all-equal scores,
+                beside torch.topk), P1 and P2 at 1M rows. Then B4's CTAs an
+                SM and registers, and the crossover: each top-k wrapper's
+                warp lists against its score kernel plus select_topk at
+                k = 16 .. 256, at 1M and 1000 rows (LIST_K's evidence).
 4. roofline   - profile_topk's 1M-row rows: P1 (stream), P2 (dot) and the
                 top-k kernel (full) for f32, bf16 and int8 corpora.
 5. serve      - the port's engine at full width (e5-large + Qwen2.5-1.5B,
@@ -42,7 +45,8 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
 
 `python3 chip_smoke.py --stage-split` runs phases 1, 2 and the serve
 engine's stage split alone (5 reps a batch size), for an A/B of two
-checkouts on one card.
+checkouts on one card. `python3 chip_smoke.py --crossover` runs phases 1, 2
+and the kernels phase's crossover alone, on two seeded corpora.
 
 Each path phase (roofline, serve, serve_int8, serve_ivf, serve_wide_k) sets
 every launch count to 0 just before it and reads the counts just after;
@@ -210,26 +214,106 @@ def _check_topk(corpus, queries, k, reps=20):
 
 
 def _check_select(dev, seed):
-    """select_topk alone at its k = 1024 shape, (32, 1,048,576) f32 scores
-    on a coarse grid (many exact ties): the plain version's ids and scores
-    exactly. library_ms: one torch.topk call (which does not promise the
-    tie order)."""
+    """select_topk alone at its k = 1024 shape, (32, 1,048,576) f32 scores:
+    normal scores on a 0.001 grid (many exact ties; the main record), a
+    crowded bin (every score in a 1e-3 band around 0.8, on a 1e-7 grid) and
+    every score equal: the plain version's ids and scores exactly.
+    library_ms: one torch.topk call (which does not promise the tie
+    order)."""
     import torch
     from rag_serving_system_torch.ops import topk
 
     b, n, k = 32, 1 << 20, 1024
     g = torch.Generator(device=dev).manual_seed(seed)
-    scores = torch.round(torch.randn((b, n), generator=g, device=dev) * 1000) / 1000
-    s_k, i_k = topk.select_topk(scores, k)
-    s_p, i_p = topk.select_topk_plain(scores, k)
-    torch.cuda.synchronize()
-    require(torch.equal(i_k, i_p) and torch.equal(s_k, s_p),
-            "select_topk differs from its plain version")
-    return {"b": b, "l": n, "k": k, "max_abs_err": (s_k - s_p).abs().max().item(),
-            "ms": cuda_ms(lambda: topk.select_topk(scores, k), 20),
-            "plain_ms": cuda_ms(lambda: topk.select_topk_plain(scores, k), 3),
-            "library_ms": cuda_ms(lambda: torch.topk(scores, k, dim=1), 20),
-            "library": "torch.topk", **bound(b * n * 4 + b * k * 8, 0, "f32")}
+    shapes = {
+        "grid": lambda: torch.round(torch.randn((b, n), generator=g, device=dev) * 1000) / 1000,
+        "crowded": lambda: 0.8 + torch.round(
+            (torch.rand((b, n), generator=g, device=dev) - 0.5) * 1e4) * 1e-7,
+        "equal": lambda: torch.full((b, n), 0.8, device=dev),
+    }
+    records = []
+    for name, make in shapes.items():
+        scores = make()
+        s_k, i_k = topk.select_topk(scores, k)
+        s_p, i_p = topk.select_topk_plain(scores, k)
+        torch.cuda.synchronize()
+        require(torch.equal(i_k, i_p) and torch.equal(s_k, s_p),
+                f"select_topk differs from its plain version on {name} scores")
+        records.append({"scores": name, "b": b, "l": n, "k": k,
+                        "max_abs_err": (s_k - s_p).abs().max().item(),
+                        "ms": cuda_ms(lambda: topk.select_topk(scores, k), 20),
+                        "plain_ms": cuda_ms(lambda: topk.select_topk_plain(scores, k), 3),
+                        "library_ms": cuda_ms(lambda: torch.topk(scores, k, dim=1), 20),
+                        "library": "torch.topk", **bound(b * n * 4 + b * k * 8, 0, "f32")})
+        del scores
+    return records
+
+
+CROSSOVER_K = (16, 32, 64, 128, 256)
+
+
+def _crossover(dev, seed) -> list:
+    """Both paths of each top-k wrapper at k = 16 .. 256, at 1M rows and the
+    served 1000 rows, B = 32: the warp lists (LIST_K set to 256) and the
+    score kernel plus select_topk (LIST_K set to 0), CUDA-event ms of 10
+    calls after two warm-ups, taken lists, select, select, lists and
+    averaged a path (at 1000 rows a call is host-bound: the events time the
+    wrapper's host work too). Then, for each corpus dtype and row count, the
+    largest k up to which the lists win at every k measured, beside the
+    wrapper's LIST_K."""
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch.ops import topk
+
+    out = []
+    for n in (1 << 20, 1000):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        base = topk.l2_normalize(torch.randn((n, 1024), generator=g, device=dev))
+        queries = torch.randn((32, 1024), generator=g, device=dev)
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            if dtype == torch.int8:
+                cq, cs, cm = topk.quantize_corpus_int8(base)
+                fn = lambda k: topk.cosine_topk_int8(cq, cs, queries, k, corpus_mean=cm)  # noqa: E731
+            else:
+                c = base.to(dtype)
+                fn = lambda k: topk.cosine_topk(c, queries, k)  # noqa: E731
+            lists_win_to, lost = 0, False   # the lists win at every k up to lists_win_to
+            for k in CROSSOVER_K:
+                ms = {"lists": 0.0, "select": 0.0}
+                for path, limit in (("lists", 256), ("select", 0), ("select", 0), ("lists", 256)):
+                    with mock.patch.dict(topk.LIST_K, {dtype: limit}):
+                        ms[path] += cuda_ms(lambda: fn(k), 10) / 2
+                r = {"dtype": str(dtype), "n": n, "k": k, "lists_ms": ms["lists"],
+                     "select_ms": ms["select"]}
+                out.append(r)
+                emit("crossover", **r)
+                lost = lost or ms["lists"] >= ms["select"]
+                if not lost:
+                    lists_win_to = k
+            emit("crossover_summary", dtype=str(dtype), n=n, lists_win_up_to=lists_win_to,
+                 list_k=topk.LIST_K[dtype])
+            if dtype == torch.int8:
+                del cq, cs, cm
+            else:
+                del c
+        del base
+        torch.cuda.empty_cache()
+    return out
+
+
+def _int8_tile_record(dev) -> dict:
+    """What the occupancy calculator says of B4's instantiations (one k of
+    each list width it serves), its score kernel and P2's int8 kernel at
+    D = 1024: CTAs an SM, registers and stack bytes a thread, dynamic shared
+    memory."""
+    import torch
+    from rag_serving_system_torch.ops import topk
+
+    kernels = [("topk", k) for k in (16, 64, 128, 256) if k <= max(16, topk.LIST_K[torch.int8])]
+    return {f"{kernel}_k{k}" if kernel == "topk" else kernel:
+            topk.int8_tile_info(kernel, k, 1024, dev.index)._asdict()
+            for kernel, k in kernels + [("scores", 1), ("dot", 1)]}
 
 
 def _seeded_qkv(dev, shape_q, shape_kv, dtype, seed):
@@ -539,8 +623,11 @@ def phase_kernels(dev) -> dict:
     for r in _check_probes(dev, seed=5):
         emit("kernel", **r)
         out.setdefault(r["name"], r)
-    out["select_topk"] = _check_select(dev, seed=8)
-    emit("kernel", name="select_topk", **out["select_topk"])
+    for r in _check_select(dev, seed=8):
+        emit("kernel", name="select_topk", **r)
+        out.setdefault("select_topk", r)
+    emit("int8_tile", **_int8_tile_record(dev))
+    _crossover(dev, seed=9)
     return out
 
 
@@ -903,10 +990,14 @@ def main() -> int:
         return 1
     with open(os.path.join(DATA, "squad_real_queries.json"), encoding="utf-8") as f:
         queries = json.load(f)
-    if sys.argv[1:] == ["--stage-split"]:
+    if sys.argv[1:] in (["--stage-split"], ["--crossover"]):
         smi = phase_device()
         phase_build()
-        phase_stage_split(queries)
+        if sys.argv[1] == "--stage-split":
+            phase_stage_split(queries)
+        else:
+            for seed in (9, 10):
+                _crossover(resolve_device("cuda"), seed)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
