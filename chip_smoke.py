@@ -19,7 +19,7 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 beside torch.topk), P1 and P2 at 1M rows. Then B4's CTAs an
                 SM and registers, and the crossover: each top-k wrapper's
                 warp lists against its score kernel plus select_topk at
-                k = 16 .. 256, at 1M and 1000 rows (LIST_K's evidence).
+                k = 16 and 32, at 1M and 1000 rows (LIST_K's evidence).
 4. roofline   - profile_topk's 1M-row rows: P1 (stream), P2 (dot) and the
                 top-k kernel (full) for f32, bf16 and int8 corpora.
 5. serve      - the port's engine at full width (e5-large + Qwen2.5-1.5B,
@@ -249,12 +249,14 @@ def _check_select(dev, seed):
     return records
 
 
-CROSSOVER_K = (16, 32, 64, 128, 256)
+# the lists hold k <= 32 (topk.LIST_MAX); wider lists lost to the select
+# from k = 64 on and were removed (PERF.md keeps that measurement)
+CROSSOVER_K = (16, 32)
 
 
 def _crossover(dev, seed) -> list:
-    """Both paths of each top-k wrapper at k = 16 .. 256, at 1M rows and the
-    served 1000 rows, B = 32: the warp lists (LIST_K set to 256) and the
+    """Both paths of each top-k wrapper at CROSSOVER_K, at 1M rows and the
+    served 1000 rows, B = 32: the warp lists (LIST_K set to LIST_MAX) and the
     score kernel plus select_topk (LIST_K set to 0), CUDA-event ms of 10
     calls after two warm-ups, taken lists, select, select, lists and
     averaged a path (at 1000 rows a call is host-bound: the events time the
@@ -281,7 +283,8 @@ def _crossover(dev, seed) -> list:
             lists_win_to, lost = 0, False   # the lists win at every k up to lists_win_to
             for k in CROSSOVER_K:
                 ms = {"lists": 0.0, "select": 0.0}
-                for path, limit in (("lists", 256), ("select", 0), ("select", 0), ("lists", 256)):
+                for path, limit in (("lists", topk.LIST_MAX), ("select", 0), ("select", 0),
+                                    ("lists", topk.LIST_MAX)):
                     with mock.patch.dict(topk.LIST_K, {dtype: limit}):
                         ms[path] += cuda_ms(lambda: fn(k), 10) / 2
                 r = {"dtype": str(dtype), "n": n, "k": k, "lists_ms": ms["lists"],
@@ -303,17 +306,13 @@ def _crossover(dev, seed) -> list:
 
 
 def _int8_tile_record(dev) -> dict:
-    """What the occupancy calculator says of B4's instantiations (one k of
-    each list width it serves), its score kernel and P2's int8 kernel at
-    D = 1024: CTAs an SM, registers and stack bytes a thread, dynamic shared
-    memory."""
-    import torch
+    """What the occupancy calculator says of B4's kernel, its score kernel
+    and P2's int8 kernel at D = 1024: CTAs an SM, registers and stack bytes
+    a thread, dynamic shared memory."""
     from rag_serving_system_torch.ops import topk
 
-    kernels = [("topk", k) for k in (16, 64, 128, 256) if k <= max(16, topk.LIST_K[torch.int8])]
-    return {f"{kernel}_k{k}" if kernel == "topk" else kernel:
-            topk.int8_tile_info(kernel, k, 1024, dev.index)._asdict()
-            for kernel, k in kernels + [("scores", 1), ("dot", 1)]}
+    return {kernel: topk.int8_tile_info(kernel, 1024, dev.index)._asdict()
+            for kernel in ("topk", "scores", "dot")}
 
 
 def _seeded_qkv(dev, shape_q, shape_kv, dtype, seed):

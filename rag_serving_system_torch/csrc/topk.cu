@@ -15,19 +15,20 @@
 // at a 700 W limit. The tile of topk_common.cuh keeps two chunks in flight
 // under the FMAs: 1.84-1.89 ms on the same shapes and card, of which 1.71
 // ms is the tile (P2) and the rest the selection, which stalls the FMAs of
-// the whole CTA once a tile. At k = 256 the selection dominates: 4.15 ms
-// (PERF.md, the float tile's findings).
+// the whole CTA once a tile. Lists of 8 registers a lane (k = 256) took
+// 4.15 ms: from k = 64 on the scores and select.cu beat the lists (PERF.md,
+// the crossover), so the lists hold k <= 32.
 //
 // Design: blocks run in parallel on the SMs, so the corpus is split across
 // CTAs instead of walked in order: one CTA per SM (the ring and the score
 // tile take 207-215 KB of shared memory), each streaming a contiguous span
 // of 512-row tiles through the float score tile of topk_common.cuh (32
 // queries x 512 rows). Each tile's scores go to shared memory and are
-// merged into the warps' running lists (k <= 256); a tree of merge kernels
+// merged into the warps' running lists (k <= 32); a tree of merge kernels
 // reduces the (B, n_ctas, k) candidates to (B, k). Selection, tie order
-// and the merge are shared with kernel B4 (topk_int8.cu). For k > 256,
-// rag_score_rows writes the tile's scores instead and select.cu ranks them
-// (2.29 ms at k = 1024 on the shapes above).
+// and the merge are shared with kernel B4 (topk_int8.cu). Beyond the
+// wrapper's LIST_K, rag_score_rows writes the tile's scores instead and
+// select.cu ranks them (1.95 ms at k = 1024 on the shapes above).
 
 #include "topk_common.cuh"
 
@@ -42,7 +43,7 @@ constexpr int partial_smem_bytes() {
   return FloatTile<T>::RING_BYTES + QG * SS_LD * 4;
 }
 
-template <typename T, int KR>
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 topk_partial_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
                     int B, int N, int D, int k, int tiles_per_cta,
@@ -57,9 +58,7 @@ topk_partial_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
   const int tile_lo = blockIdx.x * tiles_per_cta;
   const int tile_hi = min(tile_lo + tiles_per_cta, n_tiles);
 
-  WarpLists<KR> lists;
-  lists.init(q_base, B, k, cand_s, cand_i);
-
+  WarpLists lists;
   float_scan<T, false>(q, corpus, B, N, D, q_base, tile_lo, tile_hi, smem,
                        [&](const float(&acc)[8][8], int n0) {
                          __syncthreads();  // every warp is done merging the last tile
@@ -72,43 +71,22 @@ topk_partial_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
                              Ss[(lane >> 3) * 8 + i][col] = valid ? acc[j][i] : -INFINITY;
                          }
                          __syncthreads();
-                         merge_tile<KR, FT_ROWS, SS_LD>(Ss, q_base, B, n0, k, lists, cand_s,
-                                                        cand_i);
+                         merge_tile<FT_ROWS, SS_LD>(Ss, q_base, B, n0, k, lists);
                        });
   lists.finish(q_base, B, k, cand_s, cand_i);
 }
 
-template <typename T, int KR>
+template <typename T>
 int launch_partial(const float* q, const T* corpus, int B, int N, int D, int k,
                    int tiles_per_cta, int n_ctas, float* cand_s, int* cand_i,
                    cudaStream_t st) {
   constexpr int smem = partial_smem_bytes<T>();
-  const cudaError_t attr = allow_smem(topk_partial_kernel<T, KR>, smem);
+  const cudaError_t attr = allow_smem(topk_partial_kernel<T>, smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(n_ctas, (B + QG - 1) / QG);
-  topk_partial_kernel<T, KR><<<grid, THREADS, smem, st>>>(q, corpus, B, N, D, k,
-                                                          tiles_per_cta, cand_s, cand_i);
+  topk_partial_kernel<T><<<grid, THREADS, smem, st>>>(q, corpus, B, N, D, k, tiles_per_cta,
+                                                      cand_s, cand_i);
   return (int)cudaSuccess;
-}
-
-template <typename T>
-int launch_partial_k(const float* q, const T* corpus, int B, int N, int D, int k,
-                     int tiles_per_cta, int n_ctas, float* cand_s, int* cand_i,
-                     cudaStream_t st) {
-  switch (list_regs(k)) {
-    case 1:
-      return launch_partial<T, 1>(q, corpus, B, N, D, k, tiles_per_cta, n_ctas, cand_s,
-                                  cand_i, st);
-    case 2:
-      return launch_partial<T, 2>(q, corpus, B, N, D, k, tiles_per_cta, n_ctas, cand_s,
-                                  cand_i, st);
-    case 4:
-      return launch_partial<T, 4>(q, corpus, B, N, D, k, tiles_per_cta, n_ctas, cand_s,
-                                  cand_i, st);
-    default:
-      return launch_partial<T, 8>(q, corpus, B, N, D, k, tiles_per_cta, n_ctas, cand_s,
-                                  cand_i, st);
-  }
 }
 
 // The scores alone, for k beyond the warp lists (select.cu ranks them): the
@@ -172,7 +150,7 @@ extern "C" int rag_score_rows(const void* q, const void* corpus, int corpus_is_b
 }
 
 // q: (B, D) f32 normalized queries; corpus: (N, D) f32 or bf16, with
-// D * itemsize % 16 == 0, both 16-byte aligned. 1 <= k <= min(256, N).
+// D * itemsize % 16 == 0, both 16-byte aligned. 1 <= k <= min(32, N).
 // cand_s / cand_i: (B, n_ctas * k) scratch, with
 // n_ctas = ceil(ceil(N / 512) / tiles_per_cta); tmp_s / tmp_i:
 // (B, ceil(n_ctas / 8) * k) scratch. out_s / out_i: (B, k).
@@ -181,7 +159,7 @@ extern "C" int rag_cosine_topk(const void* q, const void* corpus, int corpus_is_
                                void* cand_s, void* cand_i, void* tmp_s, void* tmp_i,
                                void* out_s, void* out_i, void* stream) {
   const int itemsize = corpus_is_bf16 ? 2 : 4;
-  if (k < 1 || k > 32 * MAX_KR || k > N || B < 1 || D < 1 || (D * itemsize) % 16 != 0 ||
+  if (k < 1 || k > LIST_MAX || k > N || B < 1 || D < 1 || (D * itemsize) % 16 != 0 ||
       tiles_per_cta < 1 || n_ctas < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -191,10 +169,10 @@ extern "C" int rag_cosine_topk(const void* q, const void* corpus, int corpus_is_
   int* ci = static_cast<int*>(cand_i);
   const int err =
       corpus_is_bf16
-          ? launch_partial_k(qf, static_cast<const __nv_bfloat16*>(corpus), B, N, D, k,
-                             tiles_per_cta, n_ctas, cs, ci, st)
-          : launch_partial_k(qf, static_cast<const float*>(corpus), B, N, D, k,
-                             tiles_per_cta, n_ctas, cs, ci, st);
+          ? launch_partial(qf, static_cast<const __nv_bfloat16*>(corpus), B, N, D, k,
+                           tiles_per_cta, n_ctas, cs, ci, st)
+          : launch_partial(qf, static_cast<const float*>(corpus), B, N, D, k, tiles_per_cta,
+                           n_ctas, cs, ci, st);
   if (err != cudaSuccess) return err;
   return launch_topk_merge(cand_s, cand_i, B, n_ctas, k, tmp_s, tmp_i, out_s, out_i, st);
 }

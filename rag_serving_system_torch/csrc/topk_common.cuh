@@ -67,15 +67,16 @@
 //   spills are in topk_int8.cu's note and PERF.md.
 //
 // Selection: each warp owns 4 queries and keeps each query's running top-k
-// in KR = ceil(k / 32) registers a lane while it merges (KR in 1, 2, 4, 8:
-// k <= 256; entry j * 32 + lane in register j), and its k-th score always.
-// A tile row is merged in with a ballot against the k-th score, and a row
-// whose scores all fall at or below it is skipped, as almost every row is
-// once the list has filled. A list of one register stays resident; a wider
-// one waits in the CTA's slot of the candidate buffer between tiles. Each CTA's list comes
-// out sorted; a tree of merge kernels reduces the (B, n_ctas, k)
-// candidates to (B, k), 8 lists to 1 a level (three rounds of pairwise
-// merge paths in shared memory): 3 launches for up to 512 CTAs.
+// (k <= 32) in one register a lane for the CTA's whole span, and its k-th
+// score. A tile row is merged in with a ballot against the k-th score, and
+// a row whose scores all fall at or below it is skipped, as almost every row
+// is once the list has filled. Wider lists (2, 4 or 8 registers a lane,
+// k <= 256) were measured against the score kernel and select.cu on the
+// card and lost from k = 64 on (PERF.md, the crossover), so they are gone:
+// the wrappers take the scores and the select beyond their LIST_K. Each
+// CTA's list comes out sorted; a tree of merge kernels reduces the
+// (B, n_ctas, k) candidates to (B, k), 8 lists to 1 a level (three rounds of
+// pairwise merge paths in shared memory): 3 launches for up to 512 CTAs.
 //
 // Ties resolve to the lowest corpus index in both passes: rows reach a
 // CTA's list in increasing index order, a new candidate goes after every
@@ -95,7 +96,7 @@ namespace {
 constexpr int QG = 32;             // queries per CTA (grid.y covers B)
 constexpr int THREADS = 256;       // 8 warps
 constexpr int MERGE_THREADS = 256;
-constexpr int MAX_KR = 8;          // list registers a lane: k <= 32 * MAX_KR
+constexpr int LIST_MAX = 32;       // list entries a query: one register a lane
 constexpr unsigned FULL = 0xffffffffu;
 
 // float tile
@@ -665,46 +666,27 @@ __device__ __forceinline__ bool ranks_before(float s1, int i1, float s2, int i2)
   return s1 > s2 || (s1 == s2 && i1 < i2);
 }
 
-// The smallest list width that holds k entries.
-inline int list_regs(int k) { return k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : 8; }
-
-// The running lists of a warp's 4 queries (warp * 4 + j). With KR = 1 (k
-// <= 32) each list is one register a lane and stays in registers for the
-// CTA's whole span. A wider list lives in the CTA's slot of the
-// (B, gridDim.x, k) candidates between tiles, so the score tile keeps its
-// register budget for any k; it is loaded only to merge a row in. Either
-// way the warp keeps each list's k-th score in a register.
-template <int KR>
+// The running lists of a warp's 4 queries (warp * 4 + j): k <= LIST_MAX
+// entries, entry `lane` of query j's list in s[j] / i[j], in registers for
+// the CTA's whole span, and each list's k-th score in thr[j].
 struct WarpLists {
-  static constexpr bool RESIDENT = KR == 1;
   float thr[4];
-  float s[4];  // the resident lists
+  float s[4];
   int i[4];
 
   // Start the lists empty.
-  __device__ __forceinline__ void init(int q_base, int B, int k, float* __restrict__ cand_s,
-                                       int* __restrict__ cand_i) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
+  __device__ __forceinline__ WarpLists() {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       thr[j] = -INFINITY;
       s[j] = -INFINITY;
       i[j] = INT_MAX;
-      const int b = q_base + warp * 4 + j;
-      if (RESIDENT || b >= B) continue;
-      const int64_t o = ((int64_t)b * gridDim.x + blockIdx.x) * k;
-      for (int p = lane; p < k; p += 32) {
-        cand_s[o + p] = -INFINITY;
-        cand_i[o + p] = INT_MAX;
-      }
     }
   }
 
-  // Write resident lists to the CTA's slot of the candidates.
+  // Write the lists to the CTA's slot of the (B, gridDim.x, k) candidates.
   __device__ __forceinline__ void finish(int q_base, int B, int k, float* __restrict__ cand_s,
                                          int* __restrict__ cand_i) {
-    if (!RESIDENT) return;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -719,23 +701,12 @@ struct WarpLists {
   }
 };
 
-// The list's k-th score (entry k - 1), on every lane.
-template <int KR>
-__device__ __forceinline__ float kth_score(const float (&top_s)[KR], int k) {
-  float v = top_s[0];
-#pragma unroll
-  for (int r = 1; r < KR; ++r)
-    if (r == (k - 1) >> 5) v = top_s[r];
-  return __shfl_sync(FULL, v, (k - 1) & 31);
-}
-
 // Merge one query's tile row (the W scores of rows n0 .. n0 + W - 1, from
-// row n0 + 32 * c0 on) into its running list: entry r * 32 + lane in
-// top_s[r] / top_i[r], k entries. Called by a whole warp.
-template <int KR, int W>
+// row n0 + 32 * c0 on) into its running list (entry `lane` in top_s /
+// top_i, k entries), whose k-th score is thr. Called by a whole warp.
+template <int W>
 __device__ __forceinline__ void merge_row(const float* srow, int n0, int k, int lane, int c0,
-                                          float (&top_s)[KR], int (&top_i)[KR]) {
-  float thr = kth_score<KR>(top_s, k);
+                                          float& top_s, int& top_i, float& thr) {
   for (int c = c0; c < W / 32; ++c) {
     const float s = srow[c * 32 + lane];
     unsigned cand = __ballot_sync(FULL, s > thr);
@@ -744,38 +715,19 @@ __device__ __forceinline__ void merge_row(const float* srow, int n0, int k, int 
       cand &= cand - 1;
       const float sv = __shfl_sync(FULL, s, src);
       if (!(sv > thr)) continue;  // warp-uniform
-      const int iv = n0 + c * 32 + src;
       // insert after every held entry scoring >= sv (those hold lower indices)
-      int pos = 0;
-#pragma unroll
-      for (int r = 0; r < KR; ++r)
-        pos += __popc(__ballot_sync(FULL, r * 32 + lane < k && top_s[r] >= sv));
-      // shift entries pos .. k - 2 up by one; lane 31 of register r carries
-      // into lane 0 of register r + 1
-      float carry_s = -INFINITY;
-      int carry_i = INT_MAX;
-#pragma unroll
-      for (int r = 0; r < KR; ++r) {
-        float up_s = __shfl_up_sync(FULL, top_s[r], 1);
-        int up_i = __shfl_up_sync(FULL, top_i[r], 1);
-        const float last_s = __shfl_sync(FULL, top_s[r], 31);
-        const int last_i = __shfl_sync(FULL, top_i[r], 31);
-        if (lane == 0) {
-          up_s = carry_s;
-          up_i = carry_i;
-        }
-        const int p = r * 32 + lane;
-        if (p == pos) {
-          top_s[r] = sv;
-          top_i[r] = iv;
-        } else if (p > pos && p < k) {
-          top_s[r] = up_s;
-          top_i[r] = up_i;
-        }
-        carry_s = last_s;
-        carry_i = last_i;
+      const int pos = __popc(__ballot_sync(FULL, lane < k && top_s >= sv));
+      // shift entries pos .. k - 2 up by one
+      const float up_s = __shfl_up_sync(FULL, top_s, 1);
+      const int up_i = __shfl_up_sync(FULL, top_i, 1);
+      if (lane == pos) {
+        top_s = sv;
+        top_i = n0 + c * 32 + src;
+      } else if (lane > pos && lane < k) {
+        top_s = up_s;
+        top_i = up_i;
       }
-      thr = kth_score<KR>(top_s, k);
+      thr = __shfl_sync(FULL, top_s, k - 1);
     }
   }
 }
@@ -783,11 +735,9 @@ __device__ __forceinline__ void merge_row(const float* srow, int n0, int k, int 
 // Merge a (QG, W) score tile (rows LD floats apart) into this warp's 4
 // lists. A row is merged from its first 32 scores that hold one above the
 // list's k-th, and skipped when none does.
-template <int KR, int W, int LD = W>
+template <int W, int LD = W>
 __device__ __forceinline__ void merge_tile(const float (*Ss)[LD], int q_base, int B, int n0,
-                                           int k, WarpLists<KR>& lists,
-                                           float* __restrict__ cand_s,
-                                           int* __restrict__ cand_i) {
+                                           int k, WarpLists& lists) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -797,33 +747,7 @@ __device__ __forceinline__ void merge_tile(const float (*Ss)[LD], int q_base, in
     int c0 = 0;
     while (c0 < W / 32 && !__any_sync(FULL, Ss[bl][c0 * 32 + lane] > lists.thr[j])) ++c0;
     if (c0 == W / 32) continue;
-    const int64_t o = ((int64_t)(q_base + bl) * gridDim.x + blockIdx.x) * k;
-    float top_s[KR];
-    int top_i[KR];
-#pragma unroll
-    for (int r = 0; r < KR; ++r) {
-      const int p = r * 32 + lane;
-      if (WarpLists<KR>::RESIDENT) {
-        top_s[r] = lists.s[j];
-        top_i[r] = lists.i[j];
-      } else {
-        top_s[r] = p < k ? cand_s[o + p] : -INFINITY;
-        top_i[r] = p < k ? cand_i[o + p] : INT_MAX;
-      }
-    }
-    merge_row<KR, W>(Ss[bl], n0, k, lane, c0, top_s, top_i);
-#pragma unroll
-    for (int r = 0; r < KR; ++r) {
-      const int p = r * 32 + lane;
-      if (WarpLists<KR>::RESIDENT) {
-        lists.s[j] = top_s[r];
-        lists.i[j] = top_i[r];
-      } else if (p < k) {
-        cand_s[o + p] = top_s[r];
-        cand_i[o + p] = top_i[r];
-      }
-    }
-    lists.thr[j] = kth_score<KR>(top_s, k);
+    merge_row<W>(Ss[bl], n0, k, lane, c0, lists.s[j], lists.i[j], lists.thr[j]);
   }
 }
 
@@ -856,8 +780,8 @@ constexpr int MERGE_GROUP = 8;  // lists merged by one CTA of the merge tree
 __global__ void __launch_bounds__(MERGE_THREADS)
 topk_merge_kernel(const float* __restrict__ in_s, const int* __restrict__ in_i, int L, int k,
                   float* __restrict__ out_s, int* __restrict__ out_i) {
-  __shared__ float buf_s[2][MERGE_GROUP * 32 * MAX_KR];
-  __shared__ int buf_i[2][MERGE_GROUP * 32 * MAX_KR];
+  __shared__ float buf_s[2][MERGE_GROUP * LIST_MAX];
+  __shared__ int buf_i[2][MERGE_GROUP * LIST_MAX];
   const int g = blockIdx.x;
   const int b = blockIdx.y;
   const int lists = min(MERGE_GROUP, L - g * MERGE_GROUP);

@@ -27,15 +27,14 @@
 // topk_common.cuh (s8 mma.sync, the query block resident in shared memory,
 // the corpus through a 4-stage cp.async ring); the per-row scale is applied
 // as the C fragment lands in the padded score tile, and the shared
-// warp-list selection (KR list registers a lane) and candidate merge rank
-// it. Beyond the wrapper's list limit, rag_score_rows_int8 writes the
-// scaled scores instead and select.cu ranks them.
+// warp-list selection (one list register a lane, k <= 32) and candidate
+// merge rank it. Beyond the wrapper's LIST_K, rag_score_rows_int8 writes
+// the scaled scores instead and select.cu ranks them.
 
 #include "topk_common.cuh"
 
 namespace {
 
-template <int KR>
 __global__ void __launch_bounds__(THREADS, 2)
 topk_int8_partial_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ corpus,
                          const float* __restrict__ scales, int B, int N, int D, int k,
@@ -48,8 +47,7 @@ topk_int8_partial_kernel(const int8_t* __restrict__ q, const int8_t* __restrict_
   const int tile_lo = blockIdx.x * tiles_per_cta;
   const int tile_hi = min(tile_lo + tiles_per_cta, n_tiles);
 
-  WarpLists<KR> lists;
-  lists.init(q_base, B, k, cand_s, cand_i);
+  WarpLists lists;
   int8_scan(q, corpus, scales, B, N, D, q_base, tile_lo, tile_hi, smem,
             [&](const int(&acc)[4][4], const float(&sc)[2], int n0) {
               __syncthreads();  // every warp is done merging the last tile
@@ -62,22 +60,9 @@ topk_int8_partial_kernel(const int8_t* __restrict__ q, const int8_t* __restrict_
                       n0 + row < N ? __int2float_rn(acc[nb][i]) * sc[i >> 1] : -INFINITY;
                 }
               __syncthreads();
-              merge_tile<KR, NT, SS_LD8>(Ss, q_base, B, n0, k, lists, cand_s, cand_i);
+              merge_tile<NT, SS_LD8>(Ss, q_base, B, n0, k, lists);
             });
   lists.finish(q_base, B, k, cand_s, cand_i);
-}
-
-template <int KR>
-int launch_partial(const int8_t* q, const int8_t* corpus, const float* scales, int B, int N,
-                   int D, int k, int tiles_per_cta, int n_ctas, float* cand_s, int* cand_i,
-                   cudaStream_t st) {
-  const int smem = int8_smem_bytes(D, true);
-  const cudaError_t attr = allow_smem(topk_int8_partial_kernel<KR>, smem);
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid(n_ctas, (B + QG - 1) / QG);
-  topk_int8_partial_kernel<KR><<<grid, THREADS, smem, st>>>(q, corpus, scales, B, N, D, k,
-                                                            tiles_per_cta, cand_s, cand_i);
-  return (int)cudaSuccess;
 }
 
 // The scores alone, for k beyond the warp lists (select.cu ranks them): the
@@ -108,25 +93,18 @@ score_rows_int8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ 
 
 }  // namespace
 
-// CTAs an SM, registers and spill bytes a thread, and dynamic shared bytes
-// (out[0..3]) of the int8 kernel that runs at depth D: kind 0 is the top-k
-// kernel for k (its list width), 1 the score kernel.
-extern "C" int rag_int8_tile_info(int kind, int k, int D, void* out) {
-  if (D < 16 || D % 16 != 0 || D > I8_MAX_D || k < 1) return (int)cudaErrorInvalidValue;
-  int* o = static_cast<int*>(out);
-  if (kind == 1) return int8_kernel_info(score_rows_int8_kernel, int8_smem_bytes(D, false), o);
-  if (kind != 0) return (int)cudaErrorInvalidValue;
-  const int smem = int8_smem_bytes(D, true);
-  switch (list_regs(k)) {
-    case 1:
-      return int8_kernel_info(topk_int8_partial_kernel<1>, smem, o);
-    case 2:
-      return int8_kernel_info(topk_int8_partial_kernel<2>, smem, o);
-    case 4:
-      return int8_kernel_info(topk_int8_partial_kernel<4>, smem, o);
-    default:
-      return int8_kernel_info(topk_int8_partial_kernel<8>, smem, o);
+// CTAs an SM, registers and stack bytes a thread, and dynamic shared bytes
+// (out[0..3]) of an int8 kernel at depth D: kind 0 is the top-k kernel, 1
+// the score kernel.
+extern "C" int rag_int8_tile_info(int kind, int D, void* out) {
+  if (D < 16 || D % 16 != 0 || D > I8_MAX_D || kind < 0 || kind > 1) {
+    return (int)cudaErrorInvalidValue;
   }
+  return kind == 0
+             ? int8_kernel_info(topk_int8_partial_kernel, int8_smem_bytes(D, true),
+                                static_cast<int*>(out))
+             : int8_kernel_info(score_rows_int8_kernel, int8_smem_bytes(D, false),
+                                static_cast<int*>(out));
 }
 
 // The (B, N) f32 scores (before the query scale) of q against the int8
@@ -151,7 +129,7 @@ extern "C" int rag_score_rows_int8(const void* q, const void* corpus, const void
 
 // q: (B, D) int8 quantized queries; corpus: (N, D) int8; scales: (N,) f32;
 // D % 16 == 0, 16 <= D <= 4096, q and corpus 16-byte aligned;
-// 1 <= k <= min(256, N). cand_s / cand_i: (B, n_ctas * k) scratch,
+// 1 <= k <= min(32, N). cand_s / cand_i: (B, n_ctas * k) scratch,
 // n_ctas = ceil(ceil(N / 128) / tiles_per_cta); tmp_s / tmp_i:
 // (B, ceil(n_ctas / 8) * k) scratch.
 // out_s / out_i: (B, k) scores (before the query scale) and indices.
@@ -159,30 +137,17 @@ extern "C" int rag_cosine_topk_int8(const void* q, const void* corpus, const voi
                                     int B, int N, int D, int k, int tiles_per_cta,
                                     int n_ctas, void* cand_s, void* cand_i, void* tmp_s,
                                     void* tmp_i, void* out_s, void* out_i, void* stream) {
-  if (k < 1 || k > 32 * MAX_KR || k > N || B < 1 || D < 16 || D % 16 != 0 || D > I8_MAX_D ||
+  if (k < 1 || k > LIST_MAX || k > N || B < 1 || D < 16 || D % 16 != 0 || D > I8_MAX_D ||
       tiles_per_cta < 1 || n_ctas < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int8_t* qi = static_cast<const int8_t*>(q);
-  const int8_t* c = static_cast<const int8_t*>(corpus);
-  const float* sc = static_cast<const float*>(scales);
-  float* cs = static_cast<float*>(cand_s);
-  int* ci = static_cast<int*>(cand_i);
-  int err;
-  switch (list_regs(k)) {
-    case 1:
-      err = launch_partial<1>(qi, c, sc, B, N, D, k, tiles_per_cta, n_ctas, cs, ci, st);
-      break;
-    case 2:
-      err = launch_partial<2>(qi, c, sc, B, N, D, k, tiles_per_cta, n_ctas, cs, ci, st);
-      break;
-    case 4:
-      err = launch_partial<4>(qi, c, sc, B, N, D, k, tiles_per_cta, n_ctas, cs, ci, st);
-      break;
-    default:
-      err = launch_partial<8>(qi, c, sc, B, N, D, k, tiles_per_cta, n_ctas, cs, ci, st);
-  }
-  if (err != cudaSuccess) return err;
+  const int smem = int8_smem_bytes(D, true);
+  const cudaError_t attr = allow_smem(topk_int8_partial_kernel, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  topk_int8_partial_kernel<<<dim3(n_ctas, (B + QG - 1) / QG), THREADS, smem, st>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(corpus),
+      static_cast<const float*>(scales), B, N, D, k, tiles_per_cta, static_cast<float*>(cand_s),
+      static_cast<int*>(cand_i));
   return launch_topk_merge(cand_s, cand_i, B, n_ctas, k, tmp_s, tmp_i, out_s, out_i, st);
 }

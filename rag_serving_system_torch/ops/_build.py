@@ -37,7 +37,7 @@ _SIGNATURES = {
                              _P, _P, _P],
     "rag_score_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "rag_score_rows_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "rag_int8_tile_info": [_I, _I, _I, _P],
+    "rag_int8_tile_info": [_I, _I, _P],
     "rag_select_topk": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                         _P],
     "rag_stream_probe": [_P, _I, _I, _I, _I, _P, _P, _P],

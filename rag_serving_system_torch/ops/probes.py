@@ -115,7 +115,7 @@ def dot_probe(corpus: torch.Tensor, queries: torch.Tensor, block_n: int = 2048,
     b = q.shape[0]
     rows = n // block_n * block_n
     if corpus.dtype == torch.int8:
-        tiles_per_cta, n_ctas = int8_grid("dot", rows, b, 1, d, dev)
+        tiles_per_cta, n_ctas = int8_grid("dot", rows, b, d, dev)
     else:
         tiles_per_cta, n_ctas = split_tiles(rows, b, dev, FLOAT_TILE)
     partial = torch.empty((n_ctas, b, LANES), dtype=torch.float32, device=dev)

@@ -30,11 +30,13 @@ import torch
 
 from rag_serving_system_torch.ops import _build
 
-# The largest k each corpus dtype keeps in the warp lists (at most 256: 8
-# registers of a warp's 32 lanes); beyond it the score kernel and
-# select_topk. Each is the largest k at which the lists beat the scores and
-# the select on the card (chip_smoke.py's crossover; PERF.md).
-LIST_K = {torch.float32: 256, torch.bfloat16: 256, torch.int8: 256}
+# The largest k each corpus dtype keeps in the warp lists, which hold
+# LIST_MAX (one register of a warp's 32 lanes); beyond it the score kernel
+# and select_topk. Each is the largest k at which the lists beat the scores
+# and the select on the card (chip_smoke.py --crossover; PERF.md): bf16 ties
+# at k = 16 over 1M rows and loses from 32 on.
+LIST_MAX = 32
+LIST_K = {torch.float32: 32, torch.bfloat16: 16, torch.int8: 32}
 # beyond LIST_K: (B, rows) f32 scores are written and selected this many
 # bytes at a time (512 MB: 4,194,304 rows at B = 32)
 SCORE_CHUNK_BYTES = 1 << 29
@@ -273,30 +275,28 @@ class TileInfo(NamedTuple):
 
 
 @functools.lru_cache(maxsize=64)
-def int8_tile_info(kernel: str, k: int, d: int, device_index: int) -> TileInfo:
-    """The int8 tile's kernel that runs on device `device_index` at depth d:
-    "topk" (B4's instantiation for k's list width), "scores" (the score
-    kernel beyond the lists) or "dot" (P2)."""
+def int8_tile_info(kernel: str, d: int, device_index: int) -> TileInfo:
+    """The int8 tile's kernel on device `device_index` at depth d: "topk"
+    (B4), "scores" (the score kernel beyond the lists) or "dot" (P2)."""
     out = (ctypes.c_int * 4)()
     lib = _build.library()
     with torch.cuda.device(device_index):
         if kernel == "dot":
             err = lib.rag_dot_probe_int8_info(d, ctypes.addressof(out))
         else:
-            err = lib.rag_int8_tile_info({"topk": 0, "scores": 1}[kernel], k, d,
+            err = lib.rag_int8_tile_info({"topk": 0, "scores": 1}[kernel], d,
                                          ctypes.addressof(out))
-    _build.check(err, f"rag_int8_tile_info({kernel}, k={k}, D={d})")
+    _build.check(err, f"rag_int8_tile_info({kernel}, D={d})")
     info = TileInfo(*out)
     if info.ctas_per_sm < 1:
         raise RuntimeError(f"int8 {kernel} kernel at D={d} fits no SM: {info}")
     return info
 
 
-def int8_grid(kernel: str, n: int, b: int, k: int, d: int,
-              dev: torch.device) -> tuple[int, int]:
+def int8_grid(kernel: str, n: int, b: int, d: int, dev: torch.device) -> tuple[int, int]:
     """(tiles_per_cta, n_ctas) of an int8-tile kernel: one wave of as many
     CTAs an SM as fit."""
-    info = int8_tile_info(kernel, k, d, dev.index)
+    info = int8_tile_info(kernel, d, dev.index)
     return one_wave(n, b, INT8_ROWS, _sms(dev), info.ctas_per_sm)
 
 
@@ -435,7 +435,7 @@ def cosine_topk_int8(corpus_q, corpus_scales, queries, k: int,
     if k > LIST_K[torch.int8]:
         def scores(lo: int, hi: int) -> torch.Tensor:
             out = torch.empty((b, hi - lo), dtype=torch.float32, device=dev)
-            tiles_per_cta, n_ctas = int8_grid("scores", hi - lo, b, k, d, dev)
+            tiles_per_cta, n_ctas = int8_grid("scores", hi - lo, b, d, dev)
             with torch.cuda.device(dev):
                 err = lib.rag_score_rows_int8(
                     qi.data_ptr(), corpus_q.data_ptr() + lo * d,
@@ -447,7 +447,7 @@ def cosine_topk_int8(corpus_q, corpus_scales, queries, k: int,
 
         s, i = scan_select(n, k, score_chunk_rows(b, INT8_ROWS), scores)
         return _int8_finish(s, i, qn, qscale, corpus_mean)
-    tiles_per_cta, n_ctas = int8_grid("topk", n, b, k, d, dev)
+    tiles_per_cta, n_ctas = int8_grid("topk", n, b, d, dev)
     bufs = _merge_buffers(b, n_ctas, k, dev)
     with torch.cuda.device(dev):
         err = lib.rag_cosine_topk_int8(

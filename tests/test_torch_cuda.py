@@ -37,12 +37,12 @@ def _randn(dev, shape, seed, dtype=torch.float32):
     (777, 5, 1, torch.float32),        # N a multiple of no tile, k = 1
     (5000, 64, 16, torch.float32),     # two query groups of 32
     (4099, 3, 2, torch.bfloat16),
-    (300, 2, 32, torch.float32),       # the widest list of one register a lane
-    (1300, 4, 33, torch.float32),      # two registers a lane, N % 512 != 0
+    (300, 2, 32, torch.float32),       # the widest list: one register a lane
+    (1300, 4, 33, torch.float32),      # past the lists: the scores and select_topk
     (777, 5, 64, torch.float32),
     (2000, 3, 64, torch.bfloat16),
-    (5000, 40, 100, torch.float32),    # four registers, two query groups
-    (3001, 2, 256, torch.float32),     # eight registers: LIST_K
+    (5000, 40, 100, torch.float32),    # two query groups
+    (3001, 2, 256, torch.float32),
     (3001, 2, 256, torch.bfloat16),
 ])
 def test_topk_kernel_matches_plain(dev, n, b, k, dtype):
@@ -96,8 +96,8 @@ def test_topk_kernel_ties_lowest_index_first(dev):
 
 
 def test_topk_kernel_ties_cross_list_registers(dev):
-    """150 exact ties a query at k = 48: the list's entries 31 and 32 sit in
-    two registers, the 600 rows in two tiles of two CTAs."""
+    """150 exact ties a query at k = 48, past the one-register lists: the
+    scores and select_topk keep them in index order."""
     pat = torch.where(_randn(dev, (4, 64), 9) > 0, 0.125, -0.125)
     corpus = pat[torch.arange(600, device=dev) % 4].contiguous()
     s, i = tt.cosine_topk(corpus, pat[:2].clone(), 48)
@@ -164,11 +164,11 @@ def _int8_corpus(dev, n, d, seed):
     (1000, 1024, 32, 16),
     (777, 1024, 5, 1),       # N a multiple of no tile, k = 1
     (5000, 1024, 64, 16),    # two query groups of 32
-    (300, 80, 2, 32),        # D not a multiple of the 128-byte chunk; one register
+    (300, 80, 2, 32),        # D not a multiple of the 128-byte chunk; the widest list
     (4099, 64, 3, 2),
-    (300, 80, 2, 33),        # two list registers a lane
+    (300, 80, 2, 33),        # past the lists: the score kernel and select_topk
     (1000, 1024, 4, 64),
-    (3000, 128, 2, 256),     # eight registers: the widest list
+    (3000, 128, 2, 256),
     (1001, 16, 33, 16),      # one 32-byte step, half of it past D; 33 queries
     (2049, 48, 1, 33),       # a half step at the end of the depth; B = 1
     (1500, 80, 64, 1),
@@ -205,13 +205,13 @@ def test_topk_int8_kernel_largest_dots_exact(dev, d, k):
 
 
 def test_int8_tile_fits_the_sm(dev):
-    """The occupancy calculator's count for the instantiations that run: the
+    """The occupancy calculator's count for the kernels that run: the
     (32, 1024) query block, the ring and B4's score tile leave room for 2
     CTAs an SM at D = 1024, in at most 128 registers a thread."""
-    for kernel, k in (("topk", 16), ("topk", 33), ("topk", 256), ("scores", 1), ("dot", 1)):
-        info = tt.int8_tile_info(kernel, k, 1024, dev.index)
-        assert info.ctas_per_sm == 2 and info.registers <= 128, (kernel, k, info)
-    assert tt.int8_tile_info("topk", 16, 2048, dev.index).ctas_per_sm == 1
+    for kernel in ("topk", "scores", "dot"):
+        info = tt.int8_tile_info(kernel, 1024, dev.index)
+        assert info.ctas_per_sm == 2 and info.registers <= 128, (kernel, info)
+    assert tt.int8_tile_info("topk", 2048, dev.index).ctas_per_sm == 1
 
 
 def test_topk_int8_kernel_ties_lowest_index_first(dev):

@@ -65,7 +65,7 @@ def test_torch_quantizer_within_one_of_jax():
     (1000, 128, 5, 16),
     (130, 64, 3, 32),     # the widest list a warp holds
     (2000, 64, 8, 5),
-    (300, 64, 3, 48),     # a list wider than one register a lane
+    (300, 64, 3, 48),     # past the warp lists (the select on the card)
 ])
 def test_matches_pallas_int8(n, d, b, k):
     """Pre-normalized queries (normalize_queries=False): the two packages
