@@ -59,6 +59,7 @@ of the repository.
 
 from __future__ import annotations
 
+import functools
 import inspect
 import json
 import os
@@ -254,7 +255,7 @@ def _check_select(dev, seed):
 CROSSOVER_K = (16, 32)
 
 
-def _crossover(dev, seed) -> list:
+def _crossover(dev, seed) -> None:
     """Both paths of each top-k wrapper at CROSSOVER_K, at 1M rows and the
     served 1000 rows, B = 32: the warp lists (LIST_K set to LIST_MAX) and the
     score kernel plus select_topk (LIST_K set to 0), CUDA-event ms of 10
@@ -268,7 +269,6 @@ def _crossover(dev, seed) -> list:
     import torch
     from rag_serving_system_torch.ops import topk
 
-    out = []
     for n in (1 << 20, 1000):
         g = torch.Generator(device=dev).manual_seed(seed)
         base = topk.l2_normalize(torch.randn((n, 1024), generator=g, device=dev))
@@ -276,10 +276,10 @@ def _crossover(dev, seed) -> list:
         for dtype in (torch.float32, torch.bfloat16, torch.int8):
             if dtype == torch.int8:
                 cq, cs, cm = topk.quantize_corpus_int8(base)
-                fn = lambda k: topk.cosine_topk_int8(cq, cs, queries, k, corpus_mean=cm)  # noqa: E731
+                fn = functools.partial(topk.cosine_topk_int8, cq, cs, queries, corpus_mean=cm)
+                del cq, cs, cm
             else:
-                c = base.to(dtype)
-                fn = lambda k: topk.cosine_topk(c, queries, k)  # noqa: E731
+                fn = functools.partial(topk.cosine_topk, base.to(dtype), queries)
             lists_win_to, lost = 0, False   # the lists win at every k up to lists_win_to
             for k in CROSSOVER_K:
                 ms = {"lists": 0.0, "select": 0.0}
@@ -287,22 +287,16 @@ def _crossover(dev, seed) -> list:
                                     ("lists", topk.LIST_MAX)):
                     with mock.patch.dict(topk.LIST_K, {dtype: limit}):
                         ms[path] += cuda_ms(lambda: fn(k), 10) / 2
-                r = {"dtype": str(dtype), "n": n, "k": k, "lists_ms": ms["lists"],
-                     "select_ms": ms["select"]}
-                out.append(r)
-                emit("crossover", **r)
+                emit("crossover", dtype=str(dtype), n=n, k=k, lists_ms=ms["lists"],
+                     select_ms=ms["select"])
                 lost = lost or ms["lists"] >= ms["select"]
                 if not lost:
                     lists_win_to = k
             emit("crossover_summary", dtype=str(dtype), n=n, lists_win_up_to=lists_win_to,
                  list_k=topk.LIST_K[dtype])
-            if dtype == torch.int8:
-                del cq, cs, cm
-            else:
-                del c
+            del fn
         del base
         torch.cuda.empty_cache()
-    return out
 
 
 def _int8_tile_record(dev) -> dict:
@@ -456,8 +450,8 @@ def _int8_bound(n, d, b, k) -> dict:
 
 
 def _check_topk_int8(dev, seed):
-    """B4 at 1M rows (k = 16, 64, 256; 1024 through the score kernel and
-    select_topk), then chunked over 10M: indices
+    """B4 at 1M rows (k = 16 on the warp lists; 64, 256 and 1024 through
+    the score kernel and select_topk), then chunked over 10M: indices
     identical and scores bit-identical to the plain version (the int32 dot is
     exact in both, and each score is one correctly rounded product), ties
     included."""

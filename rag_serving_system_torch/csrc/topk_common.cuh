@@ -63,8 +63,13 @@
 //   read of the corpus at 3.35 TB/s. Shared memory: 32 * D query bytes +
 //   64 KB of ring (+ 16.5 KB of score tile for B4): 2 CTAs an SM at
 //   D = 1024, 1 at D = 2048; the grid is sized from the occupancy of the
-//   instantiation that runs (rag_int8_tile_info). Times, registers and
-//   spills are in topk_int8.cu's note and PERF.md.
+//   kernel that runs (rag_int8_tile_info). ptxas (sm_90a): 72 registers a
+//   thread for B4, 53 for its score kernel, 66 for P2, no spills. On an
+//   NVIDIA H100 80GB HBM3 at 700 W (nvidia-smi), P2 int8 takes 0.369-0.373
+//   ms at 1M x 1024, B = 32 (2.9 TB/s; P1 streams the same bytes in 0.437
+//   ms), against 0.770 for the first tile (__dp4a through registers, the
+//   query chunk reloaded for every tile, no copy in flight); B4's times are
+//   in topk_int8.cu's note, the history in PERF.md.
 //
 // Selection: each warp owns 4 queries and keeps each query's running top-k
 // (k <= 32) in one register a lane for the CTA's whole span, and its k-th

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from rag_serving_system_torch.ops import _build
-from rag_serving_system_torch.ops.topk import FLOAT_TILE, INT8_MAX_D, int8_grid, split_tiles
+from rag_serving_system_torch.ops.topk import INT8_MAX_D, float_grid, int8_grid
 
 LANES = 128  # P2 folds corpus row n into output lane n % 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -117,7 +117,7 @@ def dot_probe(corpus: torch.Tensor, queries: torch.Tensor, block_n: int = 2048,
     if corpus.dtype == torch.int8:
         tiles_per_cta, n_ctas = int8_grid("dot", rows, b, d, dev)
     else:
-        tiles_per_cta, n_ctas = split_tiles(rows, b, dev, FLOAT_TILE)
+        tiles_per_cta, n_ctas = float_grid(rows, b, dev)
     partial = torch.empty((n_ctas, b, LANES), dtype=torch.float32, device=dev)
     out = torch.empty((b, LANES), dtype=torch.float32, device=dev)
     round_bf16 = int(corpus.dtype == torch.float32 and not highest)

@@ -40,9 +40,9 @@ LIST_K = {torch.float32: 32, torch.bfloat16: 16, torch.int8: 32}
 # beyond LIST_K: (B, rows) f32 scores are written and selected this many
 # bytes at a time (512 MB: 4,194,304 rows at B = 32)
 SCORE_CHUNK_BYTES = 1 << 29
-# (corpus rows per tile, CTAs per SM) of the float score tile in
-# csrc/topk_common.cuh (FT_ROWS; its ring fills an SM's shared memory)
-FLOAT_TILE = (512, 1)
+# corpus rows per tile of the float score tile in csrc/topk_common.cuh
+# (FT_ROWS); one CTA an SM, as its ring fills an SM's shared memory
+FLOAT_ROWS = 512
 INT8_ROWS = 128   # corpus rows per tile of the int8 score tile (NT)
 INT8_MAX_D = 4096  # its (32, D) query block stays in shared memory
 SELECT_BINS = 4096    # level 0's bins in csrc/select.cu (the key's top 12 bits)
@@ -114,7 +114,7 @@ def cosine_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
     if k > LIST_K[corpus.dtype]:
         def scores(lo: int, hi: int) -> torch.Tensor:
             out = torch.empty((b, hi - lo), dtype=torch.float32, device=dev)
-            tiles_per_cta, n_ctas = split_tiles(hi - lo, b, dev, FLOAT_TILE)
+            tiles_per_cta, n_ctas = float_grid(hi - lo, b, dev)
             with torch.cuda.device(dev):
                 err = lib.rag_score_rows(
                     q.data_ptr(), corpus.data_ptr() + lo * d * corpus.element_size(),
@@ -124,8 +124,8 @@ def cosine_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
             cosine_topk.launches += 1
             return out
 
-        return scan_select(n, k, score_chunk_rows(b, FLOAT_TILE[0]), scores)
-    tiles_per_cta, n_ctas = split_tiles(n, b, dev, FLOAT_TILE)
+        return scan_select(n, k, score_chunk_rows(b, FLOAT_ROWS), scores)
+    tiles_per_cta, n_ctas = float_grid(n, b, dev)
     bufs = _merge_buffers(b, n_ctas, k, dev)
     with torch.cuda.device(dev):
         err = lib.rag_cosine_topk(
@@ -260,17 +260,17 @@ def _sms(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def split_tiles(n: int, b: int, dev: torch.device,
-                tile: tuple[int, int]) -> tuple[int, int]:
-    """`one_wave` on dev's SMs for `tile` = (rows, CTAs per SM)."""
-    return one_wave(n, b, tile[0], _sms(dev), tile[1])
+def float_grid(n: int, b: int, dev: torch.device) -> tuple[int, int]:
+    """(tiles_per_cta, n_ctas) of a float-tile kernel: one wave, one CTA an
+    SM."""
+    return one_wave(n, b, FLOAT_ROWS, _sms(dev), 1)
 
 
 class TileInfo(NamedTuple):
     """What the occupancy calculator says of an int8-tile kernel."""
     ctas_per_sm: int
     registers: int     # a thread
-    local_bytes: int   # stack frame a thread (ptxas reports no spills)
+    local_bytes: int   # stack frame a thread
     smem_bytes: int    # dynamic shared memory a CTA
 
 

@@ -16,8 +16,10 @@ B = 32 seeded queries, k = 16. Times are CUDA events over repeated
 launches; GB/s counts the corpus bytes each launch reads. Prints the card's
 nvidia-smi name and power limit, then one JSON line per (corpus, variant).
 TOPK_PARTS picks sections (default "fp,int8"; "10m" adds the 10,000,000-row
-int8 corpus in 4,194,304-row chunks, 10.2 GB on the card). Needs a CUDA
-device and nvcc; there is no CPU mode.
+int8 corpus in 4,194,304-row chunks, 10.2 GB on the card; "trace" adds
+torch.profiler's device time of each CUDA kernel behind B4 at k = 16 and
+select_topk at k = 1024). Needs a CUDA device and nvcc; there is no CPU
+mode.
 """
 
 from __future__ import annotations
@@ -77,6 +79,44 @@ def int8_chunks(n: int, chunk: int, dev, seed: int = 1):
             for lo in range(0, n, chunk)]
 
 
+def device_us(fn, reps: int = 10) -> dict:
+    """torch.profiler's device time of each CUDA kernel fn() launches, in
+    microseconds a call (mean of reps calls, after one warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / reps for e in prof.key_averages()
+            if e.device_time_total > 0}
+
+
+def trace_kernels(base, queries, emit) -> None:
+    """Where B4's and the select's time goes: each CUDA kernel's device time
+    for B4 at k = 16 over the int8 corpus of `base`, and for select_topk at
+    k = 1024 over (32, N) scores on a 0.001 grid, in a 1e-3 band (a crowded
+    bin) and all equal."""
+    from rag_serving_system_torch.ops.topk import select_topk
+
+    cq, cs, cm = quantize_corpus_int8(base)
+    emit(json.dumps({"trace": "B4", "k": K, "us": device_us(
+        lambda: cosine_topk_int8(cq, cs, queries, K, corpus_mean=cm))}))
+    del cq, cs, cm
+    g = torch.Generator(device=base.device).manual_seed(8)
+    shape = (B, base.shape[0])
+    for name, scores in (
+            ("grid", torch.round(torch.randn(shape, generator=g, device=base.device) * 1000)
+             / 1000),
+            ("crowded", 0.8 + torch.round((torch.rand(shape, generator=g, device=base.device)
+                                           - 0.5) * 1e4) * 1e-7),
+            ("equal", torch.full(shape, 0.8, device=base.device))):
+        emit(json.dumps({"trace": "select_topk", "scores": name, "k": 1024,
+                         "us": device_us(lambda s=scores: select_topk(s, 1024))}))
+
+
 def roofline(n: int = 1 << 20, parts=("fp", "int8"), emit=print) -> None:
     """Time each (corpus, variant) and emit one JSON line each."""
     dev = resolve_device("cuda")
@@ -107,6 +147,8 @@ def roofline(n: int = 1 << 20, parts=("fp", "int8"), emit=print) -> None:
         record("int8", "full", lambda: cosine_topk_int8(cq, cs, queries, K, corpus_mean=cm),
                n * D + 4 * n)
         del cq, cs, cm
+    if "trace" in parts:
+        trace_kernels(base, queries, emit)
     del base
     torch.cuda.empty_cache()
     if "10m" in parts:
