@@ -465,20 +465,20 @@ __device__ __forceinline__ unsigned swz(int r, int v, int rb) {
 // by tile, 128-byte depth chunk by chunk), 4 vectors a chunk (rows row0,
 // row0 + 32, row0 + 64, row0 + 96 of the tile, 16-byte column `part`). A
 // copy past N or D moves 0 bytes and zero-fills.
-struct Int8Issuer {
+struct Int8Copies {
   const char* base;  // a valid address: the source of 0-byte copies
-  const char* row;   // this thread's first row of the tile being issued, depth 0
+  const char* row;   // this thread's first row of the tile being copied, depth 0
   int64_t row_step;  // bytes from one of this thread's rows to the next (32 rows)
   int64_t tile_step;
   int D;
   int rows_left;     // corpus rows from this thread's first row of the tile on
   int dbytes;        // depth of the next chunk
   int part;
-  int dc, cpt;       // depth chunk of the next issue, chunks a tile
-  int stage;         // ring stage of the next issue
+  int dc, cpt;       // depth chunk of the next copy, chunks a tile
+  int stage;         // ring stage of the next copy
   unsigned smem;     // this thread's first vector in stage 0 (shared space)
 
-  __device__ __forceinline__ Int8Issuer(const int8_t* corpus, int N, int D_, int tile_lo,
+  __device__ __forceinline__ Int8Copies(const int8_t* corpus, int N, int D_, int tile_lo,
                                         unsigned ring) {
     const int tid = threadIdx.x;
     const int row0 = tid >> 3;
@@ -498,7 +498,7 @@ struct Int8Issuer {
 
   // Copy the next chunk into its stage; `full` (stage 0's "full" mbarrier;
   // stage s's is 8 * s bytes on) gets this thread's arrival when they land.
-  __device__ __forceinline__ void issue(unsigned full) {
+  __device__ __forceinline__ void next(unsigned full) {
     const unsigned s = smem + stage * I8_STAGE_BYTES;
     const bool d_ok = dbytes + part * 16 < D;
     const char* src = row + dbytes + part * 16;
@@ -593,8 +593,8 @@ __device__ __forceinline__ void int8_scan(const int8_t* __restrict__ q,
 
   const int cpt = (D + I8_CHUNK - 1) / I8_CHUNK;
   const int total = (tile_hi - tile_lo) * cpt;
-  Int8Issuer copies(corpus, N, D, tile_lo, ring);
-  for (int s = 0; s < I8_STAGES - 1 && s < total; ++s) copies.issue(full);
+  Int8Copies copies(corpus, N, D, tile_lo, ring);
+  for (int s = 0; s < I8_STAGES - 1 && s < total; ++s) copies.next(full);
   int c = 0;      // chunks done
   int stage = 0;  // stage of chunk c
   int phase = 0;  // parity of chunk c's use of its stage
@@ -624,7 +624,7 @@ __device__ __forceinline__ void int8_scan(const int8_t* __restrict__ q,
       if (lane == 0) mbar_arrive(empty + 8 * stage);
       if (c + I8_STAGES - 1 < total) {
         if (c > 0) mbar_wait(empty + 8 * prev, prev_phase);
-        copies.issue(full);
+        copies.next(full);
       }
       if (++stage == I8_STAGES) {
         stage = 0;
