@@ -19,9 +19,8 @@
 // a count and a compaction over the full rows) read every row six times and
 // took 0.589 ms on that shape at k = 1024 (NVIDIA H100 80GB HBM3, 700 W,
 // nvidia-smi), against torch.topk's 0.512. On the same card this design
-// takes 0.198-0.202 ms on normal scores (torch.topk 0.512-0.516),
-// 0.278-0.282 on a crowded bin and 0.319-0.323 with every score equal
-// (torch.topk 0.49-0.50).
+// takes 0.20 ms on normal scores, 0.28 on a crowded bin and 0.32 with
+// every score equal, over four runs (torch.topk 0.49-0.52 on each).
 // Of the 0.20 ms, the level-0 count is 54 us of device time (2.5 TB/s),
 // the write pass 81 us, the candidate select 10 us and the sort 16 us
 // (profile_topk's trace; PERF.md). ptxas: count 48 registers a thread, write 64,

@@ -28,7 +28,7 @@
 // reduces the (B, n_ctas, k) candidates to (B, k). Selection, tie order
 // and the merge are shared with kernel B4 (topk_int8.cu). Beyond the
 // wrapper's LIST_K, rag_score_rows writes the tile's scores instead and
-// select.cu ranks them (1.91-1.96 ms at k = 1024 on the shapes above).
+// select.cu ranks them (1.9-2.0 ms at k = 1024 on the shapes above).
 
 #include "topk_common.cuh"
 

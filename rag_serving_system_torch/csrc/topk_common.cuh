@@ -65,8 +65,8 @@
 //   D = 1024, 1 at D = 2048; the grid is sized from the occupancy of the
 //   kernel that runs (rag_int8_tile_info). ptxas (sm_90a): 72 registers a
 //   thread for B4, 53 for its score kernel, 66 for P2, no spills. On an
-//   NVIDIA H100 80GB HBM3 at 700 W (nvidia-smi), P2 int8 takes 0.369-0.373
-//   ms at 1M x 1024, B = 32 (2.9 TB/s; P1 streams the same bytes in 0.437
+//   NVIDIA H100 80GB HBM3 at 700 W (nvidia-smi), P2 int8 takes 0.36-0.37
+//   ms at 1M x 1024, B = 32 (2.9 TB/s; P1 streams the same bytes in 0.44
 //   ms), against 0.770 for the first tile (__dp4a through registers, the
 //   query chunk reloaded for every tile, no copy in flight); B4's times are
 //   in topk_int8.cu's note, the history in PERF.md.

@@ -19,10 +19,10 @@
 // products as __dp4a through registers, loaded each chunk before computing
 // it and reloaded the query chunk for every tile: 0.933 ms at 1M x 1024,
 // B = 32, k = 16, 35% of the byte bound. On the same shapes and an NVIDIA
-// H100 80GB HBM3 at 700 W (nvidia-smi), this version takes 0.463-0.488 ms
-// (66-70% of the bound; the kernel itself 0.389 ms of device time, the
-// rest the wrapper's query quantization and the merge tree), and 3.71-3.83
-// ms over 10M rows in 3 chunks (was 7.89). ptxas: 72 registers a thread, no
+// H100 80GB HBM3 at 700 W (nvidia-smi), this version takes 0.46-0.49 ms
+// over four runs (the kernel itself 0.39 ms of device time, the rest the
+// wrapper's query quantization and the merge tree), and 3.7-3.8 ms over
+// 10M rows in 3 chunks (was 7.89). ptxas: 72 registers a thread, no
 // spills, 2 CTAs an SM at D = 1024 (PERF.md).
 //
 // Design: contiguous spans of 128-row tiles, one wave of CTAs sized from the
