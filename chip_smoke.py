@@ -13,8 +13,10 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 and where one exists the time of one PyTorch call computing
                 the same function (library_ms): B1 at 1M rows (f32 and bf16
                 corpus, k = 16, 64, 256, 1024) and 1000 rows, B2 and B3 in
-                bf16 and f32, B4 at 1M rows (k = 16, 64, 256, 1024) and
-                chunked over 10M rows (10.24 GB of int8 on the card),
+                bf16 and f32, B2 again under RIGHT padding at (32, 512) and
+                (8, 768) (the prefix-KV compute's shapes), B1 and B4 at
+                depths 50 and 100 (padded by the wrappers), B4 at 1M rows
+                (k = 16, 64, 256, 1024) and chunked over 10M rows (10.24 GB of int8 on the card),
                 select_topk alone (normal, crowded and all-equal scores,
                 beside torch.topk), P1 and P2 at 1M rows. Then B4's CTAs an
                 SM and registers, and the crossover: each top-k wrapper's
@@ -23,35 +25,46 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
 4. roofline   - profile_topk's 1M-row rows: P1 (stream), P2 (dot) and the
                 top-k kernel (full) for f32, bf16 and int8 corpora.
 5. serve      - the port's engine at full width (e5-large + Qwen2.5-1.5B,
-                random weights from a seed, bf16, PREFIX_CACHE=0, other
-                settings at their defaults) behind the queue and batch
-                processor: one lone request (padded prefill), then 64 at
-                once (packed prefill). Then the engine's stage split for a
-                lone request and a batch of 32 (prepare, prefill with its
-                B2/B3 device time, decode; CUDA-synced host clock, mean of
-                3, query cache off).
-6. parity     - a full-width f32 greedy engine answers a lone request and a
-                batch of 8 identically through the kernels and through
-                their plain versions.
-7. serve_int8 - RETRIEVAL_CORPUS_DTYPE=int8 over 1,048,576 rows in 4 chunks
+                random weights from a seed, bf16) with EVERY setting at its
+                default (PREFIX_CACHE=1, the pool sized from the corpus)
+                behind the queue and batch processor: (a) one lone request
+                (a miss: the prefix K/V through B2), (b) 64 at once (misses
+                de-duplicated a batch), (c) the same 64 again (hits: no B2,
+                and the query cache skips retrieval). Then the stage split
+                of a batch of 32, all miss (the cache emptied before each
+                run) and all hit: prepare, prefix_resolve, prefill, decode
+                (CUDA-synced host clock, mean of 3, query cache off), and
+                the peak device memory.
+6. serve_cold - the same engine with PREFIX_CACHE=0: one lone request
+                (padded prefill, B2), then 64 at once (packed prefill, B3),
+                and the stage split of a lone request and a batch of 32.
+7. parity     - a full-width f32 greedy engine at PREFIX_CACHE=1 answers a
+                lone request and a batch of 8 identically through the
+                kernels and through their plain versions, on the prefix
+                route (from an emptied cache) and on the cold route (the
+                cache switched off); a miss and the hit after it answer
+                identically; prefix route against cold route: first-token
+                logits within 1e-3, the tokens printed beside each other.
+8. serve_int8 - RETRIEVAL_CORPUS_DTYPE=int8 over 1,048,576 rows in 4 chunks
                 of 262,144 (squad_real rows and seeded noisy copies): a lone
                 request, then 32 at once; the retrieved ids equal the plain
                 version's.
-8. serve_ivf  - RETRIEVER=ivf over a seeded clustered corpus (65,536 rows,
+9. serve_ivf  - RETRIEVER=ivf over a seeded clustered corpus (65,536 rows,
                 256 centres) through its startup recall gate; 32 requests.
-9. serve_wide_k - MAX_K=1000 over squad_real (k = N, past the warp lists'
+10. serve_wide_k - MAX_K=1000 over squad_real (k = N, past the warp lists'
                 256: the score kernel and select_topk): a lone request, then
                 7; the batch's retrieval against the plain version's.
 
-`python3 chip_smoke.py --stage-split` runs phases 1, 2 and the serve
-engine's stage split alone (5 reps a batch size), for an A/B of two
-checkouts on one card. `python3 chip_smoke.py --crossover` runs phases 1, 2
-and the kernels phase's crossover alone, on two seeded corpora.
+`python3 chip_smoke.py --stage-split` runs phases 1, 2 and the stage splits
+alone (5 reps each: cold lone and batch of 32, then all miss and all hit),
+for an A/B of two checkouts on one card. `python3 chip_smoke.py --crossover`
+runs phases 1, 2 and the kernels phase's crossover alone, on two seeded
+corpora.
 
-Each path phase (roofline, serve, serve_int8, serve_ivf, serve_wide_k) sets
-every launch count to 0 just before it and reads the counts just after;
-each kernel of the path must have launched, and every request must come
-back as {"result": str}. Then the nvidia-smi name and power limit, the
+Each path phase (roofline, serve, serve_cold, serve_int8, serve_ivf,
+serve_wide_k) sets every launch count to 0 just before it and reads the
+counts just after; each kernel of the path must have launched, and every
+request must come back as {"result": str}. Then the nvidia-smi name and power limit, the
 kernels' summary line, and the last line {"ok": true, "device": {...}}.
 Needs a CUDA device; exits 1 without one, and when run outside a checkout
 of the repository.
@@ -75,8 +88,9 @@ KERNELS = {
                     "rag_serving_system_tpu/ops/topk.py:93", "serve"),
     "flash_attention": ("rag_serving_system_torch/csrc/flash_attention.cu",
                         "rag_serving_system_tpu/ops/attention.py:42", "serve"),
+    # B3 runs on the bypass route only: the cold phase drives it
     "flash_attention_packed": ("rag_serving_system_torch/csrc/flash_attention.cu",
-                               "rag_serving_system_tpu/ops/attention.py:100", "serve"),
+                               "rag_serving_system_tpu/ops/attention.py:100", "serve_cold"),
     "cosine_topk_int8": ("rag_serving_system_torch/csrc/topk_int8.cu",
                          "rag_serving_system_tpu/ops/topk.py:189", "serve_int8"),
     "stream_probe": ("rag_serving_system_torch/csrc/probes.cu",
@@ -91,7 +105,7 @@ KERNELS = {
 # operations/s by type
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
-SERVE_ENV = {"PREFIX_CACHE": "0", "MODEL_PRESET": "full", "TORCH_DEVICE": "cuda"}
+SERVE_ENV = {"MODEL_PRESET": "full", "TORCH_DEVICE": "cuda"}   # both their defaults
 _BASE_ENV = dict(os.environ)
 
 
@@ -342,37 +356,89 @@ def _attention_record(out, ref, real, tol, name) -> dict:
     return {"max_abs_err": err, "mean_abs_err": diff.mean().item(), "tol": tol}
 
 
-def _check_flash(dev, dtype, tol, seed):
+def _check_flash(dev, dtype, tol, seed, b=32, s=512, padding="left"):
+    """B2 on a seeded (b, s) batch against its plain version. Left padding
+    (prompts; the last row has every key masked and must come out 0) or
+    right padding (`compute_prefix_kv`'s prefixes: every row has a real
+    token, of two rows or more one is full and one holds a single token; a
+    pad query i >= n sees the keys j < n, so every position is compared).
+    The byte bound counts K and V at the real keys only: no query needs a
+    masked key, and the kernel skips the tiles that hold none."""
     import numpy as np
     import torch
     from rag_serving_system_torch.ops import attention as att
 
-    b, s, hq, hk, d = 32, 512, 12, 2, 128
+    hq, hk, d = 12, 2, 128
     q, k, v = _seeded_qkv(dev, (b, s, hq, d), (b, s, hk, d), dtype, seed)
     rng = np.random.default_rng(seed)
-    pads = rng.integers(0, s, size=b)
-    pads[-1] = s                      # one row with every key masked
-    mask = torch.as_tensor((np.arange(s)[None, :] >= pads[:, None]).astype(np.int32),
-                           device=dev)
+    if padding == "left":
+        pads = rng.integers(0, s, size=b)
+        pads[-1] = s                      # one row with every key masked
+        keys = np.arange(s)[None, :] >= pads[:, None]
+        real_len = (s - pads).astype(np.int64)
+        pairs = int((real_len * (real_len + 1) // 2).sum())   # visible (query, key) pairs
+    else:
+        real_len = rng.integers(1, s + 1, size=b).astype(np.int64)
+        if b > 1:
+            real_len[0], real_len[-1] = s, 1
+        keys = np.arange(s)[None, :] < real_len[:, None]
+        # query i sees min(i + 1, n) keys
+        pairs = int((real_len * (real_len + 1) // 2 + (s - real_len) * real_len).sum())
+    mask = torch.as_tensor(keys.astype(np.int32), device=dev)
     ref = att.flash_attention_plain(q, k, v, mask)
-    real = mask.bool()
+    real = mask.bool() if padding == "left" else torch.ones_like(mask, dtype=torch.bool)
 
     out = att.flash_attention(q, k, v, mask)
     require(not out[~real].any().item(), "flash_attention: fully masked rows are not 0")
-    rec = _attention_record(out, ref, real, tol, f"flash_attention {dtype}")
+    rec = _attention_record(out, ref, real, tol, f"flash_attention {dtype} {padding}-padded")
     ms = cuda_ms(lambda: att.flash_attention(q, k, v, mask), 10)
     plain_ms = cuda_ms(lambda: att.flash_attention_plain(q, k, v, mask), 3)
-    valid = real[:, None, None, :] & torch.tril(torch.ones((s, s), dtype=torch.bool,
-                                                           device=dev))
+    valid = mask.bool()[:, None, None, :] & torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                                                  device=dev))
     library_ms, library_error = _sdpa_ms(q, k, v, valid)
-    real_len = (s - pads).astype(np.int64)
-    pairs = int((real_len * (real_len + 1) // 2).sum())   # visible (query, key) pairs
-    nbytes = b * s * (2 * hq + 2 * hk) * d * q.element_size() + b * s * 4
-    return {"shape": [b, s, hq, hk, d], "dtype": str(dtype), **rec, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+    nbytes = ((b * s * 2 * hq + int(real_len.sum()) * 2 * hk) * d * q.element_size()
+              + b * s * 4)
+    return {"shape": [b, s, hq, hk, d], "dtype": str(dtype), "padding": padding,
+            "real_keys": int(real_len.sum()), **rec,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention(bool mask, enable_gqa=True)",
             "library_error": library_error,
             **bound(nbytes, 4 * d * hq * pairs, "bf16" if dtype == torch.bfloat16 else "f32")}
+
+
+def _check_ragged_depths(dev, seed):
+    """B1 (f32 and bf16 corpus) and B4 at D = 50 and 100, which the wrappers
+    pad with zero columns to a multiple of 16: against the plain versions on
+    the unpadded tensors (B4: ids identical, scores within 1e-6, the mean
+    term being an f32 sum over D terms in one run and the padded D in the
+    other)."""
+    import torch
+    from rag_serving_system_torch.ops import topk
+
+    n, b, k = 100_000, 32, 16
+    records = []
+    for d in (50, 100):
+        g = torch.Generator(device=dev).manual_seed(seed + d)
+        base = topk.l2_normalize(torch.randn((n, d), generator=g, device=dev))
+        queries = torch.randn((b, d), generator=g, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            r = _check_topk(base.to(dtype), queries, k, reps=5)
+            records.append({"name": "cosine_topk", "d": d, **r})
+        cq, cs, cm = topk.quantize_corpus_int8(base)
+        s_k, i_k = topk.cosine_topk_int8(cq, cs, queries, k, corpus_mean=cm)
+        s_p, i_p = topk.cosine_topk_int8_reference(cq, cs, queries, k, corpus_mean=cm)
+        torch.cuda.synchronize()
+        err = (s_k - s_p).abs().max().item()
+        require(torch.equal(i_k, i_p), f"cosine_topk_int8 indices differ at D={d}")
+        require(err <= 1e-6, f"cosine_topk_int8 scores differ by {err} at D={d}")
+        records.append({"name": "cosine_topk_int8", "d": d, "n": n, "b": b, "k": k,
+                        "max_abs_err": err,
+                        "ms": cuda_ms(lambda: topk.cosine_topk_int8(
+                            cq, cs, queries, k, corpus_mean=cm), 5),
+                        "plain_ms": cuda_ms(lambda: topk.cosine_topk_int8_reference(
+                            cq, cs, queries, k, corpus_mean=cm), 2),
+                        "library_ms": None, **_int8_bound(n, d, b, k)})
+    return records
 
 
 def packed_lengths(seed: int, n_seg: int = 32, t: int = 8192) -> list:
@@ -607,7 +673,12 @@ def phase_kernels(dev) -> dict:
         r = _check_flash_packed(dev, dtype, tol, seed=2)
         emit("kernel", name="flash_attention_packed", **r)
         out.setdefault("flash_attention_packed", r)
+        for b, s in ((32, 512), (8, 768)):   # compute_prefix_kv's: (misses, pool_len)
+            emit("kernel", name="flash_attention",
+                 **_check_flash(dev, dtype, tol, seed=11, b=b, s=s, padding="right"))
     torch.cuda.empty_cache()
+    for r in _check_ragged_depths(dev, seed=12):
+        emit("kernel", **r)
     one, wide, ten = _check_topk_int8(dev, seed=3)
     for r in (one, *wide):
         emit("kernel", name="cosine_topk_int8", **r)
@@ -635,95 +706,219 @@ def phase_roofline() -> None:
     return launches
 
 
+def _answered(request_queue, queries: list) -> tuple:
+    """Add `queries` at once and wait for all; (results, wall seconds). Every
+    result must be {"result": str}."""
+    t0 = time.perf_counter()
+    ids = [request_queue.add_request(q, 2) for q in queries]
+    results = [request_queue.get_result(i, timeout=300) for i in ids]
+    seconds = time.perf_counter() - t0
+    bad = [r for r in results if not (isinstance(r, dict) and isinstance(r.get("result"), str))]
+    require(not bad, f"{len(bad)} of {len(results)} requests did not come back as "
+            f"{{'result': str}}: {bad[:3]}")
+    return results, seconds
+
+
 def _drive(processor, request_queue, queries: list, n_batch: int) -> dict:
     """One lone request, then n_batch at once, through the running
     processor; returns the results and their wall times."""
     processor.start()
     try:
-        t0 = time.perf_counter()
-        lone = request_queue.add_request(queries[0], 2)
-        results = [request_queue.get_result(lone, timeout=300)]
-        t_lone = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ids = [request_queue.add_request(q, 2) for q in queries[1:1 + n_batch]]
-        results += [request_queue.get_result(i, timeout=300) for i in ids]
-        t_batch = time.perf_counter() - t0
+        results, t_lone = _answered(request_queue, queries[:1])
+        more, t_batch = _answered(request_queue, queries[1:1 + n_batch])
     finally:
         processor.stop(drain_timeout=10.0)
         processor.join(timeout=30)
-    answered = sum(isinstance(r, dict) and isinstance(r.get("result"), str)
-                   for r in results)
-    require(answered == len(results) == n_batch + 1,
-            f"{answered}/{len(results)} of {n_batch + 1} requests came back as "
-            f"{{'result': str}}: {[r for r in results if not isinstance(r, dict) or 'result' not in r][:3]}")
+    results += more
+    require(len(results) == n_batch + 1, f"{len(results)} results for {n_batch + 1} requests")
     return {"lone_request_s": t_lone, f"batch_of_{n_batch}_s": t_batch,
-            "requests": len(results), "answered": answered,
+            "requests": len(results), "answered": len(results),
             "sample_answer": results[0]}
 
 
-def _serve_env() -> None:
+def _serve_env(**over) -> None:
     set_env(DOCUMENT_TEXT_FILE=os.path.join(DATA, "squad_real_contexts.json"),
-            DOCUMENT_EMBEDDINGS_FILE=os.path.join(DATA, "squad_real_embeddings.npy"))
+            DOCUMENT_EMBEDDINGS_FILE=os.path.join(DATA, "squad_real_embeddings.npy"), **over)
 
 
 def phase_serve(queries: list) -> dict:
-    """The full-width engine behind the queue and the batch processor.
+    """The full-width engine at its default settings (the prefix-KV cache
+    on) behind the queue and the batch processor: a lone request, 64 at
+    once, the same 64 again. Returns each kernel's launch count over the
+    three steps. B2 is then held against its plain version at the very
+    (misses, pool_len) shapes `compute_prefix_kv` gave it here."""
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch.core import engine as engine_mod
+    from rag_serving_system_torch.main import build_processor
+
+    _serve_env()
+    require("PREFIX_CACHE" not in os.environ, "the serve phase must run at the default "
+            "PREFIX_CACHE")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    processor, engine, request_queue, settings = build_processor()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    cache = engine.prefix_cache
+    require(settings.prefix_cache and cache is not None, "the prefix cache is not on")
+    layers = engine.dec_cfg.num_layers
+    steps, total, miss_shapes = {}, {}, []
+
+    def shape_recorded(fn):
+        def call(params, cfg, input_ids, *a, **kw):
+            miss_shapes.append(tuple(input_ids.shape))
+            return fn(params, cfg, input_ids, *a, **kw)
+        return call
+
+    recorder = mock.patch.object(engine_mod, "compute_prefix_kv",
+                                 shape_recorded(engine_mod.compute_prefix_kv))
+    recorder.start()
+    processor.start()
+    try:
+        for step, qs in (("a_lone_miss", queries[:1]), ("b_64_misses", queries[1:65]),
+                         ("c_64_hits", queries[1:65])):
+            before = cache.stats()
+            reset_launches()
+            _, seconds = _answered(request_queue, qs)
+            launches = read_launches()
+            after = cache.stats()
+            steps[step] = {"requests": len(qs), "seconds": seconds, "launches": launches,
+                           **{k: after[k] - before[k] for k in ("hits", "misses", "bypassed")},
+                           "entries": after["entries"]}
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+    finally:
+        processor.stop(drain_timeout=10.0)
+        processor.join(timeout=30)
+        recorder.stop()
+    a, b, c = steps["a_lone_miss"], steps["b_64_misses"], steps["c_64_hits"]
+    emit("serve", init_s=t_init, prefix_cache=True, pool_len=cache.pool_len,
+         entry_mb=cache.entry_bytes / 2 ** 20, steps=steps, launches=total,
+         batches=processor.batches_processed, stages=engine.timer.summary(),
+         compute_prefix_kv_shapes=miss_shapes,
+         prefix_stats=cache.stats(), query_cache=engine.query_cache_stats(),
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    require_launched("serve", total)
+    require((a["misses"], a["hits"], a["entries"]) == (1, 0, 1)
+            and a["launches"]["flash_attention"] == layers,
+            f"the lone request was not one miss computed in {layers} B2 launches: {a}")
+    require(b["hits"] + b["misses"] == 64 and b["bypassed"] == 0 and b["misses"] > 0
+            and b["launches"]["flash_attention"] > 0
+            and b["launches"]["flash_attention"] % layers == 0,
+            f"the 64 requests did not take the miss route through B2: {b}")
+    require(b["entries"] <= cache.capacity and b["entries"] <= 1 + b["misses"],
+            f"entries after the misses: {b}")
+    # the same 64: every row whose entry is cached hits (all, while the
+    # entries fit the pool), and B2 runs only for rows that missed
+    require(c["hits"] == 64 - c["misses"] and c["entries"] == b["entries"]
+            and (c["misses"] == 0) == (c["launches"]["flash_attention"] == 0)
+            and c["launches"]["flash_attention"] % layers == 0,
+            f"the repeated 64 requests did not hit: {c}")
+    require(c["misses"] == 0, f"{c['misses']} repeated requests missed although "
+            f"{b['entries']} entries fit {cache.capacity} slots")
+    require(c["launches"]["cosine_topk"] == 0,
+            "the repeated requests retrieved again although the query cache is on")
+    # B2 at the shapes this run's misses gave it (the fewest and the most
+    # distinct misses of a batch, at the pool length the corpus set), in the
+    # served bf16 and in f32
+    require(miss_shapes and all(pl == cache.pool_len for _, pl in miss_shapes),
+            f"compute_prefix_kv saw shapes {miss_shapes} at pool_len {cache.pool_len}")
+    for m in sorted({min(m for m, _ in miss_shapes), max(m for m, _ in miss_shapes)}):
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-4)):
+            emit("kernel", name="flash_attention", served_shape=True,
+                 **_check_flash(engine.device, dtype, tol, seed=13, b=m, s=cache.pool_len,
+                                padding="right"))
+    for label, before_rep in (("miss", cache.clear), ("hit", None)):
+        emit("stage_split", **_stage_split(engine, queries[1:33], label=label,
+                                           before_rep=before_rep))
+    stats = cache.stats()
+    emit("serve_memory", peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         pool_rows=stats["pool_reserved_bytes"] // cache.entry_bytes,
+         pool_gb=stats["pool_reserved_bytes"] / 1e9, prefix_stats=stats)
+    del processor, engine, cache
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_serve_cold(queries: list) -> dict:
+    """The full-width engine with PREFIX_CACHE=0 behind the queue and the
+    batch processor: a lone request (padded prefill), 64 at once (packed).
     Returns each kernel's launch count over the served requests."""
     import torch
     from rag_serving_system_torch.main import build_processor
 
-    _serve_env()
+    _serve_env(PREFIX_CACHE="0")
     t0 = time.perf_counter()
     processor, engine, request_queue, _ = build_processor()
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    require(engine.prefix_cache is None, "PREFIX_CACHE=0 left the prefix cache on")
     reset_launches()
     r = _drive(processor, request_queue, queries[:65], 64)
     launches = read_launches()
-    emit("serve", init_s=t_init, **r, launches=launches,
+    emit("serve_cold", init_s=t_init, prefix_cache=False, **r, launches=launches,
          batches=processor.batches_processed, stages=engine.timer.summary())
-    require_launched("serve", launches)
+    require_launched("serve_cold", launches)
+    for name in ("cosine_topk", "flash_attention"):   # B3 is this phase's own
+        require(launches[name] > 0, f"kernel {name} never launched in serve_cold")
     for n in (1, 32):
-        emit("stage_split", **_stage_split(engine, queries[:n]))
+        emit("stage_split", **_stage_split(engine, queries[:n], label="cold"))
     del processor, engine
     torch.cuda.empty_cache()
     return launches
 
 
 def phase_stage_split(queries: list) -> None:
-    """Only the serve engine's stage split, 5 reps a batch size: the A/B
-    mode (`--stage-split`), which also runs from an older checkout of the
-    port."""
+    """Only the stage splits, 5 reps each: the A/B mode (`--stage-split`).
+    The cold rows first (they also run from a checkout of the port that
+    lacks the prefix cache), then all miss and all hit at the defaults."""
     from rag_serving_system_torch.main import build_processor
 
-    _serve_env()
+    _serve_env(PREFIX_CACHE="0")
     _, engine, _, _ = build_processor()
     engine.warmup()
     for n in (1, 32):
-        emit("stage_split", **_stage_split(engine, queries[:n], reps=5))
+        emit("stage_split", **_stage_split(engine, queries[:n], label="cold", reps=5))
+    del engine
+    _serve_env()
+    _, engine, _, _ = build_processor()
+    engine.warmup()
+    for label, before_rep in (("miss", engine.prefix_cache.clear), ("hit", None)):
+        emit("stage_split", **_stage_split(engine, queries[1:33], label=label,
+                                           before_rep=before_rep, reps=5))
 
 
-def _stage_split(engine, queries: list, reps: int = 3) -> dict:
+def _stage_split(engine, queries: list, label: str, before_rep=None, reps: int = 3) -> dict:
     """One batch through the engine's stages on the CUDA-synced host clock,
     mean of reps after a warm-up, the query cache off (every batch encodes
-    and retrieves): prepare (encode, retrieve, prompt build), prefill (the
-    synchronised call of qwen2.prefill or prefill_packed), its B2/B3 device
-    time (CUDA events around each call), decode (generate minus prefill)."""
+    and retrieves): prepare (encode, retrieve, prompt build), prefix_resolve
+    (lookups, `compute_prefix_kv` of the misses, insert, gather), prefill
+    (the synchronised call of qwen2.prefill or prefill_packed), the B2/B3
+    device time inside each of the two (CUDA events around each call),
+    decode (generate minus prefill and prefix_resolve). `before_rep` runs
+    before every rep (emptying the prefix cache makes each an all-miss
+    batch; without it the reps after the warm-up all hit)."""
     from unittest import mock
 
     import torch
     from rag_serving_system_torch.models import qwen2
 
     engine._query_cache = None
-    prefill_s, attn = [], []
+    spans = {"prefill": [], "prefix_resolve": []}
+    attn = {"prefill": [], "prefix_resolve": []}
+    inside = ["prefill"]
 
-    def synced(fn):
+    def synced(fn, name):
         def call(*a, **kw):
             torch.cuda.synchronize()
+            inside[0] = name
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
-            prefill_s.append(time.perf_counter() - t0)
+            spans[name].append(time.perf_counter() - t0)
+            inside[0] = "prefill"
             return out
         return call
 
@@ -733,21 +928,28 @@ def _stage_split(engine, queries: list, reps: int = 3) -> dict:
             start.record()
             out = fn(*a, **kw)
             end.record()
-            attn.append((start, end))
+            attn[inside[0]].append((start, end))
             return out
         return call
 
     ks = [2] * len(queries)
-    route = engine.stage_prompts(engine.prepare(queries, ks))[0]
+    if before_rep is not None:
+        before_rep()
+    staged = engine.stage_prompts(engine.prepare(queries, ks))
     rows = []
-    with mock.patch.object(qwen2, "prefill", synced(qwen2.prefill)), \
-            mock.patch.object(qwen2, "prefill_packed", synced(qwen2.prefill_packed)), \
+    with mock.patch.object(qwen2, "prefill", synced(qwen2.prefill, "prefill")), \
+            mock.patch.object(qwen2, "prefill_packed",
+                              synced(qwen2.prefill_packed, "prefill")), \
+            mock.patch.object(engine, "_resolve_prefixes",
+                              synced(engine._resolve_prefixes, "prefix_resolve")), \
             mock.patch.object(qwen2, "flash_attention", evented(qwen2.flash_attention)), \
             mock.patch.object(qwen2, "flash_attention_packed",
                               evented(qwen2.flash_attention_packed)):
         for rep in range(reps + 1):
-            prefill_s.clear()
-            attn.clear()
+            for lst in (*spans.values(), *attn.values()):
+                lst.clear()
+            if before_rep is not None:
+                before_rep()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             prompts = engine.prepare(queries, ks)
@@ -757,19 +959,58 @@ def _stage_split(engine, queries: list, reps: int = 3) -> dict:
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             if rep:   # the first is the warm-up
-                rows.append((t1 - t0, sum(prefill_s), sum(s.elapsed_time(e) for s, e in attn)
-                             / 1e3, t2 - t1 - sum(prefill_s), t2 - t0, len(attn)))
-    mean = [sum(r[i] for r in rows) / len(rows) for i in range(6)]
-    return {"batch": len(queries), "route": route, "prepare_ms": mean[0] * 1e3,
-            "prefill_ms": mean[1] * 1e3, "prefill_attention_ms": mean[2] * 1e3,
-            "attention_launches": int(mean[5]), "decode_ms": mean[3] * 1e3,
-            "process_ms": mean[4] * 1e3, "reps": reps}
+                ev = {k: sum(s.elapsed_time(e) for s, e in v) / 1e3 for k, v in attn.items()}
+                rows.append((t1 - t0, sum(spans["prefix_resolve"]), ev["prefix_resolve"],
+                             sum(spans["prefill"]), ev["prefill"],
+                             t2 - t1 - sum(spans["prefill"]) - sum(spans["prefix_resolve"]),
+                             t2 - t0, len(attn["prefill"]) + len(attn["prefix_resolve"])))
+    mean = [sum(r[i] for r in rows) / len(rows) for i in range(8)]
+    cache = engine.prefix_cache
+    return {"batch": len(queries), "route": label, "layout": staged[0],
+            "prompt_slots": int(staged[1].shape[-1]),
+            "pool_len": cache.pool_len if cache else None,
+            "distinct_prefixes": len(cache) if cache else None,
+            "prepare_ms": mean[0] * 1e3, "prefix_resolve_ms": mean[1] * 1e3,
+            "prefix_resolve_attention_ms": mean[2] * 1e3, "prefill_ms": mean[3] * 1e3,
+            "prefill_attention_ms": mean[4] * 1e3, "attention_launches": int(mean[7]),
+            "decode_ms": mean[5] * 1e3, "process_ms": mean[6] * 1e3, "reps": reps}
+
+
+def _traced_answers(engine, queries: list) -> dict:
+    """One batch through prepare and generate with the prefill's first-token
+    logits recorded: retrieved ids, answers, token ids, (n, V) logits."""
+    from unittest import mock
+
+    from rag_serving_system_torch.models import qwen2
+
+    seen = []
+
+    def recorded(fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            seen.append(out[0])
+            return out
+        return call
+
+    n = len(queries)
+    ks = [2] * n
+    with mock.patch.object(qwen2, "prefill", recorded(qwen2.prefill)), \
+            mock.patch.object(qwen2, "prefill_packed", recorded(qwen2.prefill_packed)):
+        ids = engine.embed_and_retrieve(queries, ks)
+        handle = engine.generate_tokens(engine.prepare(queries, ks))
+    require(len(seen) == 1, f"{len(seen)} prefill calls for one batch")
+    return {"ids": ids, "answers": engine.finalize_tokens(handle),
+            "tokens": handle[0][:n].cpu().tolist(), "logits": seen[0][:n].float()}
 
 
 def phase_parity(queries: list) -> None:
-    """End to end on a small input: a full-width f32 engine, greedy, answers
-    through the kernels exactly as with each kernel's plain version swapped
-    in; a lone request (padded prefill) and a batch of 8 (packed)."""
+    """End to end on a small input: a full-width f32 engine, greedy, at
+    PREFIX_CACHE=1, a lone request and a batch of 8. On the prefix route
+    (from an emptied cache) and on the cold route (the cache switched off:
+    padded for the lone request, packed for the batch) it answers through
+    the kernels exactly as with each kernel's plain version swapped in; the
+    hit after a miss answers exactly as the miss; and the prefix route's
+    first-token logits lie within 1e-3 of the cold route's."""
     from unittest import mock
 
     import torch
@@ -778,32 +1019,73 @@ def phase_parity(queries: list) -> None:
     from rag_serving_system_torch.models import qwen2
     from rag_serving_system_torch.ops import attention, topk
 
-    set_env(DOCUMENT_TEXT_FILE=os.path.join(DATA, "squad_real_contexts.json"),
-            DOCUMENT_EMBEDDINGS_FILE=os.path.join(DATA, "squad_real_embeddings.npy"),
-            COMPUTE_DTYPE="float32", DO_SAMPLE="0", QUERY_CACHE_SIZE="0")
+    _serve_env(COMPUTE_DTYPE="float32", DO_SAMPLE="0", QUERY_CACHE_SIZE="0")
     _, engine, _, _ = build_processor()
+    cache = engine.prefix_cache
+    require(cache is not None, "the parity engine runs without the prefix cache")
     cases = {"lone": queries[65:66], "batch_of_8": queries[66:74]}
-    routes = {name: engine.stage_prompts(engine.prepare(qs, [2] * len(qs)))[0]
-              for name, qs in cases.items()}
-    require(routes == {"lone": "padded", "batch_of_8": "packed"},
-            f"parity inputs took routes {routes}")
 
-    def run():
-        return {name: (engine.embed_and_retrieve(qs, [2] * len(qs)),
-                       engine.process(qs, [2] * len(qs)))
-                for name, qs in cases.items()}
+    def plain_kernels():
+        return (mock.patch.object(engine_mod, "cosine_topk", topk.cosine_topk_reference),
+                mock.patch.object(qwen2, "flash_attention", attention.flash_attention_plain),
+                mock.patch.object(qwen2, "flash_attention_packed",
+                                  attention.flash_attention_packed_plain))
 
-    with_kernels = run()
-    with mock.patch.object(engine_mod, "cosine_topk", topk.cosine_topk_reference), \
-            mock.patch.object(qwen2, "flash_attention", attention.flash_attention_plain), \
-            mock.patch.object(qwen2, "flash_attention_packed",
-                              attention.flash_attention_packed_plain):
-        plain = run()
-    same = {name: with_kernels[name] == plain[name] for name in cases}
-    emit("parity", dtype="float32", routes=routes, identical=same,
-         answer=with_kernels["lone"][1][0])
-    require(all(same.values()), f"kernel and plain runs differ: {same}")
-    del engine
+    def run(repeat: bool = False):
+        """Each case from an emptied prefix cache (a miss). With `repeat`,
+        each case again straight after (a hit on the entry that very miss
+        wrote: an entry written by another batch's miss holds the same
+        values from matmuls of another shape, equal only to rounding), and
+        the B2 launches of the misses and of the hits."""
+        out, again, b2 = {}, {}, [0, 0]
+        for name, qs in cases.items():
+            if engine.prefix_cache is not None:
+                cache.clear()
+            for step, into in ((0, out), (1, again))[:2 if repeat else 1]:
+                reset_launches()
+                into[name] = _traced_answers(engine, qs)
+                b2[step] += read_launches()["flash_attention"]
+        return (out, again, b2) if repeat else out
+
+    def same(x, y, bitwise=False):
+        """Retrieved ids, answers and token ids equal; with `bitwise` the
+        first-token logits too (a hit reads the bits its miss wrote; a
+        kernel and its plain version sum in different orders)."""
+        return {name: all(x[name][key] == y[name][key] for key in ("ids", "answers", "tokens"))
+                and (not bitwise or torch.equal(x[name]["logits"], y[name]["logits"]))
+                for name in cases}
+
+    miss, hit, b2 = run(repeat=True)
+    require(b2[0] > 0 and b2[1] == 0, f"parity: B2 launched {b2[0]} times on the prefix "
+            f"route's misses and {b2[1]} times on its hits")
+    a, b, c = plain_kernels()
+    with a, b, c:
+        miss_plain = run()
+    with mock.patch.object(engine, "prefix_cache", None):
+        routes = {name: engine.stage_prompts(engine.prepare(qs, [2] * len(qs)))[0]
+                  for name, qs in cases.items()}
+        require(routes == {"lone": "padded", "batch_of_8": "packed"},
+                f"parity inputs took cold routes {routes}")
+        cold = run()
+        a, b, c = plain_kernels()
+        with a, b, c:
+            cold_plain = run()
+    checks = {"prefix_kernel_vs_plain": same(miss, miss_plain),
+              "prefix_miss_vs_hit": same(miss, hit, bitwise=True),
+              "cold_kernel_vs_plain": same(cold, cold_plain)}
+    logit_err = {name: (miss[name]["logits"] - cold[name]["logits"]).abs().max().item()
+                 for name in cases}
+    emit("parity", dtype="float32", cold_routes=routes, identical=checks,
+         prefix_vs_cold_first_token_logits_max_abs_err=logit_err,
+         prefix_vs_cold_tokens_equal={n: miss[n]["tokens"] == cold[n]["tokens"] for n in cases},
+         tokens_prefix=miss["lone"]["tokens"] + miss["batch_of_8"]["tokens"][:2],
+         tokens_cold=cold["lone"]["tokens"] + cold["batch_of_8"]["tokens"][:2],
+         answer=miss["lone"]["answers"][0], prefix_stats=cache.stats())
+    for what, per_case in checks.items():
+        require(all(per_case.values()), f"parity {what}: {per_case}")
+    require(all(e <= 1e-3 for e in logit_err.values()),
+            f"prefix route against cold route: first-token logits differ by {logit_err}")
+    del engine, cache
     torch.cuda.empty_cache()
 
 
@@ -1003,7 +1285,8 @@ def main() -> int:
         timed("build", phase_build)
         records = timed("kernels", phase_kernels, dev)
         launches = {"roofline": timed("roofline", phase_roofline),
-                    "serve": timed("serve", phase_serve, queries)}
+                    "serve": timed("serve", phase_serve, queries),
+                    "serve_cold": timed("serve_cold", phase_serve_cold, queries)}
         timed("parity", phase_parity, queries)
         launches["serve_int8"] = timed("serve_int8", phase_serve_int8, queries[74:107])
         timed("serve_ivf", phase_serve_ivf, queries[107:139])

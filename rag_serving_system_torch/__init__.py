@@ -19,7 +19,8 @@ functions, so the two can be held against each other on the same inputs.
 The package imports nothing of `rag_serving_system_tpu`: where it needs a
 host module of the JAX package, it keeps its own copy, under the same name.
 
-The slice served is the cold request path with PREFIX_CACHE=0; settings the
+The slice served is the request path at its default settings, the exact
+prefix-KV cache with its hit, miss and bypass routes included; settings the
 port does not implement make the engine raise (core/engine.py).
 """
 

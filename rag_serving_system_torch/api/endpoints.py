@@ -153,6 +153,8 @@ def create_api(request_queue, processor=None, engine=None,
             qstats = engine.query_cache_stats()
             if qstats is not None:
                 body["query_cache"] = qstats
+            if engine.prefix_cache is not None:
+                body["prefix_cache"] = engine.prefix_cache.stats()
         return web.json_response(body)
 
     app.router.add_post("/rag", rag_endpoint)

@@ -93,8 +93,31 @@ class Settings:
     ivf_nprobe: int = field(default_factory=lambda: int(_env("IVF_NPROBE", "8")))
     ivf_recall_gate: float = field(
         default_factory=lambda: float(_env("IVF_RECALL_GATE", "0.9")))
-    # prefix-KV cache; the port serves PREFIX_CACHE=0 only
+    # exact prefix-KV cache of repeated RAG contexts (core/prefix_cache.py):
+    # the context's K/V is kept on the device and only the question is prefilled
     prefix_cache: bool = field(default_factory=lambda: _flag("PREFIX_CACHE", "1"))
+    # tokens of each cached entry; longer contexts cache their first
+    # PREFIX_POOL_LEN tokens. Unset = sized from the corpus at construction
+    prefix_pool_len: Optional[int] = field(
+        default_factory=lambda: (int(os.environ["PREFIX_POOL_LEN"])
+                                 if os.environ.get("PREFIX_POOL_LEN") else None))
+    # device-memory budget of the prefix pool (LRU slot reuse beyond it)
+    prefix_cache_mb: int = field(
+        default_factory=lambda: int(_env("PREFIX_CACHE_MB", "2048")))
+    # adaptive bypass: when the hit rate over the last PREFIX_ADAPTIVE_WINDOW
+    # lookups falls below PREFIX_ADAPTIVE_LOW, only every
+    # PREFIX_PROBE_EVERY-th batch takes the prefix path
+    prefix_adaptive: bool = field(default_factory=lambda: _flag("PREFIX_ADAPTIVE", "1"))
+    prefix_adaptive_window: int = field(
+        default_factory=lambda: int(_env("PREFIX_ADAPTIVE_WINDOW", "512")))
+    prefix_adaptive_low: float = field(
+        default_factory=lambda: float(_env("PREFIX_ADAPTIVE_LOW", "0.25")))
+    prefix_probe_every: int = field(
+        default_factory=lambda: int(_env("PREFIX_PROBE_EVERY", "8")))
+    # entry storage: 'compute' (the engine's dtype, bit-exact reuse) | 'int8'
+    # (per-(token, head) symmetric quantization, not bit-exact)
+    prefix_cache_dtype: str = field(
+        default_factory=lambda: _env("PREFIX_CACHE_DTYPE", "compute"))
     # exact query-result cache entries (0 disables)
     query_cache_size: int = field(
         default_factory=lambda: int(_env("QUERY_CACHE_SIZE", "8192")))

@@ -1,12 +1,15 @@
 """The RAG serving engine in PyTorch: embed → retrieve → generate.
 
-Counterpart of the cold-path subset of `rag_serving_system_tpu/core/engine.py`
-(`RagEngine`): the e5 encoder and retrieval over a device-resident corpus,
-then Qwen2.5 generation with padded (B2) or packed (B3) prefill and the
-fixed decode loop. Retrieval is exact cosine top-k over an f32 or bf16
-corpus (kernel B1) or an int8 corpus, one array or several chunks (kernel
-B4), or approximate IVF (`RETRIEVER=ivf`). Public method signatures are the
-JAX engine's, so one batch processor contract drives either.
+Counterpart of `rag_serving_system_tpu/core/engine.py` (`RagEngine`) with the
+fixed decode loop: the e5 encoder and retrieval over a device-resident
+corpus, then Qwen2.5 generation. A prompt whose context prefix is in the
+exact prefix-KV cache (`core/prefix_cache.py`) prefills only its question
+(the hit route); a miss first computes the prefix K/V through kernel B2 and
+inserts it; batches that bypass the cache prefill whole prompts, padded (B2)
+or packed (B3). Retrieval is exact cosine top-k over an f32 or bf16 corpus
+(kernel B1) or an int8 corpus, one array or several chunks (kernel B4), or
+approximate IVF (`RETRIEVER=ivf`). Public method signatures are the JAX
+engine's, so one batch processor contract drives either.
 
 Settings this port does not implement yet make the constructor raise rather
 than serve another configuration (see `unsupported_settings`).
@@ -25,20 +28,33 @@ import numpy as np
 import torch
 
 from rag_serving_system_torch.config import Settings
+from rag_serving_system_torch.core.prefix_cache import (
+    PrefixEntry,
+    PrefixKVCache,
+    PromptSpec,
+    split_prefix_tokens,
+)
 from rag_serving_system_torch.device import resolve_device, torch_dtype
 from rag_serving_system_torch.models.configs import decoder_config_for, encoder_config_for
 from rag_serving_system_torch.models.e5 import encode
-from rag_serving_system_torch.models.qwen2 import generate, generate_packed
+from rag_serving_system_torch.models.qwen2 import (
+    compute_prefix_kv,
+    generate,
+    generate_packed,
+    quantize_prefix_kv,
+)
 from rag_serving_system_torch.models.tokenizer import HashTokenizer, pad_and_stack
 from rag_serving_system_torch.models.weights import (
     init_decoder_params,
     init_encoder_params,
 )
+from rag_serving_system_torch.ops.attention import HEAD_DIMS
 from rag_serving_system_torch.ops.ivf import build_ivf, ivf_search
 from rag_serving_system_torch.ops.topk import (
     cosine_topk,
     cosine_topk_int8,
     cosine_topk_int8_chunked,
+    pad_depth,
     quantize_corpus_int8_chunked,
 )
 from rag_serving_system_torch.utils.lru import LockedLRU
@@ -49,10 +65,29 @@ logger = logging.getLogger(__name__)
 # copies of rag_serving_system_tpu/core/engine.py:76-124 (that module imports
 # jax); a test holds them equal
 PROMPT_TEMPLATE = "Context:\n{context}\n\nQuestion: {question}\n\nThe Answer to this question is: "
+# the cacheable (question-independent) prompt prefix; split_prefix_tokens
+# handles tokenizer merges across its boundary with the question
+PREFIX_TEMPLATE = "Context:\n{context}\n\nQuestion:"
 DOC_JOIN = "\n---\n"
 QUERY_PREFIX = "query: "
 # packed prefill must undercut the padded token count by this factor
 PACKED_MARGIN = float(os.environ.get("PACKED_MARGIN", "0.85"))
+
+
+def _parse_len_buckets(spec: str) -> list[int]:
+    try:
+        out = sorted(int(x) for x in spec.split(",") if x.strip())
+    except ValueError:
+        logger.warning("unparseable SUFFIX_LEN_BUCKETS=%r; using default", spec)
+        return [32, 64]
+    out = [b for b in out if b > 0]
+    return out or [32, 64]
+
+
+# suffix (question and answer cue) length buckets of the prefix-cache route:
+# finer than the prompt buckets, because suffixes are short
+SUFFIX_LEN_BUCKETS = _parse_len_buckets(
+    os.environ.get("SUFFIX_LEN_BUCKETS", "32,64"))
 
 
 def pick_bucket(buckets: Sequence[int], n: int) -> int:
@@ -78,11 +113,16 @@ def _l2n(x: np.ndarray) -> np.ndarray:  # rag_serving_system_tpu/core/retriever.
     return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
 
 
-def unsupported_settings(settings: Settings) -> list[str]:
-    """The settings this port does not implement yet, each with its value."""
+def unsupported_settings(settings: Settings, device: torch.device) -> list[str]:
+    """The settings this port does not implement yet on `device`, each with
+    its value."""
     bad = []
-    if settings.prefix_cache:
-        bad.append("PREFIX_CACHE=1 (run the port with PREFIX_CACHE=0)")
+    head_dim = decoder_config_for(settings.model_preset).head_dim
+    if device.type == "cuda" and head_dim not in HEAD_DIMS:
+        # every prefill on a CUDA device goes through kernels B2 / B3
+        bad.append(f"MODEL_PRESET={settings.model_preset} on a CUDA device (its "
+                   f"decoder head size {head_dim} has no prefill attention "
+                   f"kernel: those are built for {HEAD_DIMS})")
     if settings.decode_mode != "fixed":
         bad.append(f"DECODE_MODE={settings.decode_mode}")
     if settings.quant_weights != "none":
@@ -103,29 +143,18 @@ def unsupported_settings(settings: Settings) -> list[str]:
     return bad
 
 
-class _BudgetPrompt(str):
-    """A prompt carrying its request's max_new_tokens (None = the engine's)."""
-
-    gen_budget: int | None
-
-    def __new__(cls, text: str, gen_budget: int | None):
-        s = super().__new__(cls, text)
-        s.gen_budget = gen_budget
-        return s
-
-
 class RagEngine:
     """Owns the models, tokenizers and the device-resident corpus."""
 
     def __init__(self, settings: Settings, documents: List[str],
                  doc_embeddings: np.ndarray, device: str | torch.device | None = None):
         emb = np.asarray(doc_embeddings, dtype=np.float32)
-        bad = unsupported_settings(settings)
+        self.device = resolve_device(device)
+        bad = unsupported_settings(settings, self.device)
         if bad:
             raise ValueError("rag_serving_system_torch does not implement: "
                              + "; ".join(bad))
         self.settings = settings
-        self.device = resolve_device(device)
         self.batch_buckets = _batch_buckets(settings)
         self.documents = list(documents)
         self.dtype = torch_dtype(settings.dtype)
@@ -155,6 +184,11 @@ class RagEngine:
         self.corpus_mean = None
         self.corpus_chunks = None
         self.ivf_index = None
+        # the exact kernels read rows in 16-byte pieces: their corpus gets its
+        # depth padded once here (zero columns change no score) and _topk
+        # pads the queries. IVF is plain tensor code and takes any depth.
+        if settings.retriever != "ivf":
+            emb = pad_depth(emb)
         if settings.retriever == "ivf":
             self._build_ivf(emb)
         elif settings.retrieval_corpus_dtype == "int8":
@@ -198,6 +232,7 @@ class RagEngine:
                         "T buckets %s", self.packed_p, mean_len,
                         self.packed_t_buckets)
 
+        self._prefix_tok_cache = LockedLRU(4096)
         self._prompt_tok_cache = LockedLRU(
             int(os.environ.get("PROMPT_TOKEN_CACHE", "4096")))
         # exact query-result cache: query text → top-max_k index list
@@ -206,6 +241,41 @@ class RagEngine:
         self._query_cache_lock = threading.Lock()
         self.query_cache_hits = 0
         self.query_cache_misses = 0
+
+        # exact prefix-KV cache: one pool tensor on the engine's device
+        self.prefix_cache = None
+        self.prefix_int8 = False
+        if settings.prefix_cache:
+            c = self.dec_cfg
+            want_len = settings.prefix_pool_len
+            if want_len is None:
+                want_len = self._auto_pool_len(documents)
+                logger.info("prefix pool auto-sized to %d tokens from "
+                            "corpus statistics", want_len)
+            # no point caching beyond the longest prompt ever prefilled
+            pool_len = min(want_len, max(settings.prompt_len_buckets))
+            self.prefix_int8 = settings.prefix_cache_dtype == "int8"
+            slots = c.num_layers * 2 * pool_len * c.num_kv_heads
+            if self.prefix_int8:  # int8 values and one f32 scale per head-dim row
+                entry_bytes = slots * (c.head_dim + 4)
+            else:
+                entry_bytes = slots * c.head_dim * self.dtype.itemsize
+            self.prefix_cache = PrefixKVCache(
+                pool_len=pool_len, entry_bytes=entry_bytes,
+                budget_mb=settings.prefix_cache_mb,
+                entry_shape=(c.num_layers, 2, pool_len, c.num_kv_heads, c.head_dim),
+                dtype=self.dtype, int8=self.prefix_int8,
+                # one batch may protect its hits and its own inserts from
+                # slot reuse: a victim must exist past that
+                min_slots=2 * self.batch_buckets[-1] + 1,
+                adaptive=settings.prefix_adaptive,
+                window=settings.prefix_adaptive_window,
+                low_hit_rate=settings.prefix_adaptive_low,
+                probe_every=settings.prefix_probe_every, device=self.device)
+            logger.info("prefix-KV cache on: pool_len=%d, %s storage, "
+                        "%.1f MB/entry, capacity %d entries",
+                        pool_len, "int8" if self.prefix_int8 else "compute",
+                        entry_bytes / 2**20, self.prefix_cache.capacity)
 
     # ------------------------------------------------------------------
     # stages 1+2: embed + retrieve
@@ -340,6 +410,7 @@ class RagEngine:
     def _topk(self, q_emb: torch.Tensor, k: int):
         if self.ivf_index is not None:
             return ivf_search(self.ivf_index, q_emb, k, nprobe=self.ivf_nprobe)
+        q_emb = pad_depth(q_emb)
         if self.corpus_chunks is not None:
             return cosine_topk_int8_chunked(self.corpus_chunks, q_emb, k,
                                             corpus_mean=self.corpus_mean)
@@ -366,6 +437,27 @@ class RagEngine:
                 out.extend(self._generate_answers(prompts[i:i + cap]))
             return out
         return self.finalize_tokens(self.generate_tokens(prompts))
+
+    def _auto_pool_len(self, documents: List[str]) -> int:
+        """Size the prefix pool from the corpus: tokenize sampled 2-document
+        context prefixes (k = 2 is the API default) and cover the longest,
+        rounded up to a multiple of 128 and clamped to [128, 768]. A pool
+        that covers the whole context leaves the question alone in the
+        suffix; the maximum and not a percentile, because retrieval
+        concentrates on a few hot contexts, of which a uniform sample of
+        documents says little, while an oversized pool costs only lazily
+        grown memory. Longer contexts still split: their overflow rides the
+        suffix."""
+        if not documents:
+            return 384
+        n = len(documents)
+        step = max(1, n // 64)
+        sample = [documents[i] for i in range(0, n, step)][:64]
+        longest = max(
+            len(self.dec_tok.encode(PREFIX_TEMPLATE.format(
+                context=f"{doc}{DOC_JOIN}{sample[(i + 1) % len(sample)]}")))
+            for i, doc in enumerate(sample))
+        return min(768, max(128, -(-longest // 128) * 128))
 
     def _auto_packed_p(self, documents: List[str]) -> tuple[int, int]:
         """Packed per-row cache bucket: the prompt bucket covering the longest
@@ -410,6 +502,15 @@ class RagEngine:
         return ("packed", self._put_batch(stream), self._put_batch(gather),
                 self._put_batch(last), n, self._put_batch(budgets))
 
+    def _prefix_tokens(self, key, prefix_text: str) -> list:
+        """Tokenize a context prefix, memoized by its cache key (rows that
+        share a context, and repeated batches, tokenize it once)."""
+        toks = self._prefix_tok_cache.get(key)
+        if toks is None:
+            toks = self.dec_tok.encode(prefix_text)
+            self._prefix_tok_cache.put(key, toks)
+        return toks
+
     def _prompt_tokens_batch(self, texts) -> list:
         """Batch tokenization fronted by a memo keyed by the prompt string
         (repeated queries repeat whole prompts); misses are deduplicated."""
@@ -425,10 +526,17 @@ class RagEngine:
         return out
 
     def stage_prompts(self, prompts: List[str]):
-        """Tokenize, pad and place a prompt batch on the device, as a packed
-        stream when that undercuts the padded token count by PACKED_MARGIN
-        (and no row is longer than packed_p), else as a left-padded batch.
-        Returns a tuple whose first item names the route."""
+        """Tokenize, pad and place a prompt batch on the device. Returns a
+        tuple whose first item names the layout.
+
+        With the prefix-KV cache on, each prompt is split at its cacheable
+        context boundary: only the SUFFIX (question and answer cue) is staged
+        as input ids, and each row's (cache key, prefix tokens) travels
+        beside it for `generate_tokens` to resolve against the cache.
+        Batches without a prefix (cache off, every row bypassed, or the
+        adaptive gate closed) are staged as a packed stream when that
+        undercuts the padded token count by PACKED_MARGIN (and no row is
+        longer than packed_p), else as a left-padded batch."""
         bsz = pick_bucket(self.batch_buckets, len(prompts))
         n = len(prompts)
         padded = list(prompts) + [""] * (bsz - n)
@@ -441,23 +549,55 @@ class RagEngine:
             return cap_mnt if b is None else min(cap_mnt, max(1, int(b)))
 
         bud_host = [_bud(p) if i < n else cap_mnt for i, p in enumerate(padded)]
-        plen = pick_bucket(self.settings.prompt_len_buckets,
-                           max(len(r) for r in rows[:n]))
-        if self.packed and max(len(r) for r in rows[:n]) <= self.packed_p:
-            total = sum(len(r) for r in rows[:n])
-            t = pick_bucket(self.packed_t_buckets, total)
-            if t <= PACKED_MARGIN * bsz * plen:
-                cap = self.batch_buckets[-1]
-                pb = np.full((cap,), cap_mnt, np.int32)
-                pb[:min(n, cap)] = bud_host[:min(n, cap)]
-                return self._stage_packed(rows, n, t, pb)
+        prompt_buckets = self.settings.prompt_len_buckets
+        metas = None
+        if (self.prefix_cache is not None
+                and any(getattr(p, "cache_key", None) is not None for p in prompts)
+                and self.prefix_cache.should_attempt()):
+            pool_len = self.prefix_cache.pool_len
+            max_cov = pool_len + prompt_buckets[-1]
+            metas, suffix_rows = [], []
+            for i in range(bsz):
+                full = rows[i]
+                key = getattr(padded[i], "cache_key", None) if i < n else None
+                m = 0
+                if key is not None and len(full) <= max_cov:
+                    pre = self._prefix_tokens(key, padded[i].prefix_text)
+                    m = split_prefix_tokens(full, pre, pool_len)
+                    if m < self.prefix_cache.min_tokens:
+                        m = 0
+                if m > 0:
+                    metas.append((key, tuple(full[:m])))
+                else:
+                    metas.append(None)
+                    if i < n:
+                        self.prefix_cache.note_bypass()
+                suffix_rows.append(full[m:])
+            if any(m is not None for m in metas):
+                rows = suffix_rows
+                plen = pick_bucket(SUFFIX_LEN_BUCKETS + prompt_buckets,
+                                   max((len(r) for r in rows[:n]), default=1))
+            else:
+                # every row bypassed (short contexts, over-long prompts): the
+                # plain route at a PROMPT bucket
+                metas = None
+        if metas is None:
+            plen = pick_bucket(prompt_buckets, max(len(r) for r in rows[:n]))
+            if self.packed and max(len(r) for r in rows[:n]) <= self.packed_p:
+                total = sum(len(r) for r in rows[:n])
+                t = pick_bucket(self.packed_t_buckets, total)
+                if t <= PACKED_MARGIN * bsz * plen:
+                    cap = self.batch_buckets[-1]
+                    pb = np.full((cap,), cap_mnt, np.int32)
+                    pb[:min(n, cap)] = bud_host[:min(n, cap)]
+                    return self._stage_packed(rows, n, t, pb)
         # over-long prompts keep their tail (the question and answer cue)
         ids, mask = pad_and_stack(rows, plen, self.dec_tok.pad_id,
                                   pad_side="left", truncate_side="left")
         mask[n:, -1] = 1  # keep pad rows well-defined
         row_valid = np.arange(bsz) < n  # pad rows are born done
         return ("padded", self._put_batch(ids), self._put_batch(mask),
-                self._put_batch(row_valid), n,
+                self._put_batch(row_valid), n, metas,
                 self._put_batch(np.asarray(bud_host, np.int32)))
 
     def generate_tokens(self, prompts: List[str] | None = None, staged=None):
@@ -477,10 +617,60 @@ class RagEngine:
                 (gather >= 0).to(torch.int32), row_valid=last >= 0,
                 row_budget=budgets, **common)
             return toks, n
-        _, ids, mask, row_valid, n, budgets = staged
+        _, ids, mask, row_valid, n, metas, budgets = staged
+        prefix_kv = prefix_len = None
+        if metas is not None:
+            with self.timer.stage("prefix_resolve"):
+                prefix_kv, prefix_len = self._resolve_prefixes(metas)
         toks = generate(self.dec_params, self.dec_cfg, ids, mask,
-                        row_valid=row_valid, row_budget=budgets, **common)
+                        row_valid=row_valid, row_budget=budgets,
+                        prefix_kv=prefix_kv, prefix_len=prefix_len, **common)
         return toks, n
+
+    def _resolve_prefixes(self, metas):
+        """Map each row's (key, prefix tokens) to a pool slot: cache hits are
+        reused; the batch's distinct misses are computed in ONE
+        `compute_prefix_kv` call (a context shared by several rows prefills
+        once) and written with one insert. The rows' prefix K/V is then one
+        gather of the pool; rows without a prefix read the zeros slot.
+        Returns the (B, L, 2, PL, Hk, D) prefix K/V (or an (int8 values,
+        scales) pair) and the (B,) valid lengths."""
+        cache = self.prefix_cache
+        entries: list = []
+        need: dict = {}
+        for meta in metas:
+            if meta is None:
+                entries.append(None)
+                continue
+            key, toks = meta
+            # the entry key includes the split length: rows sharing a
+            # document set can still split at different token boundaries
+            ekey = (key, len(toks))
+            e = cache.get(ekey, toks)
+            if e is None:
+                need.setdefault(ekey, toks)
+                entries.append(ekey)    # placeholder, filled below
+            else:
+                entries.append(e)
+        if need:
+            keys = list(need)
+            pids, pmask = pad_and_stack([list(need[k]) for k in keys],
+                                        cache.pool_len, self.dec_tok.pad_id,
+                                        pad_side="right")
+            kv = compute_prefix_kv(self.dec_params, self.dec_cfg,
+                                   self._put_batch(pids), self._put_batch(pmask),
+                                   dtype=self.dtype)
+            if self.prefix_int8:
+                kv = quantize_prefix_kv(kv)
+            hit_slots = {e.slot for e in entries if isinstance(e, PrefixEntry)}
+            fresh = cache.put_batch(keys, [need[k] for k in keys], kv,
+                                    protected=hit_slots)
+            entries = [e if isinstance(e, PrefixEntry) else fresh.get(e, e)
+                       for e in entries]
+        prefix_len = self._put_batch(np.asarray(
+            [len(e.tokens) if e is not None else 0 for e in entries], np.int32))
+        slots = [e.slot if e is not None else cache.zero_slot for e in entries]
+        return cache.gather(slots), prefix_len
 
     def finalize_tokens(self, handle) -> List[str]:
         """Copy the tokens to the host and detokenize, dropping stop/pad ids."""
@@ -504,9 +694,17 @@ class RagEngine:
             doc_idx = self.embed_and_retrieve(queries, ks)
             contexts = [DOC_JOIN.join(self.documents[i] for i in row)
                         for row in doc_idx]
-            return [PROMPT_TEMPLATE.format(context=c, question=q) if b is None
-                    else _BudgetPrompt(PROMPT_TEMPLATE.format(context=c, question=q), b)
-                    for q, c, b in zip(queries, contexts, budgets)]
+            if self.prefix_cache is None:
+                return [PROMPT_TEMPLATE.format(context=c, question=q) if b is None
+                        else PromptSpec(PROMPT_TEMPLATE.format(context=c, question=q),
+                                        gen_budget=b)
+                        for q, c, b in zip(queries, contexts, budgets)]
+            # a PromptSpec is a plain str to batching, and carries the
+            # cacheable context prefix and its identity key
+            return [PromptSpec(PROMPT_TEMPLATE.format(context=c, question=q),
+                               prefix_text=PREFIX_TEMPLATE.format(context=c),
+                               cache_key=("ctx", tuple(row)), gen_budget=b)
+                    for q, c, row, b in zip(queries, contexts, doc_idx, budgets)]
 
     def process(self, queries: List[str], ks: List[int],
                 budgets: List[int | None] | None = None) -> List[dict]:
@@ -521,9 +719,12 @@ class RagEngine:
 
     def warmup(self) -> None:
         """Build the kernels and run every stage once before serving; its
-        timings and cache counts are dropped."""
+        timings, the cache counts and the prefix entry it made are dropped
+        (the pool keeps the size it grew to)."""
         self.process(["warmup query"], [1])
         self.timer.reset()
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear(reset_counts=True)
         with self._query_cache_lock:
             self.query_cache_hits = 0
             self.query_cache_misses = 0

@@ -30,6 +30,7 @@ from rag_serving_system_torch.ops.ivf import build_ivf, ivf_search
 from rag_serving_system_torch.ops.topk import (
     cosine_topk,
     cosine_topk_int8_chunked,
+    pad_depth,
     quantize_corpus_int8_chunked,
 )
 
@@ -122,6 +123,10 @@ class TorchRetriever(_DeviceRetriever):
         self.n = corpus.shape[0]
         self._dim = corpus.shape[1] if corpus.ndim == 2 else 0
         self.max_k = max(1, min(max_k, self.n))
+        if corpus.ndim == 2:
+            # the kernels read rows in 16-byte pieces: zero columns, which
+            # change no score, fill the depth; topk_indices pads the queries
+            corpus = pad_depth(corpus)
         if corpus_dtype == "int8":
             chunk_rows = int(os.environ.get("TOPK_CHUNK_ROWS", str(4_194_304)))
             self.corpus_chunks, self.corpus_mean = quantize_corpus_int8_chunked(
@@ -131,6 +136,7 @@ class TorchRetriever(_DeviceRetriever):
             self.corpus = torch.as_tensor(corpus, device=self.device).to(dt)
 
     def topk_indices(self, query_embeddings: torch.Tensor, k: int):
+        query_embeddings = pad_depth(query_embeddings)
         if self.corpus_dtype == "int8":
             return cosine_topk_int8_chunked(self.corpus_chunks, query_embeddings, k,
                                             corpus_mean=self.corpus_mean)

@@ -1,6 +1,6 @@
 """Composition root of the PyTorch port:
 
-    PREFIX_CACHE=0 python -m rag_serving_system_torch.main
+    python -m rag_serving_system_torch.main
 
 Settings → corpus → engine (models and corpus on TORCH_DEVICE, default cuda)
 → queue backend (Redis iff REDIS_URL) → batch processor → the HTTP surface

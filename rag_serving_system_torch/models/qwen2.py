@@ -1,15 +1,18 @@
 """Qwen2-family causal decoder (Qwen2.5-1.5B-Instruct) on dicts of tensors.
 
 Counterpart of `rag_serving_system_tpu/models/qwen2.py:51-370, 625-880,
-1082-1151` without the prefix-KV, quantized and speculative paths. The
-parameter tree is the JAX one: dense weights (in, out), QKV fused into one
-matmul and gate+up into another, layer weights stacked on a leading L axis
-(the forwards loop over it), `lm_head` omitted when tied to `embed`.
+1082-1151` without the quantized and speculative paths. The parameter tree
+is the JAX one: dense weights (in, out), QKV fused into one matmul and
+gate+up into another, layer weights stacked on a leading L axis (the
+forwards loop over it), `lm_head` omitted when tied to `embed`.
 
-Every prefill attention goes through a kernel wrapper: padded prompts
-through B2 (`ops.attention.flash_attention`), packed streams through B3
+Every prefill whose queries and keys have one length goes through a kernel
+wrapper: padded prompts and the prefix-KV compute through B2
+(`ops.attention.flash_attention`), packed streams through B3
 (`flash_attention_packed`), whatever the prompt length or head size. The
-single-token decode attention is plain torch, as the JAX decode is einsum.
+suffix prefill over cached prefix K/V (queries shorter than keys) and the
+single-token decode attention are plain torch, as both are einsum in the
+JAX package.
 The decode loop runs on the host, one step per iteration, and stops as soon
 as every row is done.
 """
@@ -25,6 +28,7 @@ from rag_serving_system_torch.models.layers import (
     NEG_INF,
     apply_rope,
     attention,
+    causal_padding_bias,
     dense,
     rms_norm,
     rope_freqs,
@@ -96,28 +100,119 @@ def _new_cache(cfg, b, t_max, dtype, device) -> KVCache:
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _prefix_mask(prefix_len: torch.Tensor, pool_len: int) -> torch.Tensor:
+    """(B, PL) bool: prefix slot j of row b is valid iff j < prefix_len[b]."""
+    return torch.arange(pool_len, device=prefix_len.device)[None, :] < prefix_len[:, None]
+
+
 def prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
             attention_mask: torch.Tensor, max_new_tokens: int,
-            dtype=torch.bfloat16) -> tuple[torch.Tensor, KVCache]:
-    """Forward over a LEFT-padded (B, P) prompt batch through kernel B2.
-    Returns (last-position logits (B, V) f32, cache of P + max_new_tokens
-    slots)."""
+            dtype=torch.bfloat16, prefix_kv=None,
+            prefix_len: torch.Tensor | None = None) -> tuple[torch.Tensor, KVCache]:
+    """Forward over a LEFT-padded (B, P) prompt batch. Returns (last-position
+    logits (B, V) f32, cache of [PL +] P + max_new_tokens slots).
+
+    Without `prefix_kv` the attention is kernel B2.
+
+    With `prefix_kv` (B, L, 2, PL, Hk, D), each row's cached context K/V from
+    `compute_prefix_kv` (left-aligned, valid for its first `prefix_len[b]`
+    slots, RoPE positions 0..len-1), `input_ids` holds only the suffix: its
+    tokens continue at positions prefix_len[b].., attend to [valid prefix
+    slots | causal suffix], and the cache returned is the concatenation.
+    `prefix_kv` may be an (int8 values, f32 scales) pair from
+    `quantize_prefix_kv`, dequantized per layer as values * scales in
+    `dtype`. This attention is `layers.attention` with an additive bias, the
+    counterpart of the JAX package's einsum attention on this route: B2
+    needs as many queries as keys, and here P queries meet PL + P keys."""
     b, p = input_ids.shape
-    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=input_ids.device)
+    dev = input_ids.device
+    px_q, px_s = (prefix_kv if isinstance(prefix_kv, (tuple, list))
+                  else (prefix_kv, None))
+    pl = 0 if prefix_kv is None else px_q.shape[3]
+    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=dev)
     # left padding: positions count real tokens from the left edge of content
     positions = torch.clamp(torch.cumsum(attention_mask, dim=-1) - 1, min=0)
     x = embed_lookup(params, input_ids, dtype)
-    cache = _new_cache(cfg, b, p + max_new_tokens, dtype, input_ids.device)
+    cache = _new_cache(cfg, b, pl + p + max_new_tokens, dtype, dev)
+
+    if prefix_kv is None:
+        def attend(q, k, v):
+            return flash_attention(q, k, v, attention_mask, causal=True)
+    else:
+        positions = positions + prefix_len[:, None]
+        # (B, 1, P, PL + P): every prefix position precedes every suffix
+        # position, so the prefix block has no causal term
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        pref_bias = torch.where(_prefix_mask(prefix_len, pl), zero, NEG_INF)
+        bias = torch.cat([pref_bias[:, None, None, :].expand(b, 1, p, pl),
+                          causal_padding_bias(attention_mask)], dim=-1)
+
+    for i in range(cfg.num_layers):
+        if prefix_kv is not None:
+            pk, pv = px_q[:, i, 0], px_q[:, i, 1]
+            if px_s is not None:
+                pk = pk.to(dtype) * px_s[:, i, 0].to(dtype)
+                pv = pv.to(dtype) * px_s[:, i, 1].to(dtype)
+            cache.k[i, :, :pl] = pk
+            cache.v[i, :, :pl] = pv
+
+            def attend(q, k, v, i=i):
+                # the cache already holds the prefix: write the suffix beside
+                # it and attend over both without another copy
+                cache.k[i, :, pl:pl + p] = k
+                cache.v[i, :, pl:pl + p] = v
+                return attention(q, cache.k[i, :, :pl + p], cache.v[i, :, :pl + p], bias)
+
+        x, k, v = _layer_forward(_layer(params, i), cfg, x, positions, inv_freq,
+                                 b, p, attend)
+        if prefix_kv is None:
+            cache.k[i, :, :p] = k
+            cache.v[i, :, :p] = v
+    return logits_from_hidden(params, cfg, x[:, -1, :]), cache
+
+
+@torch.inference_mode()
+def compute_prefix_kv(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
+                      attention_mask: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Forward over a RIGHT-padded (M, PL) batch of context prefixes through
+    kernel B2 and return their post-RoPE K/V as (M, L, 2, PL, Hk, D) in
+    `dtype`: one prefix-cache entry a row, left-aligned.
+
+    RoPE positions run 0..n-1 as at the front of a full prompt, so an entry
+    is position-exact for any later prompt that starts with the same tokens.
+    Rows attend causally within themselves (trailing pad keys are invisible
+    to real queries), so a row's K/V does not depend on its batch. K/V at
+    pad slots is whatever the pad queries computed; `prefix_len` masks it."""
+    m, pl = input_ids.shape
+    dev = input_ids.device
+    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=dev)
+    positions = torch.clamp(torch.cumsum(attention_mask, dim=-1) - 1, min=0)
+    x = embed_lookup(params, input_ids, dtype)
+    out = torch.empty((m, cfg.num_layers, 2, pl, cfg.num_kv_heads, cfg.head_dim),
+                      dtype=dtype, device=dev)
 
     def attend(q, k, v):
         return flash_attention(q, k, v, attention_mask, causal=True)
 
     for i in range(cfg.num_layers):
         x, k, v = _layer_forward(_layer(params, i), cfg, x, positions, inv_freq,
-                                 b, p, attend)
-        cache.k[i, :, :p] = k
-        cache.v[i, :, :p] = v
-    return logits_from_hidden(params, cfg, x[:, -1, :]), cache
+                                 m, pl, attend)
+        out[:, i, 0] = k
+        out[:, i, 1] = v
+    return out
+
+
+def quantize_prefix_kv(kv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of prefix K/V along the head dim:
+    (..., Hk, D) → int8 values and per-(token, head) f32 scales (..., Hk, 1).
+    Not bit-exact reuse: PREFIX_CACHE_DTYPE=int8 opts into it. The scale is
+    amax times the f32 reciprocal of 127, which is what the JAX package's
+    compiled `amax / 127.0` computes (XLA turns a division by a constant into
+    that product), so values and scales equal its bit for bit."""
+    kf = kv.float()
+    scale = torch.clamp(kf.abs().amax(dim=-1, keepdim=True), min=1e-8) * (1.0 / 127.0)
+    q = torch.clamp(torch.round(kf / scale), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def decode_step(params: dict, cfg: DecoderConfig, cache: KVCache,
@@ -252,14 +347,30 @@ def generate(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
              top_p: float = 0.8, do_sample: bool = True, dtype=torch.bfloat16,
              row_valid: torch.Tensor | None = None,
              row_budget: torch.Tensor | None = None,
-             eos_bias: float = 0.0) -> torch.Tensor:
-    """Padded prefill (B2) + decode. Returns (B, max_new_tokens) int32 ids."""
+             eos_bias: float = 0.0, prefix_kv=None,
+             prefix_len: torch.Tensor | None = None) -> torch.Tensor:
+    """Padded prefill + decode. Returns (B, max_new_tokens) int32 ids.
+
+    With `prefix_kv` / `prefix_len` (see `prefill`), `input_ids` holds each
+    row's suffix only, and decode attends over the [prefix | suffix |
+    generated] cache."""
     logits0, cache = prefill(params, cfg, input_ids, attention_mask,
-                             max_new_tokens, dtype=dtype)
+                             max_new_tokens, dtype=dtype, prefix_kv=prefix_kv,
+                             prefix_len=prefix_len)
+    p = input_ids.shape[1]
+    if prefix_kv is not None:
+        # decode sees one combined prompt of PL + P slots: the prefix part
+        # left-aligned and valid for prefix_len, the suffix part left-padded
+        pl = (prefix_kv[0] if isinstance(prefix_kv, (tuple, list))
+              else prefix_kv).shape[3]
+        attention_mask = torch.cat(
+            [_prefix_mask(prefix_len, pl).to(attention_mask.dtype), attention_mask],
+            dim=1)
+        p = pl + p
     return _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
                         max_new_tokens, temperature, top_k, top_p, do_sample,
-                        dtype, row_valid, input_ids.shape[1],
-                        row_budget=row_budget, eos_bias=eos_bias)
+                        dtype, row_valid, p, row_budget=row_budget,
+                        eos_bias=eos_bias)
 
 
 def prefill_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,

@@ -1,5 +1,5 @@
 """Random-init parameters at full width, and the converters of JAX parameter
-trees and IVF indexes.
+trees, prefix-KV entries and IVF indexes.
 
 Counterpart of `rag_serving_system_tpu/models/weights.py:31-102`. The trees
 keep the JAX layout: dense weights (in, out), layer weights stacked on a
@@ -100,6 +100,15 @@ def params_from_jax(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return _tensor(tree, device)
+
+
+def prefix_kv_from_jax(kv, device="cpu"):
+    """A JAX prefix-KV batch (M, L, 2, PL, Hk, D) (numpy or jax leaves), or
+    its (int8 values, f32 scales) pair, as the port's tensors: what
+    `qwen2.prefill(prefix_kv=...)` takes."""
+    if isinstance(kv, (tuple, list)):
+        return tuple(_tensor(leaf, device) for leaf in kv)
+    return _tensor(kv, device)
 
 
 def ivf_index_from_jax(index, device="cpu"):

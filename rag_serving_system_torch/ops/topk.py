@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import logging
 import math
 from typing import NamedTuple
 
@@ -29,6 +30,8 @@ import numpy as np
 import torch
 
 from rag_serving_system_torch.ops import _build
+
+logger = logging.getLogger(__name__)
 
 # The largest k each corpus dtype keeps in the warp lists, which hold
 # LIST_MAX (one register of a warp's 32 lanes); beyond it the score kernel
@@ -48,6 +51,9 @@ INT8_MAX_D = 4096  # its (32, D) query block stays in shared memory
 SELECT_BINS = 4096    # level 0's bins in csrc/select.cu (the key's top 12 bits)
 SELECT_TILE = 8192    # scores a CTA of the select's full-row passes reads at once
 SELECT_CAND_CAP = 65_536  # candidates a row may stop its digit search at
+# the kernels read rows in 16-byte pieces; a multiple of 16 columns gives
+# that for every corpus dtype
+DEPTH_ALIGN = 16
 _PLAIN_ROWS = 262_144  # row block of the plain int8 scan (bounds its scratch)
 
 
@@ -55,6 +61,25 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     xf = x.float()
     n = torch.sqrt(torch.sum(xf * xf, dim=-1, keepdim=True))
     return (x / torch.clamp(n, min=eps)).to(x.dtype)
+
+
+def pad_depth(x):
+    """x (..., D), a tensor or a numpy array, with zero columns appended up
+    to the next multiple of DEPTH_ALIGN. Zero columns change no dot product
+    and no norm, so corpus and queries padded alike score as before. A
+    holder of a corpus pads it once at set-up and its queries per call."""
+    extra = -x.shape[-1] % DEPTH_ALIGN
+    if not extra:
+        return x
+    if isinstance(x, np.ndarray):
+        return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, extra)])
+    return torch.nn.functional.pad(x, (0, extra))
+
+
+@functools.cache
+def _warn_unpadded_corpus(name: str, d: int) -> None:
+    logger.warning("%s: a corpus of depth %d is copied with zero columns on every "
+                   "call; pad it once with pad_depth where it is set up", name, d)
 
 
 def _kernel_queries(corpus: torch.Tensor, queries: torch.Tensor,
@@ -100,11 +125,15 @@ def cosine_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
             or queries.shape[1] != corpus.shape[1]):
         raise ValueError(f"cosine_topk: corpus {tuple(corpus.shape)} vs "
                          f"queries {tuple(queries.shape)}")
+    if corpus.shape[1] % DEPTH_ALIGN:
+        # any depth is taken, as by the JAX wrapper; a holder pads at set-up
+        _warn_unpadded_corpus("cosine_topk", corpus.shape[1])
+        corpus, queries = pad_depth(corpus), pad_depth(queries)
     n, d = corpus.shape
     b = queries.shape[0]
-    if (d * corpus.element_size()) % 16 or not 1 <= k <= n or b < 1:
-        raise ValueError(f"cosine_topk: needs D * itemsize % 16 == 0 and 1 <= k <= N; "
-                         f"got D={d}, k={k}, N={n}, B={b}")
+    if not 1 <= k <= n or b < 1:
+        raise ValueError(f"cosine_topk: needs 1 <= k <= N and B >= 1; "
+                         f"got k={k}, N={n}, B={b}")
     if not corpus.is_contiguous() or corpus.data_ptr() % 16:
         raise ValueError("cosine_topk: the corpus must be contiguous and 16-byte aligned")
     q = _kernel_queries(corpus, queries, normalize_queries).contiguous()
@@ -422,9 +451,16 @@ def cosine_topk_int8(corpus_q, corpus_scales, queries, k: int,
     if queries.dim() != 2 or queries.shape[1] != d or queries.shape[0] < 1:
         raise ValueError(f"cosine_topk_int8: queries {tuple(queries.shape)} vs "
                          f"corpus {tuple(corpus_q.shape)}")
-    if d % 16 or not 16 <= d <= INT8_MAX_D or not 1 <= k <= n:
-        raise ValueError(f"cosine_topk_int8: needs D % 16 == 0, 16 <= D <= {INT8_MAX_D} "
-                         f"and 1 <= k <= N; got D={d}, k={k}, N={n}")
+    if not 1 <= d <= INT8_MAX_D or not 1 <= k <= n:
+        # the (32, D) query block must fit an SM's shared memory
+        raise ValueError(f"cosine_topk_int8: needs 1 <= D <= {INT8_MAX_D} and "
+                         f"1 <= k <= N; got D={d}, k={k}, N={n}")
+    if d % DEPTH_ALIGN:
+        _warn_unpadded_corpus("cosine_topk_int8", d)
+        corpus_q, queries = pad_depth(corpus_q), pad_depth(queries)
+        if corpus_mean is not None:
+            corpus_mean = pad_depth(corpus_mean.reshape(1, -1))
+        d = corpus_q.shape[1]
     if not corpus_q.is_contiguous() or corpus_q.data_ptr() % 16:
         raise ValueError("cosine_topk_int8: the corpus must be contiguous and "
                          "16-byte aligned")

@@ -75,6 +75,46 @@ def test_topk_kernel_ragged_depth(dev, d, dtype):
     assert not _swaps_beyond_near_ties(i, rs, ri).any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [50, 100, 20])
+def test_topk_kernel_pads_depths_of_no_whole_16_bytes(dev, d, dtype):
+    """D = 50 and 100 (and bf16 rows of 40 bytes), which the TPU wrapper
+    pads and takes: the wrapper appends zero columns to corpus and queries
+    and launches; scores and ids are the plain version's on the unpadded
+    tensors. A corpus padded beforehand (as the engine holds it) gives the
+    same."""
+    corpus = tt.l2_normalize(_randn(dev, (1500, d), d)).to(dtype)
+    q = _randn(dev, (3, d), d + 1)
+    before = tt.cosine_topk.launches
+    s, i = tt.cosine_topk(corpus, q, 16)
+    assert tt.cosine_topk.launches == before + 1
+    rs, ri = tt.cosine_topk_reference(corpus, q, 17)
+    torch.testing.assert_close(s, rs[:, :16], atol=1e-5, rtol=0)
+    assert not _swaps_beyond_near_ties(i, rs, ri).any()
+    s2, i2 = tt.cosine_topk(tt.pad_depth(corpus), tt.pad_depth(q), 16)
+    assert torch.equal(i2, i) and torch.equal(s2, s)
+
+
+@pytest.mark.parametrize("d,k", [(50, 16), (100, 16), (50, 40), (8, 4)])
+def test_topk_int8_kernel_pads_depths_off_16(dev, d, k):
+    """B4 at D = 50, 100 and 8: zero columns up to a multiple of 16 in the
+    wrapper; ids and scores bit-identical to the plain version on the
+    unpadded tensors."""
+    c, scales = _int8_corpus(dev, 1200, d, d)
+    q = _randn(dev, (5, d), d + 1)
+    mean = _randn(dev, (1, d), d + 2) * 0.1
+    before = tt.cosine_topk_int8.launches
+    s, i = tt.cosine_topk_int8(c, scales, q, k, corpus_mean=mean)
+    assert tt.cosine_topk_int8.launches == before + 1
+    rs, ri = tt.cosine_topk_int8_reference(c, scales, q, k, corpus_mean=mean)
+    assert torch.equal(i, ri)
+    # the mean term is an f32 product over D or padded-D terms: one order
+    torch.testing.assert_close(s, rs, atol=1e-6, rtol=0)
+    s0, i0 = tt.cosine_topk_int8(c, scales, q, k)
+    rs0, ri0 = tt.cosine_topk_int8_reference(c, scales, q, k)
+    assert torch.equal(i0, ri0) and torch.equal(s0, rs0)
+
+
 def _swaps_beyond_near_ties(i, rs, ri, tie=1e-6):
     """Ranks where the kernel's index differs from the plain one with no
     plain-score near-tie beside them. rs / ri hold k + 1 plain columns."""
@@ -147,8 +187,8 @@ def test_kernel_wrappers_check_inputs(dev):
         tt.cosine_topk(_randn(dev, (300, 64), 8), _randn(dev, (1, 64), 9), 0)
     with pytest.raises(ValueError):                # k > N
         tt.cosine_topk(_randn(dev, (100, 64), 8), _randn(dev, (1, 64), 9), 101)
-    with pytest.raises(ValueError):                # bf16 rows of 40 bytes
-        tt.cosine_topk(_randn(dev, (100, 20), 8, torch.bfloat16), _randn(dev, (1, 20), 9), 4)
+    with pytest.raises(ValueError):                # queries of another depth
+        tt.cosine_topk(_randn(dev, (100, 20), 8, torch.bfloat16), _randn(dev, (1, 24), 9), 4)
     assert np.isfinite(tt.cosine_topk(_randn(dev, (100, 64), 8),
                                       _randn(dev, (1, 64), 9), 4)[0].cpu().numpy()).all()
 
@@ -318,7 +358,7 @@ def test_int8_and_probe_wrappers_check_inputs(dev):
     for bad in (dict(corpus_q=c.float()),                    # not int8
                 dict(corpus_scales=scales[:, :100]),         # wrong length
                 dict(corpus_scales=scales.double()),         # not f32
-                dict(corpus_q=c[:, :40].contiguous(), queries=q[:, :40]),  # D % 16
+                dict(queries=q[:, :40]),                     # queries of another depth
                 dict(k=301), dict(k=0),
                 dict(corpus_q=c[::2], corpus_scales=scales[:, :150]),  # strided
                 dict(corpus_q=torch.zeros((300, 4112), dtype=torch.int8, device=dev),
@@ -525,3 +565,119 @@ def test_flash_packed_bf16_tensor_core_matches_plain(dev, t, d, lens):
     ref = ta.flash_attention_packed_plain(q, k, v, seg)
     n = sum(lens)
     assert (out[:, :n].float() - ref[:, :n].float()).abs().max().item() <= 2e-2
+
+
+def _right_padded_mask(dev, b, s, seed):
+    """Seeded right padding, every row with at least one real token (the
+    engine gives its pad rows mask[:, 0] = 1); of two rows or more, one is
+    full and one holds a single token."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, s + 1, size=b)
+    if b > 1:
+        lens[0], lens[-1] = s, 1
+    return torch.as_tensor((np.arange(s)[None, :] < lens[:, None]).astype(np.int32),
+                           device=dev)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-4)])
+@pytest.mark.parametrize("b,s", [(32, 512), (8, 768), (1, 128), (3, 200),
+                                 (10, 640), (1, 640)])
+def test_flash_kernel_matches_plain_under_right_padding(dev, dtype, tol, b, s):
+    """B2 as `compute_prefix_kv` calls it: RIGHT-padded rows of pool_len
+    tokens ((M, 640) is what the default engine gives it over the shipped
+    corpus, whose pool length sizes itself to 640). The first unmasked key is 0 and the wholly masked key tiles sit
+    at the end; a pad query (i >= n) still sees the keys j < n, so no row is
+    empty. Every position is held against the plain version, the pad
+    queries too, within the left-padded check's tolerances."""
+    q = _randn(dev, (b, s, 12, 128), 31, dtype)
+    k = _randn(dev, (b, s, 2, 128), 32, dtype)
+    v = _randn(dev, (b, s, 2, 128), 33, dtype)
+    mask = _right_padded_mask(dev, b, s, b + s)
+    before = ta.flash_attention.launches
+    out = ta.flash_attention(q, k, v, mask)
+    assert ta.flash_attention.launches == before + 1
+    ref = ta.flash_attention_plain(q, k, v, mask)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert out[:, 0].float().abs().sum().item() > 0      # query 0 sees key 0
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["compute", "int8"])
+def test_prefix_pool_gather_returns_inserted_bits_across_growth(dev, int8):
+    """The pool on the card at the served entry shape (28 layers, 2 kv heads
+    of 128, PL = 128): entries inserted before and after two growths
+    (2 -> 4 -> 8 slots) gather back bit for bit, the zeros row stays 0, and
+    rows beyond a batch's keys land in the scratch row."""
+    from rag_serving_system_torch.core.prefix_cache import PrefixKVCache
+
+    shape = (28, 2, 128, 2, 128)
+    dtype = torch.bfloat16
+    per = int(np.prod(shape)) * (1 if int8 else 2)
+    cache = PrefixKVCache(pool_len=128, entry_bytes=per, budget_mb=64, entry_shape=shape,
+                          dtype=dtype, int8=int8, initial_slots=2, device=dev)
+    assert cache._pool.is_cuda and cache.capacity >= 8
+
+    def payload(seed, m=1):
+        x = _randn(dev, (m,) + shape, seed, dtype)
+        if not int8:
+            return x
+        return ((x * 40).clamp(-127, 127).to(torch.int8),
+                _randn(dev, (m,) + shape[:-1] + (1,), seed + 1).abs())
+
+    kept = {}
+    for j in range(7):
+        rows = payload(50 + j, m=2)          # one key, one row for the scratch slot
+        e = cache.put_batch([("k", j)], [(j,)], rows)[("k", j)]
+        kept[j] = (e.slot, rows)
+    assert cache.grows == 2 and cache.n_slots == 8
+    got = cache.gather([kept[j][0] for j in range(7)] + [cache.zero_slot])
+    vals = got[0] if int8 else got
+    for j in range(7):
+        want = kept[j][1]
+        if int8:
+            assert torch.equal(vals[j], want[0][0]) and torch.equal(got[1][j], want[1][0]), j
+        else:
+            assert torch.equal(vals[j], want[0]), j
+    zero = got[0][-1] if int8 else got[-1]
+    assert not zero.any()
+    if int8:
+        assert (got[1][-1] == 1).all()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 6e-2)])
+def test_compute_prefix_kv_kernel_matches_plain(dev, dtype, tol):
+    """`compute_prefix_kv` at the decoder's full width (2 layers, random
+    weights from a seed) on right-padded prefixes of 384 slots: through B2
+    and with `flash_attention_plain` patched in, at real positions."""
+    import dataclasses
+
+    from rag_serving_system_torch.models import qwen2 as tq
+    from rag_serving_system_torch.models.configs import QWEN25_15B
+    from rag_serving_system_torch.models.weights import init_decoder_params
+
+    cfg = dataclasses.replace(QWEN25_15B, num_layers=2)
+    params = init_decoder_params(cfg, seed=3, dtype=dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    ids = torch.randint(0, cfg.vocab_size, (5, 384), generator=g, device=dev)
+    mask = _right_padded_mask(dev, 5, 384, 11)
+    before = ta.flash_attention.launches
+    kv = tq.compute_prefix_kv(params, cfg, ids, mask, dtype=dtype)
+    assert ta.flash_attention.launches == before + cfg.num_layers
+    with mock.patch.object(tq, "flash_attention", ta.flash_attention_plain):
+        ref = tq.compute_prefix_kv(params, cfg, ids, mask, dtype=dtype)
+    assert ta.flash_attention.launches == before + cfg.num_layers
+    assert kv.shape == (5, 2, 2, 384, cfg.num_kv_heads, cfg.head_dim) and kv.dtype == dtype
+    real = mask.bool()[:, None, None, :, None, None].expand_as(kv)
+    assert (kv.float() - ref.float())[real].abs().max().item() <= tol
+    assert torch.isfinite(kv.float()).all()
+
+
+def test_engine_refuses_the_tiny_preset_on_the_card(dev):
+    """MODEL_PRESET=tiny has head size 16, which B2/B3 do not take: the
+    engine raises at construction instead of failing every batch."""
+    from rag_serving_system_torch.config import Settings
+    from rag_serving_system_torch.core.engine import RagEngine
+
+    emb = np.random.default_rng(0).standard_normal((8, 64)).astype(np.float32)
+    with pytest.raises(ValueError, match="MODEL_PRESET"):
+        RagEngine(Settings(model_preset="tiny"), [f"d{i}" for i in range(8)], emb, device=dev)
+

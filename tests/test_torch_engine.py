@@ -4,7 +4,9 @@ the JAX engine, at the tiny presets in f32 with greedy decoding.
 Both engines share one set of weights (the JAX engine's, converted; decoder
 matrices scaled by 8 so greedy answers vary) and one seeded 64-dim corpus,
 and must retrieve the same ids and give the same answers on the padded
-route (a lone request) and the packed route (a full batch)."""
+route (a lone request) and the packed route (a full batch), and with the
+prefix-KV cache on: the miss route, the hit route and the bypass route, with
+the cache's counters equal to the JAX engine's after the same calls."""
 
 import json
 import os
@@ -35,6 +37,7 @@ from rag_serving_system_tpu.ops import topk as jax_topk  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUERIES = ["what is w1 w2", "tell me w5", "w7 w8 w9 w10", "another question w3"]
+DEFAULT = object()   # tiny_settings(prefix_cache=DEFAULT): the Settings default
 
 
 def tiny_settings(cls=None, **over):
@@ -52,6 +55,8 @@ def tiny_settings(cls=None, **over):
                 spec_gamma=0, mesh_shape="", weights_dir=None,
                 embed_model_name="e5", llm_model_name="qwen")
     base.update(over)
+    if base["prefix_cache"] is DEFAULT:
+        del base["prefix_cache"]
     return (cls or port_config.Settings)(**base)
 
 
@@ -163,10 +168,13 @@ def test_http_post_and_poll(corpus, tmp_path, monkeypatch):
     docs, emb = corpus
     (tmp_path / "docs.json").write_text(json.dumps(docs))
     np.save(tmp_path / "emb.npy", emb)
+    monkeypatch.delenv("PREFIX_CACHE", raising=False)
     s = tiny_settings(document_text_file=str(tmp_path / "docs.json"),
-                      document_embeddings_file=str(tmp_path / "emb.npy"))
+                      document_embeddings_file=str(tmp_path / "emb.npy"),
+                      prefix_cache=DEFAULT)
+    assert s.prefix_cache is True
     monkeypatch.setenv("TORCH_DEVICE", "cpu")
-    app, proc, _, _ = build_app(s)
+    app, proc, engine, _ = build_app(s)
     server = ServerThread(app).start()
     try:
         sub = _http("POST", server.url + "/rag", {"query": "what is w1", "k": 2})
@@ -180,6 +188,8 @@ def test_http_post_and_poll(corpus, tmp_path, monkeypatch):
         assert res["status"] == "complete" and isinstance(res["result"]["result"], str)
         stats = _http("GET", server.url + "/stats")
         assert stats["requests_processed"] >= 1
+        assert stats["prefix_cache"] == engine.prefix_cache.stats()
+        assert stats["prefix_cache"]["entries"] >= 1 and "prefix_resolve" in stats["stages"]
     finally:
         server.stop()
         proc.stop(drain_timeout=2.0)
@@ -240,7 +250,7 @@ def test_engine_bfloat16_corpus_follows_the_kernel(corpus):
 
 
 @pytest.mark.parametrize("over,var", [
-    (dict(prefix_cache=True), "PREFIX_CACHE"),
+    (dict(llm_model_name=ROOT), "LLM_MODEL_NAME"),     # a local model directory
     (dict(decode_mode="continuous"), "DECODE_MODE"),
     (dict(quant_weights="int8"), "QUANT_WEIGHTS"),
     (dict(quant_act="int8"), "QUANT_ACT"),
@@ -302,8 +312,13 @@ def test_default_device_is_cuda_and_raises_without_it(corpus):
 
 
 def test_copied_constants_equal_jax():
-    for name in ("PROMPT_TEMPLATE", "DOC_JOIN", "QUERY_PREFIX", "PACKED_MARGIN"):
+    for name in ("PROMPT_TEMPLATE", "PREFIX_TEMPLATE", "DOC_JOIN", "QUERY_PREFIX",
+                 "PACKED_MARGIN", "SUFFIX_LEN_BUCKETS"):
         assert getattr(port_engine, name) == getattr(jax_engine, name), name
+    assert port_engine.SUFFIX_LEN_BUCKETS == [32, 64]
+    for spec in ("64,24,32", "32", " 8 , 16,", "", "a,b", "0,-4", "0,48"):
+        assert port_engine._parse_len_buckets(spec) == jax_engine._parse_len_buckets(spec)
+    assert port_engine.pick_bucket(port_engine._parse_len_buckets("64,24,32"), 20) == 24
     for buckets, n in (([1, 2, 4, 8], 3), ([1, 2, 4, 8], 8), ([1, 2, 4, 8], 9)):
         assert port_engine.pick_bucket(buckets, n) == jax_engine.pick_bucket(buckets, n)
     for over in (dict(), dict(max_batch_size=48), dict(batch_buckets=[8, 2, 2])):
@@ -323,6 +338,7 @@ def test_port_never_imports_jax():
             "rag_serving_system_torch.models.weights",
             "rag_serving_system_torch.models.e5", "rag_serving_system_torch.models.qwen2",
             "rag_serving_system_torch.core.engine",
+            "rag_serving_system_torch.core.prefix_cache",
             "rag_serving_system_torch.core.batch_processor",
             "rag_serving_system_torch.core.retriever",
             "rag_serving_system_torch.core.request_queue",
@@ -335,3 +351,215 @@ def test_port_never_imports_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "False", "False"]
+
+
+# ---------------------------------------------------------------------------
+# the prefix-KV cache: hit, miss and bypass routes
+# ---------------------------------------------------------------------------
+
+def _prefix_engines(corpus, **over):
+    """A JAX and a port engine with the prefix cache on (48-token pool) and
+    a port engine with it off, all on the JAX engine's weights, the
+    decoder's matrices scaled by 8."""
+    docs, emb = corpus
+    over = dict(prefix_cache=True, prefix_pool_len=48, **over)
+    je = jax_engine.RagEngine(jax_settings(**over), docs, emb)
+    je.dec_params = _scaled(je.dec_params, 8.0)
+    on = port_engine.RagEngine(tiny_settings(**over), docs, emb, device="cpu")
+    off = port_engine.RagEngine(tiny_settings(**dict(over, prefix_cache=False)), docs, emb,
+                                device="cpu")
+    for te in (on, off):
+        te.enc_params = params_from_jax(jax.device_get(je.enc_params))
+        te.dec_params = params_from_jax(jax.device_get(je.dec_params))
+    return je, on, off
+
+
+COUNTERS = ("entries", "hits", "misses", "bypassed", "slots", "grows", "capacity",
+            "bytes", "pool_reserved_bytes", "hit_rate")
+
+
+def _counters(engine):
+    st = engine.prefix_cache.stats()
+    return {k: st[k] for k in COUNTERS}
+
+
+@pytest.mark.parametrize("n", [1, 4], ids=["lone", "full_batch"])
+def test_prefix_cache_answers_equal_cache_off_and_jax(corpus, n):
+    """The miss route, then the hit route: the same answers as with the
+    cache off and as the JAX engine's with the cache on (f32, greedy), and
+    the JAX engine's counters after the same calls."""
+    je, on, off = _prefix_engines(corpus)
+    assert on.prefix_cache.pool_len == je.prefix_cache.pool_len == 48
+    assert on.prefix_cache.entry_bytes == je.prefix_cache.entry_bytes
+    qs, ks = QUERIES[:n], [2] * n
+    staged = on.stage_prompts(on.prepare(qs, ks))
+    assert staged[0] == "padded" and staged[1].shape[1] == 32     # a suffix bucket
+    assert all(m is not None and 16 <= len(m[1]) <= 48 for m in staged[5][:n])
+    miss = on.process(qs, ks)
+    ref = je.process(qs, ks)
+    assert miss == ref == off.process(qs, ks)
+    assert all(r["result"] for r in miss)
+    assert _counters(on) == _counters(je)
+    before = on.prefix_cache.stats()
+    assert before["misses"] == n and before["hits"] == 0 and 1 <= before["entries"] <= n
+    assert on.process(qs, ks) == miss == je.process(qs, ks)
+    after = on.prefix_cache.stats()
+    assert after["hits"] == n and after["misses"] == n
+    assert after["entries"] == before["entries"]
+    assert _counters(on) == _counters(je)
+    assert "prefix_resolve" in on.timer.summary()
+
+
+def test_prefix_cache_request_budgets_match_jax(corpus):
+    je, on, _ = _prefix_engines(corpus)
+    qs, ks, budgets = QUERIES, [2] * 4, [1, 3, None, 6]
+    ours = on.process(qs, ks, budgets)
+    assert ours == je.process(qs, ks, budgets)
+    assert len(ours[0]["result"].split()) <= 1
+
+
+def test_prefix_cache_makes_one_entry_for_identical_queries(corpus):
+    je, on, _ = _prefix_engines(corpus)
+    qs = [QUERIES[0]] * 3 + [QUERIES[1]]
+    assert on.process(qs, [2] * 4) == je.process(qs, [2] * 4)
+    st = on.prefix_cache.stats()
+    assert st["entries"] == 2 and st["misses"] == 4 and st["hits"] == 0
+    assert _counters(on) == _counters(je)
+
+
+def test_prefix_cache_bypass_route_goes_packed_like_jax(corpus):
+    """Every row below min_tokens: each is counted as bypassed and the batch
+    takes the plain route at a prompt bucket, packed here, with the cold
+    answers."""
+    je, on, off = _prefix_engines(corpus)
+    for e in (je, on):
+        e.prefix_cache.min_tokens = 1000
+    qs, ks = QUERIES, [2] * 4
+    assert on.stage_prompts(on.prepare(qs, ks))[0] == "packed"
+    assert je.stage_prompts(je.prepare(qs, ks))[0] == "packed"
+    assert on.process(qs, ks) == off.process(qs, ks) == je.process(qs, ks)
+    assert on.prefix_cache.stats()["bypassed"] == 8 and len(on.prefix_cache) == 0
+    assert _counters(on) == _counters(je)
+
+
+def test_prefix_cache_adaptive_gate_closes_and_probes_like_jax(corpus):
+    """A 4-lookup window and a threshold no hit rate reaches
+    (PREFIX_ADAPTIVE_LOW=1.1): once the window has filled the gate closes,
+    most batches take the plain route, every third probes; counters and
+    answers follow the JAX engine's."""
+    je, on, _ = _prefix_engines(corpus, prefix_adaptive_window=4, prefix_probe_every=3,
+                                prefix_adaptive_low=1.1, query_cache_size=0)
+    for i in range(7):
+        qs = [f"w{20 * i + j} w{20 * i + j + 7} question" for j in range(2)]
+        assert on.process(qs, [2, 2]) == je.process(qs, [2, 2])
+        assert _counters(on) == _counters(je)
+    st = on.prefix_cache.stats()
+    assert st["bypass_mode"] is True and st["probes"] >= 1 and st["bypassed"] == 0
+    assert st["hits"] + st["misses"] < 14          # the closed gate skipped lookups
+    assert (st["bypass_mode"], st["probes"]) == (
+        je.prefix_cache.stats()["bypass_mode"], je.prefix_cache.stats()["probes"])
+
+
+def test_prefix_cache_int8_entries_are_smaller_and_hit_deterministically(corpus):
+    docs, emb = corpus
+    mk = lambda **over: port_engine.RagEngine(  # noqa: E731
+        tiny_settings(prefix_cache=True, prefix_pool_len=48, **over), docs, emb, device="cpu")
+    on, full = mk(prefix_cache_dtype="int8"), mk()
+    assert on.prefix_int8 and on.prefix_cache.int8 and not full.prefix_int8
+    assert on.prefix_cache.entry_bytes < full.prefix_cache.entry_bytes
+    assert on.prefix_cache._pool.dtype == torch.int8
+    je = jax_engine.RagEngine(jax_settings(prefix_cache=True, prefix_pool_len=48,
+                                           prefix_cache_dtype="int8"), docs, emb)
+    assert on.prefix_cache.entry_bytes == je.prefix_cache.entry_bytes
+    r1 = on.process(QUERIES[:2], [2, 2])
+    r2 = on.process(QUERIES[:2], [2, 2])    # the hit route
+    assert r1 == r2 and on.prefix_cache.stats()["hits"] == 2
+
+
+def test_prefix_cache_capacity_keeps_batch_headroom(corpus):
+    """A byte budget far below one batch of entries still leaves
+    2 * max_batch + 1 slots, as in the JAX engine."""
+    je, on, _ = _prefix_engines(corpus, prefix_cache_mb=0)
+    assert on.prefix_cache.capacity == je.prefix_cache.capacity == 2 * on.batch_buckets[-1] + 1
+    assert all("result" in r for r in on.process(QUERIES, [2] * 4))
+
+
+def test_warmup_leaves_no_prefix_entry_and_no_counts(corpus):
+    """The warm-up batch takes the miss route; its entry, its lookups and the
+    rolling window are dropped, so serving starts from an empty cache and
+    /stats counts served requests only."""
+    docs, emb = corpus
+    on = port_engine.RagEngine(tiny_settings(prefix_cache=True, prefix_pool_len=48), docs, emb,
+                               device="cpu")
+    on.warmup()
+    st = on.prefix_cache.stats()
+    assert (st["entries"], st["hits"], st["misses"], st["bypassed"]) == (0, 0, 0, 0)
+    assert st["rolling_hit_rate"] is None and st["bypass_mode"] is False
+    on.process(QUERIES[:2], [2, 2])
+    assert on.prefix_cache.stats()["misses"] >= len(on.prefix_cache) > 0
+
+
+@pytest.mark.parametrize("kind", ["short", "long", "empty"])
+def test_auto_pool_len_equals_jax(kind):
+    """PREFIX_POOL_LEN unset: the pool is sized from sampled 2-document
+    context prefixes, as the JAX engine sizes it; an explicit value wins and
+    the largest prompt bucket clamps both."""
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((20, 64)).astype(np.float32)
+    docs = {"short": [f"short doc {i}" for i in range(20)],
+            "long": [f"long doc {i} " + " ".join(f"w{i}_{j}" for j in range(150 + 9 * i))
+                     for i in range(20)],
+            "empty": []}[kind]
+    if kind == "empty":
+        emb = emb[:0]
+    over = dict(prefix_cache=True, prompt_len_buckets=[64, 1024], batch_buckets=[1, 2],
+                max_batch_size=2)
+    je = jax_engine.RagEngine(jax_settings(**over), docs, emb)
+    te = port_engine.RagEngine(tiny_settings(**over), docs, emb, device="cpu")
+    assert te.prefix_cache.pool_len == je.prefix_cache.pool_len
+    assert te._auto_pool_len(docs) == je._auto_pool_len(docs)
+    assert te.prefix_cache.pool_len == {"short": 128, "long": 768, "empty": 384}[kind]
+    pinned = port_engine.RagEngine(tiny_settings(**over, prefix_pool_len=256), docs, emb,
+                                   device="cpu")
+    assert pinned.prefix_cache.pool_len == 256
+    clamped = port_engine.RagEngine(
+        tiny_settings(**dict(over, prompt_len_buckets=[64, 128]), prefix_pool_len=256),
+        docs, emb, device="cpu")
+    assert clamped.prefix_cache.pool_len == 128
+
+
+def test_queue_and_processor_serve_repeats_from_the_prefix_cache(corpus):
+    docs, emb = corpus
+    s = tiny_settings(prefix_cache=True, prefix_pool_len=48)
+    engine = port_engine.RagEngine(s, docs, emb, device="cpu")
+    q = make_queue(s)
+    proc = BatchProcessor(q, engine, polling_interval=0.05)
+    proc.start()
+    try:
+        first = [q.get_result(i, timeout=120)
+                 for i in [q.add_request(text, 2) for text in QUERIES]]
+        again = [q.get_result(i, timeout=120)
+                 for i in [q.add_request(text, 2) for text in QUERIES]]
+    finally:
+        proc.stop(drain_timeout=5.0)
+        proc.join(timeout=10)
+    assert not proc.is_alive()
+    assert all(isinstance(r.get("result"), str) for r in first + again), first + again
+    st = engine.prefix_cache.stats()
+    assert st["hits"] >= 4 and st["misses"] == 4 and st["entries"] <= 4
+
+
+@pytest.mark.parametrize("preset,device,refused", [
+    ("tiny", "cuda", True), ("tiny", "cpu", False), ("full", "cuda", False),
+    ("llama", "cuda", False)])
+def test_head_size_without_a_kernel_is_refused_on_cuda(preset, device, refused):
+    """The tiny decoder's head size (16) has no B2/B3 instance: on a CUDA
+    device the engine must refuse it at construction, naming MODEL_PRESET;
+    on the CPU (the plain versions) every preset is served. Needs no card:
+    only the device's type is read."""
+    bad = port_engine.unsupported_settings(tiny_settings(model_preset=preset),
+                                           torch.device(device))
+    assert bool(bad) == refused
+    if refused:
+        assert len(bad) == 1 and "MODEL_PRESET=tiny" in bad[0] and "16" in bad[0]
+

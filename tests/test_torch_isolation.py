@@ -5,7 +5,8 @@ RESP client) agree with their originals.
 The isolation check runs in a subprocess whose `sys.meta_path` refuses
 `jax`, `jaxlib` and `rag_serving_system_tpu`: every module of the port and
 `chip_smoke` must import there, and one query must be served end to end on
-the CPU through `main.build_processor` at the tiny presets."""
+the CPU through `main.build_processor` at the tiny presets, with
+PREFIX_CACHE at its default (on)."""
 
 import dataclasses
 import os
@@ -56,7 +57,7 @@ from rag_serving_system_torch.main import build_processor
 rng = np.random.default_rng(0)
 docs = [" ".join(f"w{rng.integers(0, 50)}" for _ in range(12)) for _ in range(20)]
 emb = rng.standard_normal((20, 64)).astype(np.float32)
-s = Settings(model_preset="tiny", dtype="float32", prefix_cache=False,
+s = Settings(model_preset="tiny", dtype="float32",
              batch_buckets=[1, 2], max_batch_size=2, encode_len_buckets=[16, 32],
              prompt_len_buckets=[64, 128], max_new_tokens=3, max_k=4,
              max_wait_time=0.1, polling_interval=0.05, redis_url=None)
@@ -69,6 +70,7 @@ finally:
     processor.stop(drain_timeout=5.0)
     processor.join(timeout=10)
 assert isinstance(result, dict) and isinstance(result.get("result"), str), result
+assert s.prefix_cache and engine.prefix_cache.stats()["entries"] == 1
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("MODULES", len(names), "LEAKED", leaked)
 '''
@@ -76,12 +78,13 @@ print("MODULES", len(names), "LEAKED", leaked)
 
 def test_port_runs_with_the_jax_package_blocked():
     env = dict(os.environ, TORCH_DEVICE="cpu")
+    env.pop("PREFIX_CACHE", None)
     out = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     line = [x for x in out.stdout.splitlines() if x.startswith("MODULES")][-1]
     n_modules = int(line.split()[1])
-    assert n_modules >= 25, line          # every module of the package was imported
+    assert n_modules >= 26, line          # every module of the package was imported
     assert line.endswith("LEAKED []"), line
 
 
@@ -139,7 +142,10 @@ _ENV = {"PORT": "8123", "MAX_BATCH_SIZE": "16", "MAX_WAIT_TIME": "0.25",
         "RETRIEVAL_CORPUS_DTYPE": "int8", "TOPK_CHUNK_ROWS": "99", "RETRIEVER": "ivf",
         "IVF_CLUSTERS": "7", "IVF_NPROBE": "3", "IVF_RECALL_GATE": "0.5",
         "PREFIX_CACHE": "0", "QUERY_CACHE_SIZE": "5", "QUANT_WEIGHTS": "int8",
-        "QUANT_ACT": "int8", "HOST": "127.0.0.1"}
+        "QUANT_ACT": "int8", "HOST": "127.0.0.1", "PREFIX_POOL_LEN": "96",
+        "PREFIX_CACHE_MB": "64", "PREFIX_ADAPTIVE": "0", "PREFIX_ADAPTIVE_WINDOW": "32",
+        "PREFIX_ADAPTIVE_LOW": "0.5", "PREFIX_PROBE_EVERY": "4",
+        "PREFIX_CACHE_DTYPE": "int8"}
 
 
 @pytest.mark.parametrize("env", [{}, _ENV], ids=["defaults", "environment"])

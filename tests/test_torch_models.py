@@ -23,7 +23,10 @@ from rag_serving_system_tpu.models.weights import (  # noqa: E402
     init_decoder_params, init_encoder_params)
 from rag_serving_system_torch.models import e5 as te  # noqa: E402
 from rag_serving_system_torch.models import qwen2 as tq  # noqa: E402
-from rag_serving_system_torch.models.weights import params_from_jax  # noqa: E402
+from rag_serving_system_torch.models.weights import (  # noqa: E402
+    params_from_jax,
+    prefix_kv_from_jax,
+)
 
 F32 = dict(dtype=jnp.float32)
 T32 = dict(dtype=torch.float32)
@@ -112,6 +115,38 @@ def test_prefill_packed_logits_match_jax(dec):
     padded, _ = tq.prefill(tp, QWEN2_TINY, torch.tensor(ids), torch.tensor(mask), 4,
                            **T32)
     np.testing.assert_allclose(ours[:3].numpy(), padded.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["compute", "int8"])
+def test_prefill_over_a_cached_prefix_fills_the_jax_cache(dec, int8):
+    """Prefill of a suffix over a cached prefix (the JAX package's entry,
+    exact or as an (int8, scales) pair): the logits and the cache's valid
+    slots, [prefix < prefix_len | real suffix tokens], equal the JAX
+    cache's (atol 1e-4 / 1e-5), and the slots for generated tokens are 0."""
+    jp, tp = dec
+    pre_lens, pl, p = [13, 0, 16], 16, 12
+    rng = np.random.default_rng(7)
+    pids = rng.integers(3, QWEN2_TINY.vocab_size, (3, pl)).astype(np.int32)
+    pmask = (np.arange(pl)[None, :] < np.asarray(pre_lens)[:, None]).astype(np.int32)
+    pmask[1, 0] = 1                      # the empty row stays well-defined
+    jkv = jq.compute_prefix_kv(jp, QWEN2_TINY, jnp.asarray(pids), jnp.asarray(pmask), **F32)
+    if int8:
+        jkv = jq.quantize_prefix_kv(jkv)
+    ids, mask = _left_padded(8, 3, p, [5, 12, 9])
+    ref, rcache = jq.prefill(jp, QWEN2_TINY, jnp.asarray(ids), jnp.asarray(mask), 4, **F32,
+                             prefix_kv=jkv, prefix_len=jnp.asarray(pre_lens, jnp.int32))
+    ours, cache = tq.prefill(tp, QWEN2_TINY, torch.tensor(ids), torch.tensor(mask), 4, **T32,
+                             prefix_kv=prefix_kv_from_jax(jax.device_get(jkv)),
+                             prefix_len=torch.tensor(pre_lens, dtype=torch.int32))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+    assert cache.k.shape == np.asarray(rcache.k).shape == (
+        QWEN2_TINY.num_layers, 3, pl + p + 4, QWEN2_TINY.num_kv_heads, QWEN2_TINY.head_dim)
+    valid = np.concatenate([np.arange(pl)[None, :] < np.asarray(pre_lens)[:, None],
+                            mask > 0, np.zeros((3, 4), bool)], axis=1)
+    for ours_t, ref_t in ((cache.k, rcache.k), (cache.v, rcache.v)):
+        np.testing.assert_allclose(ours_t.numpy()[:, valid], np.asarray(ref_t)[:, valid],
+                                   atol=1e-5, rtol=0)
+        assert not ours_t[:, :, pl + p:].any()
 
 
 @pytest.mark.parametrize("budgets,valid", [

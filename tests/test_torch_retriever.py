@@ -119,3 +119,30 @@ def test_torch_retriever_refuses_k_beyond_the_kernels(dtype, monkeypatch):
     r = tr.TorchRetriever(emb[:40], docs[:40], max_k=257, corpus_dtype=dtype,
                           device="cpu")
     assert r.max_k == 40 and len(r.retrieve(q[0], 300)) == 40
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("d", [50, 100])
+def test_torch_retriever_pads_a_ragged_depth(d, dtype, monkeypatch):
+    """D = 50 and 100: the corpus is held with zero columns up to a multiple
+    of 16 (what the kernels read), queries of the true depth are padded a
+    call, a wrong depth is still refused, and the documents are those the
+    retriever over the unpadded corpus finds (the JAX retriever's for f32
+    and int8)."""
+    monkeypatch.setenv("TOPK_CHUNK_ROWS", "120")
+    emb, docs, q = _corpus(d, d=d)
+    ours = tr.TorchRetriever(emb, docs, corpus_dtype=dtype, device="cpu")
+    held = ours.corpus_chunks[0][0] if dtype == "int8" else ours.corpus
+    assert held.shape[1] == -(-d // 16) * 16 and not held[:, d:].any()
+    ks = [1, 3, 5, 16, 2, 4]
+    got = ours.batch_retrieve(q, ks)
+    if dtype == "bfloat16":
+        unit = emb / np.linalg.norm(emb, axis=1, keepdims=True)
+        _, want = jt.cosine_topk_pallas(jnp.asarray(unit).astype(jnp.bfloat16),
+                                        jnp.asarray(q), 16, block_n=128, interpret=True)
+        assert got == [[docs[i] for i in row[:k]] for row, k in zip(np.asarray(want), ks)]
+    else:
+        ref = jr.TpuRetriever(emb, docs, corpus_dtype=dtype, use_pallas=False)
+        assert got == ref.batch_retrieve(q, ks)
+    assert ours.batch_retrieve(np.ones((2, held.shape[1]), np.float32), [2, 2]) == [[], []]
+

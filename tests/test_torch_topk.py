@@ -215,3 +215,39 @@ def test_select_topk_plain_maps_positions_to_indices():
     b = tt.select_topk(s, 20, base=1000)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert int(b[1].min()) >= 1000
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [50, 100])
+def test_ragged_depths_match_pallas(d, dtype):
+    """D = 50 and 100, rows of no whole number of 16-byte pieces: the JAX
+    wrapper pads and takes them, and so does the port's, the ids of the
+    Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(d)
+    corpus = jnp.asarray(_unit(rng.standard_normal((400, d)))).astype(getattr(jnp, dtype))
+    queries = rng.standard_normal((4, d)).astype(np.float32)
+    tcorpus = torch.tensor(np.asarray(corpus.astype(jnp.float32))).to(getattr(torch, dtype))
+    ref = jt.cosine_topk_pallas(corpus, jnp.asarray(queries), 16, block_n=128, interpret=True)
+    _assert_same(tt.cosine_topk(tcorpus, torch.tensor(queries), 16), ref)
+    # what the wrapper does with such a depth on the card, and a holder of a
+    # corpus at set-up: zero columns up to a multiple of 16
+    padded = tt.cosine_topk(tt.pad_depth(tcorpus), tt.pad_depth(torch.tensor(queries)), 16)
+    _assert_same(padded, ref)
+
+
+def test_pad_depth_appends_zero_columns():
+    x = torch.arange(12, dtype=torch.float32).reshape(2, 6)
+    y = tt.pad_depth(x)
+    assert y.shape == (2, tt.DEPTH_ALIGN) and y.is_contiguous()
+    assert torch.equal(y[:, :6], x) and not y[:, 6:].any()
+    assert tt.pad_depth(y) is y                       # already whole: no copy
+    w = tt.pad_depth(x.numpy())                       # a corpus at set-up
+    assert isinstance(w, np.ndarray) and np.array_equal(w, y.numpy())
+    assert tt.pad_depth(w) is w
+    for dtype in (torch.bfloat16, torch.int8):
+        z = tt.pad_depth(x.to(dtype))
+        assert z.dtype == dtype and z.shape == (2, 16) and not z[:, 6:].any()
+        assert (z.shape[1] * z.element_size()) % 16 == 0
+    assert tt.pad_depth(torch.zeros((3, 50))).shape == (3, 64)
+    assert tt.pad_depth(torch.zeros((3, 100))).shape == (3, 112)
+

@@ -230,3 +230,30 @@ def test_chunked_beyond_the_warp_lists_equals_one_array(chunk_rows):
     rs, ri = tt.cosine_topk_int8_reference(whole[0][0], whole[0][1], q, 300,
                                            corpus_mean=mean)
     assert torch.equal(i, ri) and torch.equal(s, rs)
+
+
+@pytest.mark.parametrize("d", [50, 100])
+def test_ragged_depths_match_pallas_int8(d):
+    """D = 50 and 100 (no multiple of 16): the ids and scores of the JAX
+    wrapper, which pads and takes them; and a corpus padded with zero
+    columns before quantization, as the engine and the retrievers hold it,
+    quantizes to the same values and scales and retrieves the same ids."""
+    corpus, queries = _corpus(d, 400, d, 4)
+    (cv, cs), = _jax_chunks(jt.quantize_corpus_int8_chunked(corpus, chunk_rows=400)[0])
+    mean = corpus.mean(axis=0, keepdims=True)
+    ours = tt.cosine_topk_int8(torch.tensor(cv), torch.tensor(cs), torch.tensor(queries),
+                               16, corpus_mean=torch.tensor(mean), normalize_queries=False)
+    ref = jt.cosine_topk_pallas_int8(jnp.asarray(cv), jnp.asarray(cs), jnp.asarray(queries),
+                                     16, corpus_mean=jnp.asarray(mean), block_n=128,
+                                     interpret=True, normalize_queries=False)
+    _assert_same(ours, ref)
+    wide = np.pad(corpus, ((0, 0), (0, -d % tt.DEPTH_ALIGN)))
+    ((pv, ps),), pmean = tt.quantize_corpus_int8_chunked(wide, chunk_rows=400)
+    assert pv.shape == (400, -(-d // 16) * 16)
+    np.testing.assert_array_equal(pv[:, :d].numpy(), cv)
+    np.testing.assert_array_equal(ps.numpy(), cs)
+    assert not pv[:, d:].any() and not pmean[:, d:].any()
+    padded = tt.cosine_topk_int8(pv, ps, tt.pad_depth(torch.tensor(queries)), 16,
+                                 corpus_mean=pmean, normalize_queries=False)
+    _assert_same(padded, ref)
+
