@@ -14,7 +14,8 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 the same function (library_ms): B1 at 1M rows (f32 and bf16
                 corpus, k = 16, 64, 256, 1024) and 1000 rows, B2 and B3 in
                 bf16 and f32, B2 again under RIGHT padding at (32, 512) and
-                (8, 768) (the prefix-KV compute's shapes), B1 and B4 at
+                (8, 768) (the prefix-KV compute's shapes), B2 and B3 at the
+                narrow head sizes 16 and 32 (the tiny preset's), B1 and B4 at
                 depths 50 and 100 (padded by the wrappers), B4 at 1M rows
                 (k = 16, 64, 256, 1024) and chunked over 10M rows (10.24 GB of int8 on the card),
                 select_topk alone (normal, crowded and all-equal scores,
@@ -45,6 +46,14 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 cache switched off); a miss and the hit after it answer
                 identically; prefix route against cold route: first-token
                 logits within 1e-3, the tokens printed beside each other.
+                Then, with the decoder's matrices scaled by 4 so that answers
+                depend on the context: the decode pool (4 slots under batches
+                of 8: waves and slot reuse) answers exactly as the fixed path
+                over the prefix cache, padded and packed; `torch._int_mm`
+                gives the plain version's int32 sums exactly at the decoder's
+                four matmul shapes (timed beside the bf16 product and the
+                decode-shaped int8-weight product); int8 and W8A8 logits
+                against the unquantized ones.
 8. serve_int8 - RETRIEVAL_CORPUS_DTYPE=int8 over 1,048,576 rows in 4 chunks
                 of 262,144 (squad_real rows and seeded noisy copies): a lone
                 request, then 32 at once; the retrieved ids equal the plain
@@ -54,6 +63,20 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
 10. serve_wide_k - MAX_K=1000 over squad_real (k = N, past the warp lists'
                 256: the score kernel and select_topk): a lone request, then
                 7; the batch's retrieval against the plain version's.
+11. serve_quant - QUANT_WEIGHTS=int8, QUANT_ACT=int8, all else at its default
+                (the JAX package's production settings): a lone request, 64
+                at once, the same 64 again; the weight bytes before and after
+                quantizing; the stage split of 32 (miss and hit) beside the
+                bf16 one of phase 5.
+12. serve_continuous - DECODE_MODE=continuous: the same three steps through
+                the processor and the decode pool, the pool's stats; then
+                PREFIX_CACHE=0, 32 at once (the packed pool prefill, B3).
+13. serve_tiny - MODEL_PRESET=tiny on the card (head size 16, and the same
+                preset widened to head size 32), f32, greedy: through the
+                kernels exactly as through their plain versions, on the
+                prefix, padded and packed routes; the pool exactly as the
+                fixed path; int8 + W8A8 through `torch._int_mm` exactly as
+                through the plain int32 sums.
 
 `python3 chip_smoke.py --stage-split` runs phases 1, 2 and the stage splits
 alone (5 reps each: cold lone and batch of 32, then all miss and all hit),
@@ -62,10 +85,11 @@ runs phases 1, 2 and the kernels phase's crossover alone, on two seeded
 corpora.
 
 Each path phase (roofline, serve, serve_cold, serve_int8, serve_ivf,
-serve_wide_k) sets every launch count to 0 just before it and reads the
-counts just after; each kernel of the path must have launched, and every
-request must come back as {"result": str}. Then the nvidia-smi name and power limit, the
-kernels' summary line, and the last line {"ok": true, "device": {...}}.
+serve_wide_k, serve_quant, serve_continuous, serve_tiny) sets every launch
+count to 0 just before it and reads the counts just after; each kernel of
+the path must have launched, and every request must come back as
+{"result": str}. Then the nvidia-smi name and power limit, the kernels'
+summary line, and the last line {"ok": true, "device": {...}}.
 Needs a CUDA device; exits 1 without one, and when run outside a checkout
 of the repository.
 """
@@ -100,6 +124,18 @@ KERNELS = {
     # B1's selection beyond its warp lists (the TPU kernel's k rounds of max)
     "select_topk": ("rag_serving_system_torch/csrc/select.cu",
                     "rag_serving_system_tpu/ops/topk.py:93", "serve_wide_k"),
+    # B2 / B3 at the narrow head sizes: the scalar body, driven by the tiny
+    # preset (head size 16) and by the same preset widened to 32
+    "flash_attention[D=16]": ("rag_serving_system_torch/csrc/flash_attention.cu",
+                              "rag_serving_system_tpu/ops/attention.py:42", "serve_tiny"),
+    "flash_attention_packed[D=16]": ("rag_serving_system_torch/csrc/flash_attention.cu",
+                                     "rag_serving_system_tpu/ops/attention.py:100",
+                                     "serve_tiny"),
+    "flash_attention[D=32]": ("rag_serving_system_torch/csrc/flash_attention.cu",
+                              "rag_serving_system_tpu/ops/attention.py:42", "serve_tiny_d32"),
+    "flash_attention_packed[D=32]": ("rag_serving_system_torch/csrc/flash_attention.cu",
+                                     "rag_serving_system_tpu/ops/attention.py:100",
+                                     "serve_tiny_d32"),
 }
 # the card's published peaks (H100 SXM, dense, at 700 W): HBM bytes/s and
 # operations/s by type
@@ -151,10 +187,17 @@ def read_launches() -> dict:
     return {name: w.launches for name, w in wrappers().items()}
 
 
+def wrapper_of(name: str) -> str:
+    """The wrapper behind a KERNELS entry: `flash_attention[D=16]` is
+    `flash_attention` at head size 16."""
+    return name.split("[")[0]
+
+
 def require_launched(phase: str, launches: dict) -> None:
     for name, (_, _, path) in KERNELS.items():
         if path == phase:
-            require(launches[name] > 0, f"kernel {name} never launched in {phase}")
+            require(launches[wrapper_of(name)] > 0,
+                    f"kernel {name} never launched in {phase}")
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -356,7 +399,7 @@ def _attention_record(out, ref, real, tol, name) -> dict:
     return {"max_abs_err": err, "mean_abs_err": diff.mean().item(), "tol": tol}
 
 
-def _check_flash(dev, dtype, tol, seed, b=32, s=512, padding="left"):
+def _check_flash(dev, dtype, tol, seed, b=32, s=512, padding="left", heads=(12, 2, 128)):
     """B2 on a seeded (b, s) batch against its plain version. Left padding
     (prompts; the last row has every key masked and must come out 0) or
     right padding (`compute_prefix_kv`'s prefixes: every row has a real
@@ -368,7 +411,7 @@ def _check_flash(dev, dtype, tol, seed, b=32, s=512, padding="left"):
     import torch
     from rag_serving_system_torch.ops import attention as att
 
-    hq, hk, d = 12, 2, 128
+    hq, hk, d = heads
     q, k, v = _seeded_qkv(dev, (b, s, hq, d), (b, s, hk, d), dtype, seed)
     rng = np.random.default_rng(seed)
     if padding == "left":
@@ -453,13 +496,14 @@ def packed_lengths(seed: int, n_seg: int = 32, t: int = 8192) -> list:
             return lens.tolist()
 
 
-def _check_flash_packed(dev, dtype, tol, seed):
+def _check_flash_packed(dev, dtype, tol, seed, t=8192, heads=(12, 2, 128), n_seg=32,
+                        lens=None):
     import numpy as np
     import torch
     from rag_serving_system_torch.ops import attention as att
 
-    t, hq, hk, d = 8192, 12, 2, 128
-    lens = packed_lengths(seed)
+    hq, hk, d = heads
+    lens = lens or packed_lengths(seed, n_seg, t)
     n_real = sum(lens)
     seg_np = np.full(t, len(lens), np.int32)   # pad tail: id = number of rows
     seg_np[:n_real] = np.repeat(np.arange(len(lens)), lens)
@@ -676,6 +720,22 @@ def phase_kernels(dev) -> dict:
         for b, s in ((32, 512), (8, 768)):   # compute_prefix_kv's: (misses, pool_len)
             emit("kernel", name="flash_attention",
                  **_check_flash(dev, dtype, tol, seed=11, b=b, s=s, padding="right"))
+    # the narrow heads, at the shapes the tiny preset's serve gives them (4
+    # query and 2 key heads): B2 on a left-padded (4, 128) prompt batch and
+    # on right-padded (4, 48) prefixes, B3 on a (1, 256) stream of 4 rows;
+    # f32 (the summary's record: serve_tiny runs in f32) and bf16
+    for d in (16, 32):
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+            r = _check_flash(dev, dtype, tol, seed=14, b=4, s=128, heads=(4, 2, d))
+            emit("kernel", name=f"flash_attention[D={d}]", **r)
+            out.setdefault(f"flash_attention[D={d}]", r)
+            emit("kernel", name=f"flash_attention[D={d}]",
+                 **_check_flash(dev, dtype, tol, seed=15, b=4, s=48, padding="right",
+                                heads=(4, 2, d)))
+            r = _check_flash_packed(dev, dtype, tol, seed=16, t=256, heads=(4, 2, d),
+                                    lens=[61, 48, 57, 52])
+            emit("kernel", name=f"flash_attention_packed[D={d}]", **r)
+            out.setdefault(f"flash_attention_packed[D={d}]", r)
     torch.cuda.empty_cache()
     for r in _check_ragged_depths(dev, seed=12):
         emit("kernel", **r)
@@ -741,12 +801,70 @@ def _serve_env(**over) -> None:
             DOCUMENT_EMBEDDINGS_FILE=os.path.join(DATA, "squad_real_embeddings.npy"), **over)
 
 
-def phase_serve(queries: list) -> dict:
+def _three_steps(processor, request_queue, cache, queries: list) -> tuple:
+    """A lone request, 64 at once, the same 64 again, through the running
+    processor: (steps, summed launches, peaks). Each step carries its
+    seconds, its launch counts, the prefix cache's hits, misses and bypasses,
+    the device memory held before it and its own peak; `peaks` has the peak
+    up to the first step (construction) and over the steps. The peak
+    counter is reset before each step."""
+    import torch
+
+    steps, total = {}, {}
+    peaks = {"construction_gb": torch.cuda.max_memory_allocated() / 1e9}
+    for step, qs in (("a_lone_miss", queries[:1]), ("b_64_misses", queries[1:65]),
+                     ("c_64_hits", queries[1:65])):
+        before = cache.stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        _, seconds = _answered(request_queue, qs)
+        launches = read_launches()
+        after = cache.stats()
+        steps[step] = {"requests": len(qs), "seconds": seconds, "launches": launches,
+                       "held_before_gb": held_gb,
+                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       **{k: after[k] - before[k] for k in ("hits", "misses", "bypassed")},
+                       "entries": after["entries"]}
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    peaks["serving_gb"] = max(st["peak_memory_gb"] for st in steps.values())
+    return steps, total, peaks
+
+
+def _require_prefix_steps(steps: dict, layers: int, cache, phase: str) -> None:
+    """The three steps took the miss, miss and hit routes: B2 ran `layers`
+    times a miss batch and never for the hits, which skipped retrieval too."""
+    a, b, c = steps["a_lone_miss"], steps["b_64_misses"], steps["c_64_hits"]
+    require((a["misses"], a["hits"], a["entries"]) == (1, 0, 1)
+            and a["launches"]["flash_attention"] == layers,
+            f"{phase}: the lone request was not one miss computed in {layers} B2 "
+            f"launches: {a}")
+    require(b["hits"] + b["misses"] == 64 and b["bypassed"] == 0 and b["misses"] > 0
+            and b["launches"]["flash_attention"] > 0
+            and b["launches"]["flash_attention"] % layers == 0,
+            f"{phase}: the 64 requests did not take the miss route through B2: {b}")
+    require(b["entries"] <= cache.capacity and b["entries"] <= 1 + b["misses"],
+            f"{phase}: entries after the misses: {b}")
+    # the same 64: every row whose entry is cached hits (all, while the
+    # entries fit the pool), and B2 runs only for rows that missed
+    require(c["hits"] == 64 - c["misses"] and c["entries"] == b["entries"]
+            and (c["misses"] == 0) == (c["launches"]["flash_attention"] == 0)
+            and c["launches"]["flash_attention"] % layers == 0,
+            f"{phase}: the repeated 64 requests did not hit: {c}")
+    require(c["misses"] == 0, f"{phase}: {c['misses']} repeated requests missed although "
+            f"{b['entries']} entries fit {cache.capacity} slots")
+    require(c["launches"]["cosine_topk"] == 0,
+            f"{phase}: the repeated requests retrieved again although the query cache is on")
+
+
+def phase_serve(queries: list) -> tuple:
     """The full-width engine at its default settings (the prefix-KV cache
     on) behind the queue and the batch processor: a lone request, 64 at
     once, the same 64 again. Returns each kernel's launch count over the
-    three steps. B2 is then held against its plain version at the very
-    (misses, pool_len) shapes `compute_prefix_kv` gave it here."""
+    three steps, and the stage-split rows. B2 is then held against its plain
+    version at the very (misses, pool_len) shapes `compute_prefix_kv` gave
+    it here."""
     from unittest import mock
 
     import torch
@@ -764,7 +882,7 @@ def phase_serve(queries: list) -> dict:
     cache = engine.prefix_cache
     require(settings.prefix_cache and cache is not None, "the prefix cache is not on")
     layers = engine.dec_cfg.num_layers
-    steps, total, miss_shapes = {}, {}, []
+    miss_shapes = []
 
     def shape_recorded(fn):
         def call(params, cfg, input_ids, *a, **kw):
@@ -777,49 +895,19 @@ def phase_serve(queries: list) -> dict:
     recorder.start()
     processor.start()
     try:
-        for step, qs in (("a_lone_miss", queries[:1]), ("b_64_misses", queries[1:65]),
-                         ("c_64_hits", queries[1:65])):
-            before = cache.stats()
-            reset_launches()
-            _, seconds = _answered(request_queue, qs)
-            launches = read_launches()
-            after = cache.stats()
-            steps[step] = {"requests": len(qs), "seconds": seconds, "launches": launches,
-                           **{k: after[k] - before[k] for k in ("hits", "misses", "bypassed")},
-                           "entries": after["entries"]}
-            for name, n in launches.items():
-                total[name] = total.get(name, 0) + n
+        steps, total, peaks = _three_steps(processor, request_queue, cache, queries)
     finally:
         processor.stop(drain_timeout=10.0)
         processor.join(timeout=30)
         recorder.stop()
-    a, b, c = steps["a_lone_miss"], steps["b_64_misses"], steps["c_64_hits"]
     emit("serve", init_s=t_init, prefix_cache=True, pool_len=cache.pool_len,
          entry_mb=cache.entry_bytes / 2 ** 20, steps=steps, launches=total,
          batches=processor.batches_processed, stages=engine.timer.summary(),
          compute_prefix_kv_shapes=miss_shapes,
          prefix_stats=cache.stats(), query_cache=engine.query_cache_stats(),
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+         peak_memory_gb=max(peaks.values()), peaks=peaks)
     require_launched("serve", total)
-    require((a["misses"], a["hits"], a["entries"]) == (1, 0, 1)
-            and a["launches"]["flash_attention"] == layers,
-            f"the lone request was not one miss computed in {layers} B2 launches: {a}")
-    require(b["hits"] + b["misses"] == 64 and b["bypassed"] == 0 and b["misses"] > 0
-            and b["launches"]["flash_attention"] > 0
-            and b["launches"]["flash_attention"] % layers == 0,
-            f"the 64 requests did not take the miss route through B2: {b}")
-    require(b["entries"] <= cache.capacity and b["entries"] <= 1 + b["misses"],
-            f"entries after the misses: {b}")
-    # the same 64: every row whose entry is cached hits (all, while the
-    # entries fit the pool), and B2 runs only for rows that missed
-    require(c["hits"] == 64 - c["misses"] and c["entries"] == b["entries"]
-            and (c["misses"] == 0) == (c["launches"]["flash_attention"] == 0)
-            and c["launches"]["flash_attention"] % layers == 0,
-            f"the repeated 64 requests did not hit: {c}")
-    require(c["misses"] == 0, f"{c['misses']} repeated requests missed although "
-            f"{b['entries']} entries fit {cache.capacity} slots")
-    require(c["launches"]["cosine_topk"] == 0,
-            "the repeated requests retrieved again although the query cache is on")
+    _require_prefix_steps(steps, layers, cache, "serve")
     # B2 at the shapes this run's misses gave it (the fewest and the most
     # distinct misses of a batch, at the pool length the corpus set), in the
     # served bf16 and in f32
@@ -830,16 +918,19 @@ def phase_serve(queries: list) -> dict:
             emit("kernel", name="flash_attention", served_shape=True,
                  **_check_flash(engine.device, dtype, tol, seed=13, b=m, s=cache.pool_len,
                                 padding="right"))
+    splits = {}
     for label, before_rep in (("miss", cache.clear), ("hit", None)):
-        emit("stage_split", **_stage_split(engine, queries[1:33], label=label,
-                                           before_rep=before_rep))
+        splits[label] = _stage_split(engine, queries[1:33], label=label,
+                                     before_rep=before_rep)
+        emit("stage_split", **splits[label])
     stats = cache.stats()
-    emit("serve_memory", peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+    emit("serve_memory",
+         peak_memory_gb=max(*peaks.values(), torch.cuda.max_memory_allocated() / 1e9),
          pool_rows=stats["pool_reserved_bytes"] // cache.entry_bytes,
          pool_gb=stats["pool_reserved_bytes"] / 1e9, prefix_stats=stats)
     del processor, engine, cache
     torch.cuda.empty_cache()
-    return total
+    return total, splits
 
 
 def phase_serve_cold(queries: list) -> dict:
@@ -1019,10 +1110,14 @@ def phase_parity(queries: list) -> None:
     from rag_serving_system_torch.models import qwen2
     from rag_serving_system_torch.ops import attention, topk
 
-    _serve_env(COMPUTE_DTYPE="float32", DO_SAMPLE="0", QUERY_CACHE_SIZE="0")
+    # the pool is built here and used by the last part only: `process` and
+    # `generate_tokens` take the fixed path whatever DECODE_MODE says
+    _serve_env(COMPUTE_DTYPE="float32", DO_SAMPLE="0", QUERY_CACHE_SIZE="0",
+               DECODE_MODE="continuous", DECODE_SLOTS="4")
     _, engine, _, _ = build_processor()
     cache = engine.prefix_cache
     require(cache is not None, "the parity engine runs without the prefix cache")
+    require(not torch.backends.cuda.matmul.allow_tf32, "the parity phase needs TF32 off")
     cases = {"lone": queries[65:66], "batch_of_8": queries[66:74]}
 
     def plain_kernels():
@@ -1085,8 +1180,132 @@ def phase_parity(queries: list) -> None:
         require(all(per_case.values()), f"parity {what}: {per_case}")
     require(all(e <= 1e-3 for e in logit_err.values()),
             f"prefix route against cold route: first-token logits differ by {logit_err}")
+    _parity_quant_logits(engine, cases["lone"])
+    _parity_int_mm(engine.device)
+    _parity_pool(engine, cases)
+    engine.decode_pool.stop()
     del engine, cache
+    _release()
+
+
+def _parity_quant_logits(engine, lone: list) -> None:
+    """QUANT_WEIGHTS=int8 first-token logits of one cold prompt against the
+    unquantized f32 ones, by the bound of the JAX package's quantization
+    tests: correlation above 0.99. W8A8 against weight-only int8: cosine
+    above 0.99 (those tests hold 0.999 at 2 layers; at the full 28 layers,
+    112 products each with its own per-token rounding, 0.9967 was measured
+    on an H100). The int8 tree is made from the f32 weights and dropped."""
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch.models import qwen2
+    from rag_serving_system_torch.ops.quant import quantize_decoder_params
+
+    with mock.patch.object(engine, "prefix_cache", None):
+        staged = engine.stage_prompts(engine.prepare(lone, [2]))
+    require(staged[0] == "padded", f"parity: the lone prompt staged {staged[0]}")
+    ids, mask = staged[1], staged[2]
+    with torch.inference_mode():
+        base = qwen2.prefill(engine.dec_params, engine.dec_cfg, ids, mask, 0,
+                             dtype=torch.float32)[0][0]
+        q8 = quantize_decoder_params(engine.dec_params)
+        l8 = qwen2.prefill(q8, engine.dec_cfg, ids, mask, 0, dtype=torch.float32)[0][0]
+        la = qwen2.prefill(q8, engine.dec_cfg, ids, mask, 0, dtype=torch.float32,
+                           act_quant=True)[0][0]
+    corr = torch.corrcoef(torch.stack([base, l8]))[0, 1].item()
+    cos = (torch.dot(l8, la) / (l8.norm() * la.norm())).item()
+    emit("parity_quant", prompt_slots=int(ids.shape[1]), int8_vs_f32_logit_correlation=corr,
+         w8a8_vs_int8_logit_cosine=cos, argmax_equal=[bool(base.argmax() == l8.argmax()),
+                                                      bool(l8.argmax() == la.argmax())])
+    require(corr > 0.99, f"parity: int8 logits correlate {corr} <= 0.99 with the f32 ones")
+    require(cos > 0.99, f"parity: W8A8 logits at cosine {cos} <= 0.99 of int8's")
+    del q8
     torch.cuda.empty_cache()
+
+
+def _parity_int_mm(dev) -> None:
+    """`layers.int_matmul` (`torch._int_mm`) against `int_matmul_plain` at
+    the decoder's four matmul shapes with 8192 token rows (a packed batch)
+    and 32 x 17 (a small one, past the 16-row limit): the int32 sums
+    identical. Beside it the CUDA-event time of the int8 product (the
+    wrapper, which transposes the stored weight a call; `torch._int_mm` alone
+    on the row-major and on a column-major weight), of the whole W8A8 `dense`,
+    of the bf16 product of the same shape, and at 32 rows (a decode step's) of
+    `dense` on the int8 weight against `dense` on the bf16 weight: the
+    quantized decode product converts the whole weight at each call."""
+    import torch
+    from rag_serving_system_torch.models import layers
+    from rag_serving_system_torch.ops.quant import quantize_int8
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    for name, k, n in (("qkv_w", 1536, 2048), ("o_w", 1536, 1536), ("gu_w", 1536, 17920),
+                       ("down_w", 8960, 1536)):
+        wq = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        for m in (17, 8192):
+            xq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+            xq[0], wq[:, 0] = 127, -127
+            got = layers.int_matmul(xq, wq)
+            torch.cuda.synchronize()
+            require(got.dtype == torch.int32 and torch.equal(got, layers.int_matmul_plain(xq, wq)),
+                    f"parity: torch._int_mm differs from the plain sums at {(m, k, n)}")
+            require(got[0, 0].item() == -127 * 127 * k, "parity: the extreme int32 sum is wrong")
+        wq_t = wq.t().contiguous().t()      # the same values, column-major
+        w = (torch.randn((k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+        qw = quantize_int8(w)
+        x = torch.randn((8192, k), generator=g, device=dev).to(torch.bfloat16)
+        x32 = x[:32].contiguous()
+        emit("quant_product", weight=name, shape=[k, n], int32_sums_identical=True,
+             prefill_rows=8192,
+             int_mm_ms=cuda_ms(lambda: layers.int_matmul(xq, wq), 10),
+             int_mm_row_major_weight_ms=cuda_ms(lambda: torch._int_mm(xq, wq), 10),
+             int_mm_column_major_weight_ms=cuda_ms(lambda: torch._int_mm(xq, wq_t), 10),
+             w8a8_dense_ms=cuda_ms(lambda: layers.dense_w8a8(x, qw), 10),
+             bf16_matmul_ms=cuda_ms(lambda: layers.dense(x, w), 10),
+             decode_rows=32,
+             decode_int8_weight_dense_ms=cuda_ms(lambda: layers.dense(x32, qw), 20),
+             decode_bf16_weight_dense_ms=cuda_ms(lambda: layers.dense(x32, w), 20),
+             weight_bytes_bf16=w.numel() * 2, weight_bytes_int8=qw.q.numel() + qw.scale.numel() * 4)
+        del w, qw, x, wq, xq, wq_t
+    torch.cuda.empty_cache()
+
+
+def _parity_pool(engine, cases: dict) -> None:
+    """The decode pool against the fixed path on the f32 greedy engine, the
+    decoder's matrices scaled by 4: a batch of 8 over 4 slots (two waves,
+    every slot reused) on the prefix route (the miss, then the hit) and cold
+    packed, and the lone request cold padded: the same answers, token for
+    token."""
+    from unittest import mock
+
+    _scale_decoder(engine, 4.0)
+    cache, pool = engine.prefix_cache, engine.decode_pool
+    batch, lone = cases["batch_of_8"], cases["lone"]
+    require(pool.slots == 4 < len(batch), f"parity: the pool has {pool.slots} slots")
+    want, got, layouts = {}, {}, {}
+    cache.clear()
+    for name in ("prefix_miss", "prefix_hit"):
+        want[name] = [r["result"] for r in engine.process(batch, [2] * len(batch))]
+    cache.clear()
+    for name in ("prefix_miss", "prefix_hit"):
+        got[name] = _pool_answers(engine, batch)
+    with mock.patch.object(engine, "prefix_cache", None):
+        for name, qs in (("cold_packed", batch), ("cold_padded", lone)):
+            staged = engine.stage_prompts(engine.prepare(qs, [2] * len(qs)))
+            layouts[name] = staged[0]
+            want[name] = [r["result"] for r in engine.process(qs, [2] * len(qs))]
+            got[name] = _pool_answers(engine, qs, staged=staged)
+    equal = {name: got[name] == want[name] for name in want}
+    stats = pool.stats()
+    emit("parity_pool", dtype="float32", decoder_scale=4.0, slots=pool.slots, window=pool.window,
+         layouts=layouts, pool_equals_fixed=equal, pool=stats,
+         distinct_answers=len(set(want["cold_packed"])), answer_fixed=want["cold_packed"][0],
+         answer_pool=got["cold_packed"][0])
+    require(layouts == {"cold_packed": "packed", "cold_padded": "padded"},
+            f"parity: the pool's cold cases staged {layouts}")
+    require(all(equal.values()), f"parity: pool answers differ from the fixed path's: {equal}; "
+            f"{got} / {want}")
+    require(stats["inserted"] == stats["completed"] == 3 * len(batch) + 1,
+            f"parity: the pool's counts: {stats}")
 
 
 def noisy_copies(n: int, seed: int):
@@ -1236,6 +1455,320 @@ def phase_serve_wide_k(queries: list) -> dict:
     return launches
 
 
+SPLIT_KEYS = ("prepare_ms", "prefix_resolve_ms", "prefill_ms", "decode_ms", "process_ms")
+
+
+def _release() -> None:
+    """Free what a finished phase held on the card. An engine with a decode
+    pool is a reference cycle (the pool keeps its engine), so `del` alone
+    leaves its tensors to the next collection."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_quant(queries: list, bf16_splits: dict) -> dict:
+    """QUANT_WEIGHTS=int8 and QUANT_ACT=int8 with every other setting at its
+    default, at full width behind the queue and the batch processor: a lone
+    request, 64 at once, the same 64 again. Then the stage split of a batch
+    of 32 (all miss, all hit) beside the bf16 engine's of the serve phase,
+    the decoder's weight bytes before and after quantizing, and the peak
+    device memory. Returns the launch counts of the three steps."""
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch.main import build_processor
+    from rag_serving_system_torch.models import layers
+    from rag_serving_system_torch.ops.quant import QuantizedWeight
+
+    _serve_env(QUANT_WEIGHTS="int8", QUANT_ACT="int8")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    processor, engine, request_queue, settings = build_processor()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    cache = engine.prefix_cache
+    p = engine.dec_params
+    require(engine.act_quant and cache is not None
+            and all(isinstance(p["layers"][k], QuantizedWeight)
+                    for k in ("qkv_w", "o_w", "gu_w", "down_w"))
+            and isinstance(p["embed"], QuantizedWeight) and p["embed"].q.dtype == torch.int8,
+            "serve_quant: the decoder is not int8 with W8A8 prefill over the prefix cache")
+    int_mm_rows = []
+    real_int_matmul = layers.int_matmul
+
+    def counted(xq, wq):
+        int_mm_rows.append(xq.shape[0])
+        return real_int_matmul(xq, wq)
+
+    processor.start()
+    try:
+        with mock.patch.object(layers, "int_matmul", counted):
+            steps, total, peaks = _three_steps(processor, request_queue, cache, queries)
+    finally:
+        processor.stop(drain_timeout=10.0)
+        processor.join(timeout=30)
+    emit("serve_quant", init_s=t_init, quant_weights=settings.quant_weights,
+         quant_act=settings.quant_act, prefix_cache=True, pool_len=cache.pool_len,
+         decoder_weight_bytes_before=engine.weight_bytes_init,
+         decoder_weight_bytes_after=engine.weight_bytes,
+         steps=steps, launches=total, peaks=peaks, int_mm_calls=len(int_mm_rows),
+         int_mm_rows_min_max=[min(int_mm_rows, default=0), max(int_mm_rows, default=0)],
+         batches=processor.batches_processed, stages=engine.timer.summary(),
+         prefix_stats=cache.stats())
+    for name in ("cosine_topk", "flash_attention"):
+        require(total[name] > 0, f"kernel {name} never launched in serve_quant")
+    _require_prefix_steps(steps, engine.dec_cfg.num_layers, cache, "serve_quant")
+    # 4 products a layer in every prefill (the prefix compute and the suffix)
+    require(int_mm_rows and len(int_mm_rows) % (4 * engine.dec_cfg.num_layers) == 0,
+            f"serve_quant: {len(int_mm_rows)} torch._int_mm products, expected a multiple "
+            f"of 4 a layer")
+    require(engine.weight_bytes < 0.55 * engine.weight_bytes_init,
+            f"serve_quant: weight bytes {engine.weight_bytes_init} -> {engine.weight_bytes}")
+    for label, before_rep in (("miss", cache.clear), ("hit", None)):
+        row = _stage_split(engine, queries[1:33], label=label, before_rep=before_rep)
+        emit("stage_split", quant="int8+w8a8", **row)
+        emit("stage_split_compare", route=label,
+             **{k: {"bf16": bf16_splits[label][k], "int8_w8a8": row[k]} for k in SPLIT_KEYS})
+    emit("serve_quant_memory", construction_peak_gb=peaks["construction_gb"],
+         serving_peak_gb=max(peaks["serving_gb"], torch.cuda.max_memory_allocated() / 1e9))
+    del processor, engine, cache, p
+    _release()
+    return total
+
+
+def phase_serve_continuous(queries: list) -> tuple:
+    """DECODE_MODE=continuous at full width: the three steps of the serve
+    phase through the processor and the decode pool, every request
+    delivered, the pool's stats; then the same with PREFIX_CACHE=0, 32 at
+    once, which takes the packed pool prefill (B3). Returns the launch
+    counts of the two parts."""
+    import torch
+    from rag_serving_system_torch.main import build_processor
+
+    _serve_env(DECODE_MODE="continuous")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    processor, engine, request_queue, settings = build_processor()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    pool, cache = engine.decode_pool, engine.prefix_cache
+    require(pool is not None and cache is not None and settings.decode_mode == "continuous",
+            "serve_continuous: no decode pool over the prefix cache")
+    processor.start()
+    try:
+        steps, total, peaks = _three_steps(processor, request_queue, cache, queries)
+    finally:
+        processor.stop(drain_timeout=10.0)
+        processor.join(timeout=30)
+    stats = pool.stats()
+    emit("serve_continuous", init_s=t_init, prefix_cache=True, pool_len=cache.pool_len,
+         steps=steps, launches=total, pool=stats, batches=processor.batches_processed,
+         requests_processed=processor.requests_processed, stages=engine.timer.summary(),
+         pool_kv_gb=2 * pool.pool_k.numel() * pool.pool_k.element_size() / 1e9,
+         peak_memory_gb=max(peaks.values()), peaks=peaks)
+    for name in ("cosine_topk", "flash_attention"):
+        require(total[name] > 0, f"kernel {name} never launched in serve_continuous")
+    _require_prefix_steps(steps, engine.dec_cfg.num_layers, cache, "serve_continuous")
+    require(stats["inserted"] == stats["completed"] == processor.requests_processed == 129
+            and stats["free"] == stats["slots"] and stats["steps"] > 0
+            and stats["pending_rows"] == stats["pending_submits"] == 0,
+            f"serve_continuous: the pool did not deliver all 129 requests: {stats}")
+    require(not pool._thread.is_alive(), "serve_continuous: the pool's thread outlived stop()")
+    del processor, engine, pool, cache
+    _release()
+
+    _serve_env(DECODE_MODE="continuous", PREFIX_CACHE="0")
+    torch.cuda.reset_peak_memory_stats()
+    processor, engine, request_queue, _ = build_processor()
+    pool = engine.decode_pool
+    require(engine.prefix_cache is None and pool is not None,
+            "serve_continuous: PREFIX_CACHE=0 left the prefix cache on, or no pool")
+    reset_launches()
+    processor.start()
+    try:
+        _, seconds = _answered(request_queue, queries[65:97])
+    finally:
+        processor.stop(drain_timeout=10.0)
+        processor.join(timeout=30)
+    packed = read_launches()
+    stats = pool.stats()
+    layout = engine.stage_prompts(engine.prepare(queries[65:97], [2] * 32))[0]
+    require(layout == "packed", f"serve_continuous: 32 cold prompts staged {layout}")
+    emit("serve_continuous_packed", prefix_cache=False, requests=32, seconds=seconds,
+         launches=packed, pool=stats, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    require(packed["flash_attention_packed"] > 0 and packed["cosine_topk"] > 0,
+            f"serve_continuous: the packed pool prefill did not launch B3: {packed}")
+    require(stats["inserted"] == stats["completed"] == 32,
+            f"serve_continuous: the packed step's pool: {stats}")
+    del processor, engine, pool
+    _release()
+    return total, packed
+
+
+def _tiny_corpus(seed: int = 0):
+    """40 seeded documents of 14-23 words and their seeded 64-dim embeddings."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    docs = [" ".join(f"w{rng.integers(0, 300)}" for _ in range(rng.integers(14, 24)))
+            for _ in range(40)]
+    return docs, rng.standard_normal((40, 64)).astype(np.float32)
+
+
+TINY_QUERIES = ["what is w1 w2", "tell me w5", "w7 w8 w9 w10", "another question w3"]
+TINY_ENV = dict(MODEL_PRESET="tiny", COMPUTE_DTYPE="float32", DO_SAMPLE="0",
+                BATCH_BUCKETS="1,4", MAX_BATCH_SIZE="4", ENCODE_LEN_BUCKETS="16,32",
+                PROMPT_LEN_BUCKETS="32,128", PACKED_T_STEP="256", MAX_NEW_TOKENS="6",
+                MAX_K="4", PREFIX_POOL_LEN="48", QUERY_CACHE_SIZE="0",
+                DECODE_MODE="continuous", DECODE_SLOTS="2")
+
+
+def _pool_answers(engine, queries: list, staged=None) -> list:
+    """The answers of one batch through the engine's decode pool (started if
+    need be), in request order; every request must be delivered."""
+    pool = engine.decode_pool
+    if not pool._running:
+        pool.start()
+    got = {}
+    rids = [f"r{i}" for i in range(len(queries))]
+    prompts = engine.prepare(queries, [2] * len(queries))
+    pool.submit(rids, prompts, lambda rid, res: got.__setitem__(rid, res), staged=staged)
+    require(pool.wait_idle(300.0), "the decode pool did not go idle in 300 s")
+    bad = [got.get(r) for r in rids if not isinstance((got.get(r) or {}).get("result"), str)]
+    require(not bad, f"the decode pool did not deliver every request: {bad[:3]}")
+    return [got[r]["result"] for r in rids]
+
+
+def _scale_decoder(engine, factor: float) -> None:
+    """Scale a decoder's matrices in place: a random init at std 0.02
+    attends almost uniformly and repeats one token whatever the prompt, so a
+    wrong mask or position would not show. Scaled, answers follow context."""
+    for key in ("qkv_w", "o_w", "gu_w", "down_w"):
+        engine.dec_params["layers"][key] *= factor
+    engine.dec_params["embed"] *= factor
+
+
+def phase_serve_tiny(head_dim: int) -> dict:
+    """MODEL_PRESET=tiny on the card in f32, greedy, at the preset's head
+    size 16 or widened to `head_dim` 32 (the scalar B2/B3 body either way),
+    decoder matrices scaled by 8. The prefix route (a miss, then the hit),
+    the padded and the packed cold routes: answers through the kernels equal
+    those through each kernel's plain version; the decode pool (2 slots
+    under batches of 4: waves and slot reuse) equals the fixed path on all
+    three; int8 + W8A8 through `torch._int_mm` equals the plain int32 sums'
+    answers. Returns the launch counts of the kernel runs."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch.core import engine as engine_mod
+    from rag_serving_system_torch.main import build_processor
+    from rag_serving_system_torch.models import layers, qwen2
+    from rag_serving_system_torch.ops import attention, topk
+    from rag_serving_system_torch.ops.quant import quantize_decoder_params
+
+    set_env(**TINY_ENV)
+    docs, emb = _tiny_corpus()
+    cfg = dataclasses.replace(engine_mod.decoder_config_for("tiny"), head_dim=head_dim)
+    with mock.patch.object(engine_mod, "decoder_config_for", lambda preset: cfg):
+        _, engine, _, settings = build_processor(documents=docs, doc_embeddings=emb)
+    require(settings.model_preset == "tiny" and engine.dec_cfg.head_dim == head_dim
+            and engine.device.type == "cuda" and engine.dtype == torch.float32,
+            "serve_tiny: not the tiny preset in f32 on the card")
+    _scale_decoder(engine, 8.0)
+    cache, pool = engine.prefix_cache, engine.decode_pool
+
+    def plain_kernels():
+        return (mock.patch.object(engine_mod, "cosine_topk", topk.cosine_topk_reference),
+                mock.patch.object(qwen2, "flash_attention", attention.flash_attention_plain),
+                mock.patch.object(qwen2, "flash_attention_packed",
+                                  attention.flash_attention_packed_plain))
+
+    def routes():
+        """Fixed-path answers of a lone request and a batch of 4 on the
+        prefix route (miss, then hit) and on the cold routes."""
+        out = {}
+        cache.clear()
+        for name in ("prefix_miss", "prefix_hit"):
+            out[name] = [engine.process(TINY_QUERIES[:1], [2]),
+                         engine.process(TINY_QUERIES, [2] * 4)]
+        with mock.patch.object(engine, "prefix_cache", None):
+            out["cold"] = [engine.process(TINY_QUERIES[:1], [2]),
+                           engine.process(TINY_QUERIES, [2] * 4)]
+        return out
+
+    with mock.patch.object(engine, "prefix_cache", None):
+        layouts = [engine.stage_prompts(engine.prepare(qs, [2] * len(qs)))[0]
+                   for qs in (TINY_QUERIES[:1], TINY_QUERIES)]
+    require(layouts == ["padded", "packed"], f"serve_tiny: cold layouts {layouts}")
+    reset_launches()
+    kernel = routes()
+    launches = read_launches()
+    a, b, c = plain_kernels()
+    with a, b, c:
+        plain = routes()
+    require(launches["flash_attention"] > 0 and launches["flash_attention_packed"] > 0
+            and launches["cosine_topk"] > 0, f"serve_tiny: launches {launches}")
+    require(kernel == plain, f"serve_tiny (D={head_dim}): answers through the kernels and "
+            f"through their plain versions differ: {kernel} / {plain}")
+    require(kernel["prefix_miss"] == kernel["prefix_hit"] == kernel["cold"],
+            f"serve_tiny (D={head_dim}): the routes answer differently: {kernel}")
+    answers = [r["result"] for r in kernel["cold"][1]]
+    # (a row may stop at its first token: with these weights three of four do
+    # at head size 32, and all four answer at 16)
+    require(any(answers) and len(set(answers)) > 1,
+            f"serve_tiny: answers do not vary with the prompt: {answers}")
+
+    # the pool against the fixed path: over the prefix cache (miss, hit),
+    # then cold, packed for the batch and padded for the lone request
+    pool_equal = {}
+    cache.clear()
+    for name in ("prefix_miss", "prefix_hit"):
+        pool_equal[name] = _pool_answers(engine, TINY_QUERIES) == answers
+    with mock.patch.object(engine, "prefix_cache", None):
+        for name, qs in (("packed", TINY_QUERIES), ("padded", TINY_QUERIES[:1])):
+            staged = engine.stage_prompts(engine.prepare(qs, [2] * len(qs)))
+            require(staged[0] == name, f"serve_tiny: pool case {name} staged {staged[0]}")
+            pool_equal[name] = _pool_answers(engine, qs, staged=staged) == answers[:len(qs)]
+    stats = pool.stats()
+    require(all(pool_equal.values()), f"serve_tiny (D={head_dim}): pool answers differ "
+            f"from the fixed path's: {pool_equal}")
+    require(stats["slots"] == 2 and stats["completed"] == 13 and stats["inserted"] == 13,
+            f"serve_tiny: pool stats {stats}")
+
+    # int8 + W8A8: torch._int_mm against the plain int32 sums, end to end
+    engine.dec_params = quantize_decoder_params(engine.dec_params)
+    engine.act_quant = True
+    cache.clear()
+    calls = []
+    real = layers.int_matmul
+
+    def counted(xq, wq):
+        calls.append(xq.shape[0])
+        return real(xq, wq)
+
+    with mock.patch.object(layers, "int_matmul", counted):
+        quant = engine.process(TINY_QUERIES, [2] * 4)
+    cache.clear()
+    with mock.patch.object(layers, "int_matmul", layers.int_matmul_plain):
+        quant_plain = engine.process(TINY_QUERIES, [2] * 4)
+    require(calls and quant == quant_plain and any(r["result"] for r in quant),
+            f"serve_tiny (D={head_dim}): W8A8 through torch._int_mm and through the plain "
+            f"sums differ: {quant} / {quant_plain}")
+    emit("serve_tiny", head_dim=head_dim, dtype="float32", launches=launches,
+         kernel_vs_plain_identical=True, routes_identical=True, pool_equals_fixed=pool_equal,
+         pool=stats, int_mm_calls=len(calls), w8a8_int_mm_vs_plain_identical=True,
+         answers=answers[:2], quant_answers=[r["result"] for r in quant[:2]])
+    pool.stop()
+    del engine, cache, pool
+    _release()
+    return launches
+
+
 def timed(phase: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1284,13 +1817,18 @@ def main() -> int:
         smi = phase_device()
         timed("build", phase_build)
         records = timed("kernels", phase_kernels, dev)
-        launches = {"roofline": timed("roofline", phase_roofline),
-                    "serve": timed("serve", phase_serve, queries),
-                    "serve_cold": timed("serve_cold", phase_serve_cold, queries)}
+        launches = {"roofline": timed("roofline", phase_roofline)}
+        launches["serve"], bf16_splits = timed("serve", phase_serve, queries)
+        launches["serve_cold"] = timed("serve_cold", phase_serve_cold, queries)
         timed("parity", phase_parity, queries)
         launches["serve_int8"] = timed("serve_int8", phase_serve_int8, queries[74:107])
         timed("serve_ivf", phase_serve_ivf, queries[107:139])
         launches["serve_wide_k"] = timed("serve_wide_k", phase_serve_wide_k, queries[139:147])
+        launches["serve_quant"] = timed("serve_quant", phase_serve_quant, queries, bf16_splits)
+        launches["serve_continuous"], launches["serve_continuous_packed"] = timed(
+            "serve_continuous", phase_serve_continuous, queries)
+        launches["serve_tiny"] = timed("serve_tiny", phase_serve_tiny, 16)
+        launches["serve_tiny_d32"] = timed("serve_tiny_d32", phase_serve_tiny, 32)
         emit("timing", of="all", seconds=time.perf_counter() - t_start)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1299,7 +1837,7 @@ def main() -> int:
     for name, (source, replaces, path) in KERNELS.items():
         r = records[name]
         summary.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[path][name],
+                        "replaces": replaces, "launches": launches[path][wrapper_of(name)],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -155,6 +155,8 @@ def create_api(request_queue, processor=None, engine=None,
                 body["query_cache"] = qstats
             if engine.prefix_cache is not None:
                 body["prefix_cache"] = engine.prefix_cache.stats()
+            if getattr(engine, "decode_pool", None) is not None:
+                body["decode_pool"] = engine.decode_pool.stats()
         return web.json_response(body)
 
     app.router.add_post("/rag", rag_endpoint)

@@ -64,8 +64,18 @@ class Settings:
     packed_prefill: bool = field(default_factory=lambda: _flag("PACKED_PREFILL", "1"))
     packed_t_step: int = field(default_factory=lambda: int(_env("PACKED_T_STEP", "1024")))
     max_new_tokens: int = field(default_factory=lambda: int(_env("MAX_NEW_TOKENS", "10")))
-    # 'fixed' only in the port
+    # 'fixed' (one batch decodes together, done when its slowest row is) |
+    # 'continuous' (a persistent slot pool, core/decode_pool.py: rows finish
+    # and free their slot one by one, new requests join mid-flight)
     decode_mode: str = field(default_factory=lambda: _env("DECODE_MODE", "fixed"))
+    # slot-pool size (0 = auto: 2x the largest batch bucket)
+    decode_slots: int = field(default_factory=lambda: int(_env("DECODE_SLOTS", "0")))
+    # decode steps per dispatch in continuous mode, with no host read between
+    decode_chunk: int = field(default_factory=lambda: int(_env("DECODE_CHUNK", "8")))
+    # ring window per slot in tokens (0 = auto: largest prompt bucket +
+    # max_new_tokens, rounded up to 128); a batch staging more K/V than the
+    # window falls back to fixed decode
+    decode_window: int = field(default_factory=lambda: int(_env("DECODE_WINDOW", "0")))
     do_sample: bool = field(default_factory=lambda: _flag("DO_SAMPLE", "1"))
     # speculative decode draft length; 0 only in the port
     spec_gamma: int = field(default_factory=lambda: int(_env("SPEC_DECODE", "0")))
@@ -121,8 +131,11 @@ class Settings:
     # exact query-result cache entries (0 disables)
     query_cache_size: int = field(
         default_factory=lambda: int(_env("QUERY_CACHE_SIZE", "8192")))
-    # decoder quantization; 'none' only in the port
+    # decoder weights: 'none' | 'int8' (per output channel) | 'int4'
+    # (groups of 128, two nibbles a byte; embedding and head stay int8)
     quant_weights: str = field(default_factory=lambda: _env("QUANT_WEIGHTS", "none"))
+    # 'int8': per-token int8 activations in prefill (W8A8); needs
+    # quantized weights
     quant_act: str = field(default_factory=lambda: _env("QUANT_ACT", "none"))
 
 

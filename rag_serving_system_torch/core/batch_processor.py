@@ -8,6 +8,9 @@ every request of a failed batch answered {"error", "status": "failed"}, and
 the stats attributes the HTTP surface reads. Simpler: one prefetch worker
 runs stage 1 (embed, retrieve, prompt build) for the next batch while this
 thread generates the current one, and results are stored synchronously.
+With DECODE_MODE=continuous the engine has a decode pool: stage 2 then
+stages the batch and hands it to `pool.submit`, and each request's result is
+stored by the pool's thread as that request completes.
 """
 
 from __future__ import annotations
@@ -82,8 +85,38 @@ class BatchProcessor(threading.Thread):
             finally:
                 self._stage1_busy = False
 
+    def _submit_to_pool(self, pool, batch: list, prompts: list) -> None:
+        """Continuous mode's stage 2: stage the prompts here (the pool's
+        thread is left the device work), hand the batch to the pool and
+        return; `deliver` stores each result as its request completes."""
+        t0 = time.time()
+        left = {"n": len(batch)}
+
+        def deliver(rid, res):
+            try:
+                self.request_queue.store_result(rid, res)
+            except Exception:
+                logger.exception("error storing result for %s", rid)
+            self.requests_processed += 1
+            left["n"] -= 1
+            if left["n"] == 0:
+                self.batches_processed += 1
+                self.last_batch_seconds = time.time() - t0
+
+        try:
+            staged = self.engine.stage_prompts(prompts)
+        except Exception as e:
+            logger.exception("staging error for batch of %d", len(batch))
+            self._fail(batch, e)
+            return
+        pool.submit([req["id"] for req in batch], prompts, deliver, staged=staged)
+
     def _generate_and_store(self, batch: list, prompts: list) -> None:
         """Stage 2: generate, detokenize and store one batch's results."""
+        pool = getattr(self.engine, "decode_pool", None)
+        if pool is not None:
+            self._submit_to_pool(pool, batch, prompts)
+            return
         t0 = time.time()
         try:
             with self.engine.timer.stage("generate"):
@@ -107,9 +140,13 @@ class BatchProcessor(threading.Thread):
 
     def run(self) -> None:
         self.running = True
+        pool = getattr(self.engine, "decode_pool", None)
+        if pool is not None and not pool._running:
+            pool.start()
         self._prefetcher = threading.Thread(target=self._prefetch_loop, daemon=True)
         self._prefetcher.start()
-        logger.info("BatchProcessor started.")
+        logger.info("BatchProcessor started (decode=%s).",
+                    "continuous" if pool is not None else "fixed")
         while self.running:
             try:
                 batch, prompts = self._ready.get(timeout=self.polling_interval)
@@ -125,13 +162,18 @@ class BatchProcessor(threading.Thread):
 
     def stop(self, drain_timeout: float = 0.0) -> None:
         """Stop both loops. With drain_timeout > 0, first wait up to that long
-        for dequeued work (the batch in stage 1, the prepared one and the one
-        generating) to be answered. Requests still in the queue stay there."""
+        for dequeued work (the batch in stage 1, the prepared one, the one
+        generating and whatever the decode pool holds) to be answered.
+        Requests still in the queue stay there."""
         deadline = time.time() + drain_timeout
         while time.time() < deadline and (
                 self._stage1_busy or self._stage2_busy
                 or self._ready.unfinished_tasks > 0):
             time.sleep(0.02)
+        pool = getattr(self.engine, "decode_pool", None)
+        if pool is not None:
+            pool.stop(drain_timeout=max(0.0, deadline - time.time())
+                      if drain_timeout > 0 else 0.0)
         self.running = False
         if self._prefetcher is not None:
             self._prefetcher.join(timeout=2.0 + self.polling_interval)

@@ -1,18 +1,21 @@
 """The RAG serving engine in PyTorch: embed → retrieve → generate.
 
-Counterpart of `rag_serving_system_tpu/core/engine.py` (`RagEngine`) with the
-fixed decode loop: the e5 encoder and retrieval over a device-resident
-corpus, then Qwen2.5 generation. A prompt whose context prefix is in the
-exact prefix-KV cache (`core/prefix_cache.py`) prefills only its question
-(the hit route); a miss first computes the prefix K/V through kernel B2 and
-inserts it; batches that bypass the cache prefill whole prompts, padded (B2)
-or packed (B3). Retrieval is exact cosine top-k over an f32 or bf16 corpus
+Counterpart of `rag_serving_system_tpu/core/engine.py` (`RagEngine`): the e5
+encoder and retrieval over a device-resident corpus, then Qwen2.5
+generation, by the fixed decode loop or (DECODE_MODE=continuous) through the
+slot pool of `core/decode_pool.py`; the decoder's weights may be int8 or
+int4 (QUANT_WEIGHTS) and its prefill W8A8 (QUANT_ACT=int8). A prompt whose
+context prefix is in the exact prefix-KV cache (`core/prefix_cache.py`)
+prefills only its question (the hit route); a miss first computes the
+prefix K/V through kernel B2 and inserts it; batches that bypass the cache
+prefill whole prompts, padded (B2) or packed (B3). Retrieval is exact cosine top-k over an f32 or bf16 corpus
 (kernel B1) or an int8 corpus, one array or several chunks (kernel B4), or
 approximate IVF (`RETRIEVER=ivf`). Public method signatures are the JAX
 engine's, so one batch processor contract drives either.
 
-Settings this port does not implement yet make the constructor raise rather
-than serve another configuration (see `unsupported_settings`).
+Settings this port does not implement yet (speculative decode, a
+multi-device mesh, checkpoints) make the constructor raise rather than serve
+another configuration (see `unsupported_settings`).
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ from rag_serving_system_torch.models.qwen2 import (
     compute_prefix_kv,
     generate,
     generate_packed,
+    prefill_for_pool,
+    prefill_packed_for_pool,
     quantize_prefix_kv,
 )
 from rag_serving_system_torch.models.tokenizer import HashTokenizer, pad_and_stack
@@ -50,6 +55,7 @@ from rag_serving_system_torch.models.weights import (
 )
 from rag_serving_system_torch.ops.attention import HEAD_DIMS
 from rag_serving_system_torch.ops.ivf import build_ivf, ivf_search
+from rag_serving_system_torch.ops.quant import quantize_decoder_params, weight_bytes
 from rag_serving_system_torch.ops.topk import (
     cosine_topk,
     cosine_topk_int8,
@@ -119,16 +125,17 @@ def unsupported_settings(settings: Settings, device: torch.device) -> list[str]:
     bad = []
     head_dim = decoder_config_for(settings.model_preset).head_dim
     if device.type == "cuda" and head_dim not in HEAD_DIMS:
-        # every prefill on a CUDA device goes through kernels B2 / B3
+        # every prefill on a CUDA device goes through kernels B2 / B3 (every
+        # preset's head size has an instance today)
         bad.append(f"MODEL_PRESET={settings.model_preset} on a CUDA device (its "
                    f"decoder head size {head_dim} has no prefill attention "
                    f"kernel: those are built for {HEAD_DIMS})")
-    if settings.decode_mode != "fixed":
-        bad.append(f"DECODE_MODE={settings.decode_mode}")
-    if settings.quant_weights != "none":
-        bad.append(f"QUANT_WEIGHTS={settings.quant_weights}")
-    if settings.quant_act != "none":
-        bad.append(f"QUANT_ACT={settings.quant_act}")
+    if settings.decode_mode not in ("fixed", "continuous"):
+        bad.append(f"DECODE_MODE={settings.decode_mode} (fixed or continuous)")
+    if settings.quant_weights not in ("none", "int8", "int4"):
+        bad.append(f"QUANT_WEIGHTS={settings.quant_weights} (none, int8 or int4)")
+    if settings.quant_act not in ("none", "int8"):
+        bad.append(f"QUANT_ACT={settings.quant_act} (none or int8)")
     if settings.spec_gamma > 0:
         bad.append(f"SPEC_DECODE={settings.spec_gamma}")
     if settings.mesh_shape and np.prod(
@@ -172,6 +179,20 @@ class RagEngine:
                                               dtype=self.dtype, device=self.device)
         logger.info("random-init models ready on %s in %.1fs", self.device,
                     time.time() - t0)
+        # the decoder's weight bytes as initialised and as held for serving
+        self.weight_bytes_init = weight_bytes(self.dec_params)
+        if settings.quant_weights in ("int8", "int4"):
+            bits = 4 if settings.quant_weights == "int4" else 8
+            self.dec_params = quantize_decoder_params(self.dec_params, bits=bits)
+            logger.info("decoder weights quantized to %s (%s)", settings.quant_weights,
+                        "group-128 matmuls, int8 embed/head" if bits == 4
+                        else "per-channel")
+        self.weight_bytes = weight_bytes(self.dec_params)
+        self.act_quant = (settings.quant_act == "int8"
+                          and settings.quant_weights in ("int8", "int4"))
+        if settings.quant_act == "int8" and not self.act_quant:
+            logger.warning("QUANT_ACT=int8 requires QUANT_WEIGHTS=int8/int4; "
+                           "prefill stays %s", settings.dtype)
         self.enc_tok = HashTokenizer(self.enc_cfg.vocab_size,
                                      pad_id=self.enc_cfg.pad_token_id)
         self.dec_tok = HashTokenizer(self.dec_cfg.vocab_size,
@@ -276,6 +297,24 @@ class RagEngine:
                         "%.1f MB/entry, capacity %d entries",
                         pool_len, "int8" if self.prefix_int8 else "compute",
                         entry_bytes / 2**20, self.prefix_cache.capacity)
+
+        # continuous (in-flight) batching: a persistent slot pool replaces
+        # the fixed decode loop (core/decode_pool.py). A batch whose prompt
+        # bucket plus budget overflows the window falls back to the fixed
+        # path inside the pool's worker.
+        self.decode_pool = None
+        if settings.decode_mode == "continuous":
+            from rag_serving_system_torch.core.decode_pool import DecodePool
+
+            # slots may be FEWER than a batch bucket: prefilled rows enter
+            # the pool in waves as slots free
+            slots = max(1, settings.decode_slots or 2 * self.batch_buckets[-1])
+            window = settings.decode_window
+            if window == 0:
+                window = -(-(max(settings.prompt_len_buckets)
+                             + settings.max_new_tokens) // 128) * 128
+            self.decode_pool = DecodePool(self, slots=slots, window=window,
+                                          chunk=max(1, settings.decode_chunk))
 
     # ------------------------------------------------------------------
     # stages 1+2: embed + retrieve
@@ -480,8 +519,8 @@ class RagEngine:
     def _stage_packed(self, rows: list, n: int, t: int, budgets: np.ndarray):
         """The packed layout: rows back to back in one (1, T) stream. Stages
         a (3, T) [ids | seg | pos] stream, the (cap, P) gather map (-1 =
-        empty slot), (cap,) last-token indices (-1 = pad row) and (cap,)
-        per-row budgets."""
+        empty slot), (cap,) last-token indices (-1 = pad row) and the (cap,)
+        per-row budgets, on the device and on the host."""
         cap = self.batch_buckets[-1]
         p = self.packed_p
         rows = [r[-p:] for r in rows[:n]]          # left-truncate over-long
@@ -500,7 +539,8 @@ class RagEngine:
             last[b] = off + ln - 1
             off += ln
         return ("packed", self._put_batch(stream), self._put_batch(gather),
-                self._put_batch(last), n, self._put_batch(budgets))
+                self._put_batch(last), n,
+                (self._put_batch(budgets), tuple(int(x) for x in budgets)))
 
     def _prefix_tokens(self, key, prefix_text: str) -> list:
         """Tokenize a context prefix, memoized by its cache key (rows that
@@ -527,7 +567,8 @@ class RagEngine:
 
     def stage_prompts(self, prompts: List[str]):
         """Tokenize, pad and place a prompt batch on the device. Returns a
-        tuple whose first item names the layout.
+        tuple whose first item names the layout and whose last is the rows'
+        generation budgets as a (device tensor, host tuple) pair.
 
         With the prefix-KV cache on, each prompt is split at its cacheable
         context boundary: only the SUFFIX (question and answer cue) is staged
@@ -548,7 +589,7 @@ class RagEngine:
             # None = engine default; 0/negative clamp to 1
             return cap_mnt if b is None else min(cap_mnt, max(1, int(b)))
 
-        bud_host = [_bud(p) if i < n else cap_mnt for i, p in enumerate(padded)]
+        bud_host = tuple(_bud(p) if i < n else cap_mnt for i, p in enumerate(padded))
         prompt_buckets = self.settings.prompt_len_buckets
         metas = None
         if (self.prefix_cache is not None
@@ -598,7 +639,7 @@ class RagEngine:
         row_valid = np.arange(bsz) < n  # pad rows are born done
         return ("padded", self._put_batch(ids), self._put_batch(mask),
                 self._put_batch(row_valid), n, metas,
-                self._put_batch(np.asarray(bud_host, np.int32)))
+                (self._put_batch(np.asarray(bud_host, np.int32)), bud_host))
 
     def generate_tokens(self, prompts: List[str] | None = None, staged=None):
         """Run generation for a prompt batch (or a `stage_prompts` result);
@@ -608,24 +649,56 @@ class RagEngine:
         s = self.settings
         common = dict(generator=self._generator, max_new_tokens=s.max_new_tokens,
                       do_sample=s.do_sample, dtype=self.dtype,
-                      eos_bias=s.eos_bias)
+                      eos_bias=s.eos_bias, act_quant=self.act_quant)
         if staged[0] == "packed":
-            _, stream, gather, last, n, budgets = staged
+            _, stream, gather, last, n, bud = staged
             toks = generate_packed(
-                self.dec_params, self.dec_cfg, stream[0][None], stream[1][None],
-                stream[2][None], last.clamp(min=0), gather.clamp(min=0),
-                (gather >= 0).to(torch.int32), row_valid=last >= 0,
-                row_budget=budgets, **common)
+                self.dec_params, self.dec_cfg, *self._packed_args(stream, gather, last),
+                row_valid=last >= 0, row_budget=bud[0], **common)
             return toks, n
-        _, ids, mask, row_valid, n, metas, budgets = staged
-        prefix_kv = prefix_len = None
-        if metas is not None:
-            with self.timer.stage("prefix_resolve"):
-                prefix_kv, prefix_len = self._resolve_prefixes(metas)
+        _, ids, mask, row_valid, n, metas, bud = staged
+        prefix_kv, prefix_len = self._staged_prefixes(metas)
         toks = generate(self.dec_params, self.dec_cfg, ids, mask,
-                        row_valid=row_valid, row_budget=budgets,
+                        row_valid=row_valid, row_budget=bud[0],
                         prefix_kv=prefix_kv, prefix_len=prefix_len, **common)
         return toks, n
+
+    @staticmethod
+    def _packed_args(stream, gather, last) -> tuple:
+        """The packed prefill's tensors from the staged encoding: (ids, seg,
+        positions) as (1, T) streams, last-token indices, the gather map and
+        the (cap, P) prompt mask."""
+        return (stream[0][None], stream[1][None], stream[2][None], last.clamp(min=0),
+                gather.clamp(min=0), (gather >= 0).to(torch.int32))
+
+    def _staged_prefixes(self, metas):
+        """(prefix K/V, prefix lengths) of a padded staged batch, or (None,
+        None) when it carries no prefix."""
+        if metas is None:
+            return None, None
+        with self.timer.stage("prefix_resolve"):
+            return self._resolve_prefixes(metas)
+
+    def prefill_rows(self, staged, generator):
+        """Prefill a staged batch for the continuous decode pool: (tok0 (B,),
+        k (L, B, T, Hk, D), v, mask (B, T), n): the prompt K/V rows, the
+        combined validity mask (the prefix part included where the prefix
+        cache contributed), each row's first token and the count of real
+        rows. Staging, prefix resolution and the packed route are the fixed
+        path's; only the decode differs."""
+        s = self.settings
+        common = dict(generator=generator, do_sample=s.do_sample, dtype=self.dtype,
+                      act_quant=self.act_quant, eos_bias=s.eos_bias)
+        if staged[0] == "packed":
+            _, stream, gather, last, n, _bud = staged
+            return (*prefill_packed_for_pool(
+                self.dec_params, self.dec_cfg, *self._packed_args(stream, gather, last),
+                row_valid=last >= 0, **common), n)
+        _, ids, mask, row_valid, n, metas, _bud = staged
+        prefix_kv, prefix_len = self._staged_prefixes(metas)
+        return (*prefill_for_pool(self.dec_params, self.dec_cfg, ids, mask,
+                                  row_valid=row_valid, prefix_kv=prefix_kv,
+                                  prefix_len=prefix_len, **common), n)
 
     def _resolve_prefixes(self, metas):
         """Map each row's (key, prefix tokens) to a pool slot: cache hits are
@@ -659,7 +732,7 @@ class RagEngine:
                                         pad_side="right")
             kv = compute_prefix_kv(self.dec_params, self.dec_cfg,
                                    self._put_batch(pids), self._put_batch(pmask),
-                                   dtype=self.dtype)
+                                   dtype=self.dtype, act_quant=self.act_quant)
             if self.prefix_int8:
                 kv = quantize_prefix_kv(kv)
             hit_slots = {e.slot for e in entries if isinstance(e, PrefixEntry)}
@@ -722,6 +795,20 @@ class RagEngine:
         timings, the cache counts and the prefix entry it made are dropped
         (the pool keeps the size it grew to)."""
         self.process(["warmup query"], [1])
+        if self.decode_pool is not None:
+            # one batch THROUGH the pool: stage, prefill, insert, chunks,
+            # delivery
+            pool = self.decode_pool
+            bcap = self.batch_buckets[-1]
+            if not pool._running:
+                pool.start()
+            got: list = []
+            pool.submit([f"w{i}" for i in range(bcap)], ["pool warmup query"] * bcap,
+                        lambda rid, res: got.append(res))
+            if (not pool.wait_idle(300.0)
+                    or sum("result" in res for res in got) != bcap):
+                raise RuntimeError(f"decode-pool warmup batch incomplete "
+                                   f"({len(got)}/{bcap} delivered): {got[:2]}")
         self.timer.reset()
         if self.prefix_cache is not None:
             self.prefix_cache.clear(reset_counts=True)

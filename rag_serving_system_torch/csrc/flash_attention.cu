@@ -64,6 +64,12 @@
 // update, where lane c owns output columns c, c + 32, ... The running
 // (m, l, acc) stays in registers. 1.48 ms (B2) and 1.43 ms (B3) at the
 // shapes above.
+//
+// Narrow heads (D = 16 and 32, the tiny preset and small test models): the
+// same scalar body for f32 and, with bf16 loads and stores around its f32
+// math, for bf16 (the tensor-core kernel's swizzle needs rows of 128 bytes).
+// At D = 16 a lane owns one output column or none. These sizes carry no
+// served model: the body is there to be right, not fast.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,7 +86,9 @@ constexpr float NEG_INF = -1.0e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -114,7 +122,7 @@ constexpr int smem_floats() {
 template <typename T, int D, bool PACKED>
 __global__ void __launch_bounds__(THREADS) flash_kernel(AttnArgs a) {
   constexpr int KS = D + 4;     // padded K row: conflict-free float4 reads
-  constexpr int DPL = D / 32;   // output columns per lane
+  constexpr int DPL = D >= 32 ? D / 32 : 1;   // output columns per lane
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                    // [BQ][D]
   float* Ks = Qs + BQ * D;             // [BK][KS]
@@ -172,6 +180,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(AttnArgs a) {
   }
   const int row0 = warp * ROWS;
   float* Pw = Ps + warp * ROWS * BK;
+  // at D = 16 only the first 16 lanes own an output column
+  const bool own = D >= 32 || lane < D;
 
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     const int k0 = kt * BK;
@@ -238,7 +248,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(AttnArgs a) {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
-        for (int c = 0; c < DPL; ++c) vf[jj][c] = Vs[(j + jj) * D + c * 32 + lane];
+        for (int c = 0; c < DPL; ++c) vf[jj][c] = own ? Vs[(j + jj) * D + c * 32 + lane] : 0.f;
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const float4 p4 = *reinterpret_cast<const float4*>(Pw + r * BK + j);
@@ -264,7 +274,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(AttnArgs a) {
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     T* orow = O + (((int64_t)b * S + qi) * a.Hq + h) * D;
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) store(orow + c * 32 + lane, live ? acc[r][c] * inv : 0.f);
+    for (int c = 0; c < DPL; ++c)
+      if (own) store(orow + c * 32 + lane, live ? acc[r][c] * inv : 0.f);
   }
 }
 
@@ -617,34 +628,41 @@ int launch_tc(const AttnArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-int dispatch_tc(const AttnArgs& a, int D, int packed, cudaStream_t st) {
-  if (D == 128) return packed ? launch_tc<128, true>(a, st) : launch_tc<128, false>(a, st);
-  if (D == 64) return packed ? launch_tc<64, true>(a, st) : launch_tc<64, false>(a, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <int D, bool PACKED>
+template <typename T, int D, bool PACKED>
 int launch(const AttnArgs& a, cudaStream_t st) {
   const size_t bytes = sizeof(float) * smem_floats<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<float, D, PACKED>,
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, D, PACKED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.S + BQ - 1) / BQ, a.Hq, a.B);
-  flash_kernel<float, D, PACKED><<<grid, THREADS, bytes, st>>>(a);
+  flash_kernel<T, D, PACKED><<<grid, THREADS, bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
 
+// bf16: the tensor-core kernel at D = 64 and 128, the scalar body (f32 math
+// on bf16 loads and stores) at the narrow heads
+int dispatch_tc(const AttnArgs& a, int D, int packed, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  if (D == 128) return packed ? launch_tc<128, true>(a, st) : launch_tc<128, false>(a, st);
+  if (D == 64) return packed ? launch_tc<64, true>(a, st) : launch_tc<64, false>(a, st);
+  if (D == 32) return packed ? launch<bf16, 32, true>(a, st) : launch<bf16, 32, false>(a, st);
+  if (D == 16) return packed ? launch<bf16, 16, true>(a, st) : launch<bf16, 16, false>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 int dispatch_f32(const AttnArgs& a, int D, int packed, cudaStream_t st) {
-  if (D == 128) return packed ? launch<128, true>(a, st) : launch<128, false>(a, st);
-  if (D == 64) return packed ? launch<64, true>(a, st) : launch<64, false>(a, st);
+  if (D == 128) return packed ? launch<float, 128, true>(a, st) : launch<float, 128, false>(a, st);
+  if (D == 64) return packed ? launch<float, 64, true>(a, st) : launch<float, 64, false>(a, st);
+  if (D == 32) return packed ? launch<float, 32, true>(a, st) : launch<float, 32, false>(a, st);
+  if (D == 16) return packed ? launch<float, 16, true>(a, st) : launch<float, 16, false>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q/out: (B, S, Hq, D); k/v: (B, S, Hk, D), contiguous and 16-byte aligned,
-// f32 or bf16 alike; D in {64, 128}.
+// f32 or bf16 alike; D in {16, 32, 64, 128}.
 // packed == 0 (B2): mask is (B, S) int32, seg unused.
 // packed == 1 (B3): B must be 1, seg is (S,) int32 ascending, mask unused.
 extern "C" int rag_flash_attention(const void* q, const void* k, const void* v,

@@ -1,10 +1,12 @@
 """Qwen2-family causal decoder (Qwen2.5-1.5B-Instruct) on dicts of tensors.
 
-Counterpart of `rag_serving_system_tpu/models/qwen2.py:51-370, 625-880,
-1082-1151` without the quantized and speculative paths. The parameter tree
-is the JAX one: dense weights (in, out), QKV fused into one matmul and
-gate+up into another, layer weights stacked on a leading L axis (the
-forwards loop over it), `lm_head` omitted when tied to `embed`.
+Counterpart of `rag_serving_system_tpu/models/qwen2.py:51-370, 625-1073,
+1082-1151` without the speculative path. The parameter tree is the JAX one:
+dense weights (in, out), QKV fused into one matmul and gate+up into another,
+layer weights stacked on a leading L axis (the forwards loop over it),
+`lm_head` omitted when tied to `embed`. Matmul weights, the embedding and
+the head may be the quantized nodes of `ops/quant.py`; `act_quant` sends the
+prefill products through `dense_w8a8` (decode never quantizes activations).
 
 Every prefill whose queries and keys have one length goes through a kernel
 wrapper: padded prompts and the prefix-KV compute through B2
@@ -13,8 +15,10 @@ wrapper: padded prompts and the prefix-KV compute through B2
 suffix prefill over cached prefix K/V (queries shorter than keys) and the
 single-token decode attention are plain torch, as both are einsum in the
 JAX package.
-The decode loop runs on the host, one step per iteration, and stops as soon
-as every row is done.
+The fixed decode loop runs on the host, one step per iteration, and stops
+as soon as every row is done. `decode_chunk` is the continuous mode's step:
+`chunk` steps over the slot pool of `core/decode_pool.py` with no host read
+between them.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from rag_serving_system_torch.models.layers import (
     attention,
     causal_padding_bias,
     dense,
+    dense_w8a8,
     rms_norm,
     rope_freqs,
     silu,
@@ -47,51 +52,68 @@ class KVCache(NamedTuple):
 
 
 def _layer(params: dict, i: int) -> dict:
-    return {name: w[i] for name, w in params["layers"].items()}
+    """Layer i's weights; a quantized node is sliced field by field."""
+    return {name: (type(w)(w.q[i], w.scale[i]) if hasattr(w, "q") else w[i])
+            for name, w in params["layers"].items()}
 
 
-def _qkv(layer, cfg, x, b, s):
+def _qkv(layer, cfg, x, b, s, act_quant=False):
     qd = cfg.num_heads * cfg.head_dim
     kvd = cfg.num_kv_heads * cfg.head_dim
-    qkv = dense(x, layer["qkv_w"], layer.get("qkv_b"))
+    mm = dense_w8a8 if act_quant else dense
+    qkv = mm(x, layer["qkv_w"], layer.get("qkv_b"))
     q = qkv[..., :qd].reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = qkv[..., qd:qd + kvd].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = qkv[..., qd + kvd:].reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     return q, k, v.contiguous()
 
 
-def _mlp(layer, x):
-    gu = dense(x, layer["gu_w"])
+def _mlp(layer, x, act_quant=False):
+    mm = dense_w8a8 if act_quant else dense
+    gu = mm(x, layer["gu_w"])
     f = gu.shape[-1] // 2
-    return dense(silu(gu[..., :f]) * gu[..., f:], layer["down_w"])
+    return mm(silu(gu[..., :f]) * gu[..., f:], layer["down_w"])
 
 
-def _layer_forward(layer, cfg, x, positions, inv_freq, b, p, attend):
+def _layer_forward(layer, cfg, x, positions, inv_freq, b, p, attend,
+                   act_quant=False):
     """One block: norm → fused QKV → RoPE → `attend(q, k, v)` → output
     projection → MLP. Returns (x, k, v) with k after RoPE."""
     h = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
-    q, k, v = _qkv(layer, cfg, h, b, p)
+    q, k, v = _qkv(layer, cfg, h, b, p, act_quant)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     a = attend(q, k, v).reshape(b, p, cfg.num_heads * cfg.head_dim)
-    x = x + dense(a, layer["o_w"])
+    mm = dense_w8a8 if act_quant else dense
+    x = x + mm(a, layer["o_w"])
     h = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
-    return x + _mlp(layer, h), k, v
+    return x + _mlp(layer, h, act_quant), k, v
 
 
 def embed_lookup(params: dict, ids: torch.Tensor, dtype) -> torch.Tensor:
-    return params["embed"][ids].to(dtype)
+    """Token embedding gather; an int8 per-row table gathers values and
+    scales and multiplies them in f32."""
+    emb = params["embed"]
+    if hasattr(emb, "q"):
+        return (emb.q[ids].float() * emb.scale[ids]).to(dtype)
+    return emb[ids].to(dtype)
 
 
 def logits_from_hidden(params: dict, cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm and LM head, tied or untied → f32 logits. The product runs
     in f32 on upcast operands: bf16 products are exact in f32, so this is
-    XLA's bf16-in, f32-accumulate, f32-out einsum."""
+    XLA's bf16-in, f32-accumulate, f32-out einsum. A quantized head
+    multiplies by the raw integers and scales the output column."""
     x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps).float()
     head = params.get("lm_head")
     if head is not None:
+        if hasattr(head, "q"):
+            return (x @ head.q.float()) * head.scale[0]
         return x @ head.float()
-    return x @ params["embed"].float().T
+    emb = params["embed"]
+    if hasattr(emb, "q"):   # tied int8 head: logits_v = scale_v * (x . q_v)
+        return (x @ emb.q.float().T) * emb.scale[:, 0]
+    return x @ emb.float().T
 
 
 def _new_cache(cfg, b, t_max, dtype, device) -> KVCache:
@@ -105,12 +127,24 @@ def _prefix_mask(prefix_len: torch.Tensor, pool_len: int) -> torch.Tensor:
     return torch.arange(pool_len, device=prefix_len.device)[None, :] < prefix_len[:, None]
 
 
+def _combined_mask(attention_mask, prefix_kv, prefix_len) -> torch.Tensor:
+    """[prefix mask | suffix mask] (B, PL + P); the mask itself without a
+    prefix."""
+    if prefix_kv is None:
+        return attention_mask
+    pl = (prefix_kv[0] if isinstance(prefix_kv, (tuple, list)) else prefix_kv).shape[3]
+    return torch.cat([_prefix_mask(prefix_len, pl).to(attention_mask.dtype),
+                      attention_mask], dim=1)
+
+
 def prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
             attention_mask: torch.Tensor, max_new_tokens: int,
             dtype=torch.bfloat16, prefix_kv=None,
-            prefix_len: torch.Tensor | None = None) -> tuple[torch.Tensor, KVCache]:
+            prefix_len: torch.Tensor | None = None,
+            act_quant: bool = False) -> tuple[torch.Tensor, KVCache]:
     """Forward over a LEFT-padded (B, P) prompt batch. Returns (last-position
     logits (B, V) f32, cache of [PL +] P + max_new_tokens slots).
+    `act_quant`: the W8A8 products (quantized weights only).
 
     Without `prefix_kv` the attention is kernel B2.
 
@@ -164,7 +198,7 @@ def prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
                 return attention(q, cache.k[i, :, :pl + p], cache.v[i, :, :pl + p], bias)
 
         x, k, v = _layer_forward(_layer(params, i), cfg, x, positions, inv_freq,
-                                 b, p, attend)
+                                 b, p, attend, act_quant)
         if prefix_kv is None:
             cache.k[i, :, :p] = k
             cache.v[i, :, :p] = v
@@ -173,7 +207,8 @@ def prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
 
 @torch.inference_mode()
 def compute_prefix_kv(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
-                      attention_mask: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+                      attention_mask: torch.Tensor, dtype=torch.bfloat16,
+                      act_quant: bool = False) -> torch.Tensor:
     """Forward over a RIGHT-padded (M, PL) batch of context prefixes through
     kernel B2 and return their post-RoPE K/V as (M, L, 2, PL, Hk, D) in
     `dtype`: one prefix-cache entry a row, left-aligned.
@@ -196,7 +231,7 @@ def compute_prefix_kv(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
 
     for i in range(cfg.num_layers):
         x, k, v = _layer_forward(_layer(params, i), cfg, x, positions, inv_freq,
-                                 m, pl, attend)
+                                 m, pl, attend, act_quant)
         out[:, i, 0] = k
         out[:, i, 1] = v
     return out
@@ -348,7 +383,8 @@ def generate(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
              row_valid: torch.Tensor | None = None,
              row_budget: torch.Tensor | None = None,
              eos_bias: float = 0.0, prefix_kv=None,
-             prefix_len: torch.Tensor | None = None) -> torch.Tensor:
+             prefix_len: torch.Tensor | None = None,
+             act_quant: bool = False) -> torch.Tensor:
     """Padded prefill + decode. Returns (B, max_new_tokens) int32 ids.
 
     With `prefix_kv` / `prefix_len` (see `prefill`), `input_ids` holds each
@@ -356,17 +392,11 @@ def generate(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
     generated] cache."""
     logits0, cache = prefill(params, cfg, input_ids, attention_mask,
                              max_new_tokens, dtype=dtype, prefix_kv=prefix_kv,
-                             prefix_len=prefix_len)
-    p = input_ids.shape[1]
-    if prefix_kv is not None:
-        # decode sees one combined prompt of PL + P slots: the prefix part
-        # left-aligned and valid for prefix_len, the suffix part left-padded
-        pl = (prefix_kv[0] if isinstance(prefix_kv, (tuple, list))
-              else prefix_kv).shape[3]
-        attention_mask = torch.cat(
-            [_prefix_mask(prefix_len, pl).to(attention_mask.dtype), attention_mask],
-            dim=1)
-        p = pl + p
+                             prefix_len=prefix_len, act_quant=act_quant)
+    # decode sees one combined prompt of PL + P slots: the prefix part
+    # left-aligned and valid for prefix_len, the suffix part left-padded
+    attention_mask = _combined_mask(attention_mask, prefix_kv, prefix_len)
+    p = attention_mask.shape[1]
     return _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
                         max_new_tokens, temperature, top_k, top_p, do_sample,
                         dtype, row_valid, p, row_budget=row_budget,
@@ -377,7 +407,8 @@ def prefill_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
                    seg: torch.Tensor, positions: torch.Tensor,
                    last_idx: torch.Tensor, gather_idx: torch.Tensor,
                    prompt_mask: torch.Tensor, max_new_tokens: int,
-                   dtype=torch.bfloat16) -> tuple[torch.Tensor, KVCache]:
+                   dtype=torch.bfloat16,
+                   act_quant: bool = False) -> tuple[torch.Tensor, KVCache]:
     """Packed prefill: the batch's real tokens back to back in one (1, T)
     stream (`seg` ascending row ids, the pad tail last), attention through
     kernel B3. The per-token K/V is then unpacked into the usual left-padded
@@ -398,7 +429,7 @@ def prefill_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
 
     for i in range(cfg.num_layers):
         x, k, v = _layer_forward(_layer(params, i), cfg, x, positions, inv_freq,
-                                 1, t, attend)
+                                 1, t, attend, act_quant)
         cache.k[i, :, :p] = k[0, flat].reshape(b, p, *k.shape[2:]) * keep
         cache.v[i, :, :p] = v[0, flat].reshape(b, p, *v.shape[2:]) * keep
     return logits_from_hidden(params, cfg, x[0, last_idx, :]), cache
@@ -414,13 +445,132 @@ def generate_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
                     top_k: int = 20, top_p: float = 0.8, do_sample: bool = True,
                     dtype=torch.bfloat16, row_valid: torch.Tensor | None = None,
                     row_budget: torch.Tensor | None = None,
-                    eos_bias: float = 0.0) -> torch.Tensor:
+                    eos_bias: float = 0.0, act_quant: bool = False) -> torch.Tensor:
     """Packed prefill (B3) + the padded path's decode; same contract as
     `generate`."""
     logits0, cache = prefill_packed(params, cfg, input_ids, seg, positions,
                                     last_idx, gather_idx, prompt_mask,
-                                    max_new_tokens, dtype=dtype)
+                                    max_new_tokens, dtype=dtype, act_quant=act_quant)
     return _decode_loop(params, cfg, logits0, cache, prompt_mask, generator,
                         max_new_tokens, temperature, top_k, top_p, do_sample,
                         dtype, row_valid, gather_idx.shape[1],
                         row_budget=row_budget, eos_bias=eos_bias)
+
+
+# ---------------------------------------------------------------------------
+# the continuous decode pool's device functions (core/decode_pool.py)
+# ---------------------------------------------------------------------------
+
+def _first_token(cfg, logits0, generator, do_sample, temperature, top_k, top_p,
+                 eos_bias, row_valid) -> torch.Tensor:
+    tok0 = pick_token(logits0, generator, do_sample, temperature, top_k, top_p,
+                      eos_bias, eos_id_set(cfg)).to(torch.int32)
+    if row_valid is not None:
+        tok0 = torch.where(row_valid, tok0, cfg.pad_token_id)
+    return tok0
+
+
+@torch.inference_mode()
+def prefill_for_pool(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
+                     attention_mask: torch.Tensor,
+                     generator: torch.Generator | None = None,
+                     temperature: float = 0.7, top_k: int = 20, top_p: float = 0.8,
+                     do_sample: bool = True, dtype=torch.bfloat16,
+                     row_valid: torch.Tensor | None = None, act_quant: bool = False,
+                     prefix_kv=None, prefix_len: torch.Tensor | None = None,
+                     eos_bias: float = 0.0):
+    """The prefill `generate` runs, and the first token, for the continuous
+    decode pool: returns (tok0 (B,) int32, k (L, B, T, Hk, D), v, mask
+    (B, T)) with T = [prefix pool length +] P, exactly the prompt K/V, no
+    decode slots; the mask is [prefix mask | suffix mask] over a prefix.
+    Pad rows (row_valid False) get tok0 = pad_token_id."""
+    logits0, cache = prefill(params, cfg, input_ids, attention_mask, 0, dtype=dtype,
+                             prefix_kv=prefix_kv, prefix_len=prefix_len,
+                             act_quant=act_quant)
+    tok0 = _first_token(cfg, logits0, generator, do_sample, temperature, top_k,
+                        top_p, eos_bias, row_valid)
+    return tok0, cache.k, cache.v, _combined_mask(attention_mask, prefix_kv, prefix_len)
+
+
+@torch.inference_mode()
+def prefill_packed_for_pool(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
+                            seg: torch.Tensor, positions: torch.Tensor,
+                            last_idx: torch.Tensor, gather_idx: torch.Tensor,
+                            prompt_mask: torch.Tensor,
+                            generator: torch.Generator | None = None,
+                            temperature: float = 0.7, top_k: int = 20,
+                            top_p: float = 0.8, do_sample: bool = True,
+                            dtype=torch.bfloat16, row_valid: torch.Tensor | None = None,
+                            act_quant: bool = False, eos_bias: float = 0.0):
+    """Packed-prefill variant of `prefill_for_pool`: returns (tok0 (B,), k
+    (L, B, P, Hk, D), v, prompt_mask)."""
+    logits0, cache = prefill_packed(params, cfg, input_ids, seg, positions, last_idx,
+                                    gather_idx, prompt_mask, 0, dtype=dtype,
+                                    act_quant=act_quant)
+    tok0 = _first_token(cfg, logits0, generator, do_sample, temperature, top_k,
+                        top_p, eos_bias, row_valid)
+    return tok0, cache.k, cache.v, prompt_mask
+
+
+@torch.inference_mode()
+def decode_chunk(params: dict, cfg: DecoderConfig, pool_k: torch.Tensor,
+                 pool_v: torch.Tensor, valid: torch.Tensor, last_tok: torch.Tensor,
+                 next_pos: torch.Tensor, active: torch.Tensor,
+                 remaining: torch.Tensor, cursor: int,
+                 generator: torch.Generator | None = None, chunk: int = 8,
+                 temperature: float = 0.7, top_k: int = 20, top_p: float = 0.8,
+                 do_sample: bool = True, dtype=torch.bfloat16, eos_bias: float = 0.0):
+    """`chunk` decode steps over the slot pool, with no host read between
+    them.
+
+    The pool is a ring over the W axis of `pool_k` / `pool_v` (L, S, W, Hk,
+    D) with ONE cursor: at every step every slot writes its token's K/V at
+    column `cursor` (one strided write a layer, no per-row scatter). RoPE
+    positions are baked into K at the write and attention masks by the
+    per-slot `valid` (S, W) bitmap alone, so a slot's tokens may lie at any
+    ring columns: softmax does not depend on key order. `active` and
+    `remaining` flip on the device inside the chunk, so a finished slot
+    stops sampling at once and emits `pad_token_id`; the host learns of it
+    when it reads the (chunk, S) block.
+
+    The state tensors are updated IN PLACE (the JAX function donates them).
+    `cursor` is a host integer: it advances by one a step whatever the
+    tokens, so the host always knows it. Returns (pool_k, pool_v, valid,
+    last_tok, next_pos, active, remaining, cursor, toks (chunk, S) int32)."""
+    s_slots, w = valid.shape
+    dev = valid.device
+    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=dev)
+    eos_ids = eos_id_set(cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    toks = torch.empty((chunk, s_slots), dtype=torch.int32, device=dev)
+    for step in range(chunk):
+        # the column being written is attendable iff its slot is active
+        valid[:, cursor] = active
+        bias = torch.where(valid, zero, NEG_INF)[:, None, None, :]
+        x = embed_lookup(params, last_tok[:, None], dtype)
+        positions = next_pos[:, None]
+        for i in range(cfg.num_layers):
+            layer = _layer(params, i)
+            h = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
+            q, k, v = _qkv(layer, cfg, h, s_slots, 1)
+            q = apply_rope(q, positions, inv_freq)
+            k = apply_rope(k, positions, inv_freq)
+            pool_k[i, :, cursor] = k[:, 0]
+            pool_v[i, :, cursor] = v[:, 0]
+            a = attention(q, pool_k[i].to(dtype), pool_v[i].to(dtype), bias)
+            x = x + dense(a.reshape(s_slots, 1, cfg.num_heads * cfg.head_dim),
+                          layer["o_w"])
+            h = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
+            x = x + _mlp(layer, h)
+        logits = logits_from_hidden(params, cfg, x[:, 0, :])
+        tok = pick_token(logits, generator, do_sample, temperature, top_k, top_p,
+                         eos_bias, eos_ids).to(torch.int32)
+        tok = torch.where(active, tok, cfg.pad_token_id)
+        step_in = active.to(torch.int32)
+        next_pos += step_in
+        remaining -= step_in
+        active &= ~token_is_eos(tok, eos_ids) & (remaining > 0)
+        last_tok.copy_(torch.where(active, tok, last_tok))
+        toks[step] = tok
+        cursor = (cursor + 1) % w
+    return pool_k, pool_v, valid, last_tok, next_pos, active, remaining, cursor, toks

@@ -96,9 +96,18 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_jax(tree, device="cpu"):
     """A JAX parameter tree (dicts of arrays; numpy or jax leaves) as the
     port's tree of tensors. The layouts already agree, so this is a
-    leaf-by-leaf copy."""
+    leaf-by-leaf copy. A quantized node of the JAX package
+    (`QuantizedWeight`, `QuantizedWeight4`: a named tuple of `q` and
+    `scale`) becomes the port's node of the same name with the same bits."""
+    from rag_serving_system_torch.ops.quant import QuantizedWeight, QuantizedWeight4
+
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_jax(v, device) for v in tree]
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        node = QuantizedWeight4 if type(tree).__name__ == "QuantizedWeight4" else QuantizedWeight
+        return node(_tensor(tree.q, device), _tensor(tree.scale, device))
     return _tensor(tree, device)
 
 

@@ -8,7 +8,8 @@ visible keys are all masked output 0, as the TPU kernels emit.
 
 Each wrapper takes its plain version for a CPU tensor and launches
 `csrc/flash_attention.cu` for a CUDA tensor, or raises: a tensor-core kernel
-for bf16, the FP32 CUDA-core kernel for f32.
+for bf16 at head sizes 64 and 128, the FP32 CUDA-core kernel for f32 and for
+the narrow heads (16 and 32) of either type.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 from rag_serving_system_torch.ops import _build
 
 NEG_INF = -1.0e30
-HEAD_DIMS = (64, 128)  # the head sizes csrc/flash_attention.cu instantiates
+HEAD_DIMS = (16, 32, 64, 128)  # the head sizes csrc/flash_attention.cu instantiates
 
 
 def _attend_plain(q, k, v, valid: torch.Tensor) -> torch.Tensor:

@@ -671,13 +671,281 @@ def test_compute_prefix_kv_kernel_matches_plain(dev, dtype, tol):
     assert torch.isfinite(kv.float()).all()
 
 
-def test_engine_refuses_the_tiny_preset_on_the_card(dev):
-    """MODEL_PRESET=tiny has head size 16, which B2/B3 do not take: the
-    engine raises at construction instead of failing every batch."""
+# ---------------------------------------------------------------------------
+# the narrow heads, the quantized products, the decode pool
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,hq,hk,d", [(3, 200, 4, 2, 16), (2, 130, 8, 2, 32),
+                                         (1, 64, 4, 4, 16), (4, 33, 2, 1, 32)])
+def test_flash_kernel_narrow_heads_match_plain(dev, dtype, tol, b, s, hq, hk, d):
+    """B2 at head sizes 16 and 32 (the scalar body, f32 math for both
+    types), left- and right-padded rows and one row with every key masked."""
+    q = _randn(dev, (b, s, hq, d), 1, dtype)
+    k = _randn(dev, (b, s, hk, d), 2, dtype)
+    v = _randn(dev, (b, s, hk, d), 3, dtype)
+    mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+    mask[0, :s // 3] = 0
+    if b > 2:
+        mask[1, s // 2:] = 0
+    if b > 1:
+        mask[-1] = 0
+    before = ta.flash_attention.launches
+    for causal in (True, False):
+        out = ta.flash_attention(q, k, v, mask, causal=causal)
+        ref = ta.flash_attention_plain(q, k, v, mask, causal=causal)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+        if b > 1:
+            assert not out[-1].any()
+    assert ta.flash_attention.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d,hq,hk", [(16, 4, 2), (32, 8, 2)])
+def test_flash_packed_kernel_narrow_heads_match_plain(dev, dtype, tol, d, hq, hk):
+    lens = [130, 1, 75, 64, 40]
+    t = 384
+    seg = torch.full((1, t), len(lens), dtype=torch.int32, device=dev)
+    seg[0, :sum(lens)] = torch.repeat_interleave(
+        torch.arange(len(lens), device=dev), torch.tensor(lens, device=dev)).int()
+    q = _randn(dev, (1, t, hq, d), 4, dtype)
+    k = _randn(dev, (1, t, hk, d), 5, dtype)
+    v = _randn(dev, (1, t, hk, d), 6, dtype)
+    out = ta.flash_attention_packed(q, k, v, seg)
+    ref = ta.flash_attention_packed_plain(q, k, v, seg)
+    n = sum(lens)
+    torch.testing.assert_close(out[:, :n].float(), ref[:, :n].float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (8192, 1536, 2048), (8192, 1536, 17920), (8192, 8960, 1536),   # Qwen2.5-1.5B's four
+    (640, 1536, 1536), (17, 64, 128), (16, 64, 128), (1, 128, 64), (5, 2048, 8),
+    (48, 64, 256), (48, 96, 64), (128, 64, 128)])
+def test_int_mm_route_equals_plain_exactly(dev, m, k, n):
+    """`int_matmul` (`torch._int_mm`, rows padded past 16) against
+    `int_matmul_plain` (f32 over K-chunks of 1024): identical int32 sums, at
+    extreme values too."""
+    from rag_serving_system_torch.models import layers as tl
+
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    xq[0] = 127
+    wq[:, 0] = -127
+    got = tl.int_matmul(xq, wq)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, tl.int_matmul_plain(xq, wq))
+    assert got[0, 0].item() == -127 * 127 * k
+
+
+def test_int_mm_refuses_what_it_does_not_take(dev):
+    """A width that is no multiple of 8 raises: no other route is taken."""
+    from rag_serving_system_torch.models import layers as tl
+
+    xq = torch.zeros((32, 36), dtype=torch.int8, device=dev)
+    with pytest.raises(RuntimeError):
+        tl.int_matmul(xq, torch.zeros((36, 16), dtype=torch.int8, device=dev))
+    with pytest.raises(RuntimeError):
+        tl.int_matmul(xq[:, :32].contiguous(), torch.zeros((32, 12), dtype=torch.int8,
+                                                         device=dev))
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -6)])
+def test_dense_w8a8_on_the_card_matches_the_cpu(dev, kind, dtype, tol):
+    """The W8A8 / W4A8 product through `torch._int_mm` against the same
+    function on the CPU (an int32 matmul), relative to the largest output."""
+    from rag_serving_system_torch.models import layers as tl
+    from rag_serving_system_torch.ops import quant as tquant
+
+    x = _randn(dev, (3, 40, 256), 1, dtype)
+    w = _randn(dev, (256, 64), 2) * 0.05
+    qw = (tquant.quantize_int8 if kind == "int8" else tquant.quantize_int4)(w)
+    b = _randn(dev, (64,), 3, dtype)
+    ours = tl.dense_w8a8(x, qw, b).float().cpu()
+    ref = tl.dense_w8a8(x.cpu(), type(qw)(qw.q.cpu(), qw.scale.cpu()), b.cpu()).float()
+    assert (ours - ref).abs().max() <= tol * ref.abs().max()
+
+
+def _pool_tokens(params, cfg, ids, mask, mnt, dtype, slots, window, cursor, order):
+    """Greedy tokens of every row through `prefill_for_pool`, `_insert_rows`
+    (rows `order`, two waves) and `decode_chunk`."""
+    from rag_serving_system_torch.core.decode_pool import _insert_rows
+    from rag_serving_system_torch.models import qwen2 as tq
+
+    dev = ids.device
+    b = ids.shape[0]
+    shape = (cfg.num_layers, slots, window, cfg.num_kv_heads, cfg.head_dim)
+    state = [torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype, device=dev),
+             torch.zeros((slots, window), dtype=torch.bool, device=dev),
+             torch.full((slots,), cfg.pad_token_id, dtype=torch.int32, device=dev),
+             torch.zeros((slots,), dtype=torch.int32, device=dev),
+             torch.zeros((slots,), dtype=torch.bool, device=dev),
+             torch.zeros((slots,), dtype=torch.int32, device=dev)]
+    tok0, k, v, cmask = tq.prefill_for_pool(params, cfg, ids, mask, None, do_sample=False,
+                                            dtype=dtype,
+                                            row_valid=torch.ones(b, dtype=torch.bool, device=dev))
+    budgets = torch.full((b,), mnt, dtype=torch.int32, device=dev)
+    out = {r: [int(tok0[r])] for r in range(b)}
+    half = b // 2
+    for wave in (order[:half], order[half:]):
+        rows = torch.tensor(wave, device=dev)
+        slot_of = {r: s for s, r in enumerate(wave)}         # the second wave reuses slots
+        _insert_rows(*state, k, v, cmask, tok0, rows,
+                     torch.tensor([slot_of[r] for r in wave], device=dev), cursor, budgets,
+                     tq.eos_id_set(cfg))
+        *_, cursor, toks = tq.decode_chunk(params, cfg, *state, cursor, None, chunk=mnt - 1,
+                                           do_sample=False, dtype=dtype)
+        toks = toks.cpu().numpy()
+        for r in wave:
+            out[r] += [int(t) for t in toks[:, slot_of[r]]]
+    return [[t for t in out[r] if t != cfg.pad_token_id][:mnt] for r in range(b)]
+
+
+@pytest.mark.parametrize("preset", ["tiny", "full_width_2_layers"])
+def test_pool_tokens_equal_the_fixed_path_on_the_card(dev, preset):
+    """f32, greedy: `decode_chunk` over a ring with a wrapped cursor, rows in
+    two waves that reuse slots, against `generate`, at the tiny preset and
+    at Qwen2.5-1.5B's full width cut to 2 layers (weights scaled so that the
+    trajectories vary)."""
+    import dataclasses
+
+    from rag_serving_system_torch.models import qwen2 as tq
+    from rag_serving_system_torch.models.configs import QWEN2_TINY, QWEN25_15B
+    from rag_serving_system_torch.models.weights import init_decoder_params
+
+    cfg = QWEN2_TINY if preset == "tiny" else dataclasses.replace(QWEN25_15B, num_layers=2)
+    params = init_decoder_params(cfg, seed=3, dtype=torch.float32, device=dev)
+    for key in ("qkv_w", "o_w", "gu_w", "down_w"):
+        params["layers"][key] *= 8.0 if preset == "tiny" else 2.0
+    params["embed"] *= 8.0 if preset == "tiny" else 2.0
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, p, mnt = 4, 64, 6
+    lens = [37, 12, 64, 23]
+    ids = torch.randint(10, cfg.vocab_size, (b, p), generator=g, device=dev, dtype=torch.int32)
+    mask = (torch.arange(p, device=dev)[None, :] >= p - torch.tensor(lens, device=dev)[:, None]
+            ).to(torch.int32)
+    ids = ids * mask
+    fixed = tq.generate(params, cfg, ids, mask, None, max_new_tokens=mnt, do_sample=False,
+                        dtype=torch.float32,
+                        row_valid=torch.ones(b, dtype=torch.bool, device=dev)).cpu().numpy()
+    want = [[int(t) for t in row if t != cfg.pad_token_id] for row in fixed]
+    got = _pool_tokens(params, cfg, ids, mask, mnt, torch.float32, slots=2, window=96,
+                       cursor=80, order=[2, 0, 3, 1])
+    assert got == want
+    assert any(len(set(row)) > 2 for row in want)
+
+
+def _tiny_corpus():
+    rng = np.random.default_rng(0)
+    docs = [" ".join(f"w{rng.integers(0, 300)}" for _ in range(rng.integers(14, 24)))
+            for _ in range(40)]
+    return docs, rng.standard_normal((40, 64)).astype(np.float32)
+
+
+TINY_QUERIES = ["what is w1 w2", "tell me w5", "w7 w8 w9 w10", "another question w3"]
+
+
+def _tiny_engine(dev, **over):
     from rag_serving_system_torch.config import Settings
     from rag_serving_system_torch.core.engine import RagEngine
+    from rag_serving_system_torch.models.weights import init_decoder_params
+    from rag_serving_system_torch.ops.quant import quantize_decoder_params
 
-    emb = np.random.default_rng(0).standard_normal((8, 64)).astype(np.float32)
-    with pytest.raises(ValueError, match="MODEL_PRESET"):
-        RagEngine(Settings(model_preset="tiny"), [f"d{i}" for i in range(8)], emb, device=dev)
+    base = dict(model_preset="tiny", dtype="float32", do_sample=False, batch_buckets=[1, 4],
+                max_batch_size=4, encode_len_buckets=[16, 32], prompt_len_buckets=[32, 128],
+                packed_t_step=256, max_new_tokens=6, max_k=4, prefix_pool_len=48,
+                decode_mode="fixed", quant_weights="none", quant_act="none",
+                query_cache_size=0)
+    base.update(over)
+    docs, emb = _tiny_corpus()
+    engine = RagEngine(Settings(**base), docs, emb, device=dev)
+    # varied greedy answers: the decoder's matrices scaled by 8, then
+    # quantized as the engine quantizes them
+    fp = init_decoder_params(engine.dec_cfg, seed=1, dtype=torch.float32, device=engine.device)
+    for key in ("qkv_w", "o_w", "gu_w", "down_w"):
+        fp["layers"][key] *= 8.0
+    fp["embed"] *= 8.0
+    bits = {"none": 0, "int8": 8, "int4": 4}[base["quant_weights"]]
+    engine.dec_params = quantize_decoder_params(fp, bits=bits) if bits else fp
+    return engine
 
+
+@pytest.mark.parametrize("prefix_cache", [True, False], ids=["prefix", "cold"])
+def test_engine_serves_the_tiny_preset_on_the_card(dev, prefix_cache):
+    """MODEL_PRESET=tiny (head size 16) is served on a CUDA device through
+    B2 and B3: the engine's answers equal those with each kernel's plain
+    version swapped in (f32, greedy)."""
+    from rag_serving_system_torch.core import engine as engine_mod
+    from rag_serving_system_torch.models import qwen2 as tq
+
+    assert not engine_mod.unsupported_settings(
+        _tiny_engine(dev, prefix_cache=prefix_cache).settings, dev)
+    engine = _tiny_engine(dev, prefix_cache=prefix_cache)
+    before = (ta.flash_attention.launches, ta.flash_attention_packed.launches)
+    lone = engine.process(TINY_QUERIES[:1], [2])
+    batch = engine.process(TINY_QUERIES, [2] * 4)
+    b2 = ta.flash_attention.launches - before[0]
+    b3 = ta.flash_attention_packed.launches - before[1]
+    assert b2 > 0 and (prefix_cache or b3 > 0)
+    if engine.prefix_cache is not None:
+        engine.prefix_cache.clear()
+    with mock.patch.object(engine_mod, "cosine_topk", tt.cosine_topk_reference), \
+            mock.patch.object(tq, "flash_attention", ta.flash_attention_plain), \
+            mock.patch.object(tq, "flash_attention_packed", ta.flash_attention_packed_plain):
+        assert engine.process(TINY_QUERIES[:1], [2]) == lone
+        assert engine.process(TINY_QUERIES, [2] * 4) == batch
+    assert all(r["result"] for r in lone + batch)
+
+
+@pytest.mark.parametrize("over", [
+    dict(prefix_cache=True), dict(prefix_cache=False),
+    dict(prefix_cache=False, packed_prefill=False, decode_slots=2),
+    dict(prefix_cache=True, quant_weights="int8", quant_act="int8"),
+], ids=["prefix", "packed", "padded_two_slots", "int8_w8a8_prefix"])
+def test_engine_pool_answers_equal_fixed_on_the_card(dev, over):
+    """DECODE_MODE=continuous at the tiny preset on the card: the pool's
+    answers equal the fixed path's on the same weights (f32, greedy)."""
+    fixed = _tiny_engine(dev, **over)
+    cont = _tiny_engine(dev, decode_mode="continuous", **over)
+    cont.enc_params, cont.dec_params = fixed.enc_params, fixed.dec_params
+    want = fixed.process(TINY_QUERIES, [2] * 4)
+    pool = cont.decode_pool
+    pool.start()
+    try:
+        got = {}
+        for tag in ("a", "b"):                       # the second batch hits the prefix cache
+            pool.submit([f"{tag}{i}" for i in range(4)], cont.prepare(TINY_QUERIES, [2] * 4),
+                        lambda rid, res: got.__setitem__(rid, res))
+        assert pool.wait_idle(120.0)
+    finally:
+        pool.stop()
+    for tag in ("a", "b"):
+        assert [got[f"{tag}{i}"] for i in range(4)] == want, tag
+    assert pool.stats()["completed"] == 8
+    assert all(r["result"] for r in want)
+
+
+@pytest.mark.parametrize("quant_weights", ["int8", "int4"])
+def test_engine_serves_quantized_on_the_card(dev, quant_weights):
+    """The tiny preset under QUANT_WEIGHTS with W8A8 prefill on the card:
+    `torch._int_mm` computes every prefill product, and swapping in the plain
+    int32 sums (exactly equal) leaves every answer as it was."""
+    from rag_serving_system_torch.models import layers as tl
+
+    engine = _tiny_engine(dev, prefix_cache=True, quant_weights=quant_weights,
+                          quant_act="int8")
+    assert engine.act_quant and engine.weight_bytes < engine.weight_bytes_init / 3
+    calls = []
+    real = tl.int_matmul
+
+    def counted(xq, wq):
+        calls.append(tuple(xq.shape))
+        return real(xq, wq)
+
+    with mock.patch.object(tl, "int_matmul", counted):
+        got = engine.process(TINY_QUERIES, [2] * 4)
+    assert calls and all(r["result"] for r in got)
+    engine.prefix_cache.clear()
+    with mock.patch.object(tl, "int_matmul", tl.int_matmul_plain):
+        assert engine.process(TINY_QUERIES, [2] * 4) == got

@@ -251,18 +251,18 @@ def test_engine_bfloat16_corpus_follows_the_kernel(corpus):
 
 @pytest.mark.parametrize("over,var", [
     (dict(llm_model_name=ROOT), "LLM_MODEL_NAME"),     # a local model directory
-    (dict(decode_mode="continuous"), "DECODE_MODE"),
-    (dict(quant_weights="int8"), "QUANT_WEIGHTS"),
-    (dict(quant_act="int8"), "QUANT_ACT"),
+    (dict(decode_mode="paged"), "DECODE_MODE"),        # continuous is served; this is not
+    (dict(quant_weights="fp8"), "QUANT_WEIGHTS"),      # int8 and int4 are served
+    (dict(quant_act="fp8"), "QUANT_ACT"),
     (dict(max_k=300), "MAX_K"),
     (dict(spec_gamma=2), "SPEC_DECODE"),
     (dict(mesh_shape="2,1"), "MESH_SHAPE"),
     (dict(weights_dir="/nonexistent"), "WEIGHTS_DIR"),
 ])
 def test_unimplemented_settings_raise(corpus, over, var):
-    """Each setting the port does not implement raises at construction.
-    MAX_K is implemented at any value: MAX_K=300 over 300 rows (k = N, past
-    the warp lists' 256) retrieves the JAX engine's ids."""
+    """Each setting (or value of one) the port does not implement raises at
+    construction. MAX_K is implemented at any value: MAX_K=300 over 300 rows
+    (k = N, past the warp lists' 256) retrieves the JAX engine's ids."""
     docs, emb = corpus
     if var == "MAX_K":
         _assert_max_k_like_jax(over["max_k"], 300)
@@ -339,6 +339,8 @@ def test_port_never_imports_jax():
             "rag_serving_system_torch.models.e5", "rag_serving_system_torch.models.qwen2",
             "rag_serving_system_torch.core.engine",
             "rag_serving_system_torch.core.prefix_cache",
+            "rag_serving_system_torch.core.decode_pool",
+            "rag_serving_system_torch.ops.quant",
             "rag_serving_system_torch.core.batch_processor",
             "rag_serving_system_torch.core.retriever",
             "rag_serving_system_torch.core.request_queue",
@@ -550,16 +552,21 @@ def test_queue_and_processor_serve_repeats_from_the_prefix_cache(corpus):
 
 
 @pytest.mark.parametrize("preset,device,refused", [
-    ("tiny", "cuda", True), ("tiny", "cpu", False), ("full", "cuda", False),
-    ("llama", "cuda", False)])
-def test_head_size_without_a_kernel_is_refused_on_cuda(preset, device, refused):
-    """The tiny decoder's head size (16) has no B2/B3 instance: on a CUDA
-    device the engine must refuse it at construction, naming MODEL_PRESET;
-    on the CPU (the plain versions) every preset is served. Needs no card:
-    only the device's type is read."""
+    ("tiny", "cuda", False), ("tiny", "cpu", False), ("full", "cuda", False),
+    ("llama", "cuda", False), ("head_48", "cuda", True), ("head_48", "cpu", False)])
+def test_head_size_without_a_kernel_is_refused_on_cuda(preset, device, refused, monkeypatch):
+    """Every preset's decoder head size (16, 128, 64) has a B2/B3 instance,
+    so none is refused on a CUDA device any more. A head size without one
+    (48) still is, at construction, naming MODEL_PRESET; on the CPU (the
+    plain versions) any size is served. Needs no card: only the device's
+    type is read."""
+    import dataclasses
+
+    if preset == "head_48":
+        odd = dataclasses.replace(port_engine.decoder_config_for("tiny"), head_dim=48)
+        monkeypatch.setattr(port_engine, "decoder_config_for", lambda name: odd)
     bad = port_engine.unsupported_settings(tiny_settings(model_preset=preset),
                                            torch.device(device))
     assert bool(bad) == refused
     if refused:
-        assert len(bad) == 1 and "MODEL_PRESET=tiny" in bad[0] and "16" in bad[0]
-
+        assert len(bad) == 1 and "MODEL_PRESET=head_48" in bad[0] and "48" in bad[0]

@@ -84,7 +84,7 @@ def test_port_runs_with_the_jax_package_blocked():
     assert out.returncode == 0, out.stderr[-4000:]
     line = [x for x in out.stdout.splitlines() if x.startswith("MODULES")][-1]
     n_modules = int(line.split()[1])
-    assert n_modules >= 26, line          # every module of the package was imported
+    assert n_modules >= 28, line          # every module of the package was imported
     assert line.endswith("LEAKED []"), line
 
 
@@ -145,7 +145,8 @@ _ENV = {"PORT": "8123", "MAX_BATCH_SIZE": "16", "MAX_WAIT_TIME": "0.25",
         "QUANT_ACT": "int8", "HOST": "127.0.0.1", "PREFIX_POOL_LEN": "96",
         "PREFIX_CACHE_MB": "64", "PREFIX_ADAPTIVE": "0", "PREFIX_ADAPTIVE_WINDOW": "32",
         "PREFIX_ADAPTIVE_LOW": "0.5", "PREFIX_PROBE_EVERY": "4",
-        "PREFIX_CACHE_DTYPE": "int8"}
+        "PREFIX_CACHE_DTYPE": "int8", "DECODE_SLOTS": "6", "DECODE_CHUNK": "4",
+        "DECODE_WINDOW": "256"}
 
 
 @pytest.mark.parametrize("env", [{}, _ENV], ids=["defaults", "environment"])
