@@ -77,15 +77,44 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 prefix, padded and packed routes; the pool exactly as the
                 fixed path; int8 + W8A8 through `torch._int_mm` exactly as
                 through the plain int32 sums.
+14. serve_spec - DO_SAMPLE=0 SPEC_DECODE=3 at full width in bf16: a lone
+                request, 64 at once (misses), the same 64 (hits), then
+                PREFIX_CACHE=0 and 32 at once (packed); the same requests at
+                SPEC_DECODE=0 beside them: seconds, loop iterations, decode
+                tokens a row an iteration. One `decode_step` against one
+                `decode_step_spec` at S = 2, 4, 8 (batch 32; CUDA events and
+                the synced host clock), and whole decode loops of 10 and 32
+                tokens: sequential, and speculative under right and wrong
+                drafts (the acceptance → time curve).
+15. serve_checkpoint - the seeded full-width models written as HF snapshots
+                (safetensors in BF16 and config.json) into a temporary
+                directory, and an engine started with WEIGHTS_DIR on it: the
+                derived configs equal the presets, every leaf is bit-equal, 33
+                requests are served, and a greedy batch of 32 is answered as by
+                the random-init engine. Bytes, write and load seconds.
+16. serve_pipeline - the full processor: 129 requests in f32 greedy (decoder
+                scaled by 4) through PREFETCH_WORKERS 1 and 2 with
+                FINALIZE_ASYNC 1 and 0 against the serial `prefetch=False`
+                mode's answers; the same modes in bf16 at the defaults, in
+                seconds; 64 requests at 1, 2, 2, 1 workers (misses and hits);
+                ROLE=api and ROLE=engine over one in-memory queue, a request
+                through HTTP (or through the queue without aiohttp).
+
+The parity phase (7) also holds speculative decode (gamma 1 and 3, row
+budgets, an EOS bias) to sequential greedy on the prefix, packed and padded
+routes, and `_spec_decode_loop` under `draft_source` to its iteration counts.
 
 `python3 chip_smoke.py --stage-split` runs phases 1, 2 and the stage splits
 alone (5 reps each: cold lone and batch of 32, then all miss and all hit),
 for an A/B of two checkouts on one card. `python3 chip_smoke.py --crossover`
 runs phases 1, 2 and the kernels phase's crossover alone, on two seeded
-corpora.
+corpora. `python3 chip_smoke.py --phases serve_spec,serve_pipeline` runs phases
+1, 2 and the named ones (of parity, serve_spec, serve_checkpoint,
+serve_pipeline) alone.
 
 Each path phase (roofline, serve, serve_cold, serve_int8, serve_ivf,
-serve_wide_k, serve_quant, serve_continuous, serve_tiny) sets every launch
+serve_wide_k, serve_quant, serve_continuous, serve_tiny, serve_spec,
+serve_checkpoint, serve_pipeline) sets every launch
 count to 0 just before it and reads the counts just after; each kernel of
 the path must have launched, and every request must come back as
 {"result": str}. Then the nvidia-smi name and power limit, the kernels'
@@ -1183,6 +1212,7 @@ def phase_parity(queries: list) -> None:
     _parity_quant_logits(engine, cases["lone"])
     _parity_int_mm(engine.device)
     _parity_pool(engine, cases)
+    _parity_spec(engine, cases)
     engine.decode_pool.stop()
     del engine, cache
     _release()
@@ -1769,6 +1799,823 @@ def phase_serve_tiny(head_dim: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# speculative decode
+# ---------------------------------------------------------------------------
+
+def _count_loops(engine) -> list:
+    """Wrap `engine.generate_tokens` so that every batch is logged as (the
+    decode loop's forwards after the prefill, its token handle). The log is
+    read by `_loop_summary` after the timed step, never inside it."""
+    log = []
+    real = engine.generate_tokens
+
+    def call(prompts=None, staged=None):
+        before = engine.loop_stats["iters"]
+        handle = real(prompts, staged=staged)
+        log.append((engine.loop_stats["iters"] - before, handle))
+        return handle
+
+    engine.generate_tokens = call
+    return log
+
+
+def _loop_summary(engine, log: list) -> dict:
+    """Batches, loop iterations and decode tokens (those after each row's
+    first, which the prefill gives) of the logged batches, and then empty the
+    log. `tokens_per_row_iteration` is what one row gets out of one forward:
+    1 for the sequential loop while the row lives, up to gamma + 1 under
+    speculative decode."""
+    pad = engine.dec_cfg.pad_token_id
+    iters = decode_tokens = row_iters = seq_steps = 0
+    for n_iters, (toks, n) in log:
+        lens = (toks[:n] != pad).sum(dim=1)
+        iters += n_iters
+        decode_tokens += int((lens - 1).clamp(min=0).sum())
+        row_iters += n_iters * n
+        seq_steps += max(int(lens.max()) - 1, 0)
+    out = {"batches": len(log), "iterations": iters, "decode_tokens": decode_tokens,
+           "tokens_per_row_iteration": decode_tokens / max(row_iters, 1),
+           "iterations_of_a_sequential_loop": seq_steps}
+    log.clear()
+    return out
+
+
+def _greedy_steps(queries: list, spec: int) -> tuple:
+    """The serve phase's three steps (a lone miss, 64 misses, the same 64 as
+    hits) and 32 cold requests (PREFIX_CACHE=0: packed) at DO_SAMPLE=0 and
+    SPEC_DECODE=`spec`, each engine built from the environment behind the
+    queue and the processor. Returns (steps, launches of the three steps,
+    launches of the cold step)."""
+    import torch
+    from rag_serving_system_torch.main import build_processor
+
+    _serve_env(DO_SAMPLE="0", SPEC_DECODE=str(spec))
+    processor, engine, request_queue, settings = build_processor()
+    require(engine.spec_gamma == spec and not settings.do_sample
+            and engine.prefix_cache is not None,
+            f"serve_spec: the engine runs gamma {engine.spec_gamma}, not greedy {spec}")
+    log = _count_loops(engine)
+    steps = {}
+    engine.warmup()
+    log.clear()
+    processor.start()
+    try:
+        raw, total, _ = _three_steps(processor, request_queue, engine.prefix_cache, queries)
+        for name, st in raw.items():
+            steps[name] = {"seconds": st["seconds"], "requests": st["requests"],
+                           "hits": st["hits"], "misses": st["misses"]}
+    finally:
+        processor.stop(drain_timeout=10.0)
+        processor.join(timeout=30)
+    # the log holds the three steps' batches in order: 1, then 2 + 2 or more
+    # (a batch may split); attribute them by the requests they hold
+    order = iter(log[:])
+    for name, st in steps.items():
+        part, held = [], 0
+        while held < st["requests"]:
+            item = next(order)
+            part.append(item)
+            held += item[1][1]
+        st.update(_loop_summary(engine, part))
+    log.clear()
+    _require_prefix_steps(raw, engine.dec_cfg.num_layers, engine.prefix_cache, "serve_spec")
+    step_ms = ((_spec_step_times(engine, queries[1:33]), _spec_loop_times(engine, queries[1:33]))
+               if spec else None)
+    del processor, engine
+    _release()
+
+    _serve_env(DO_SAMPLE="0", SPEC_DECODE=str(spec), PREFIX_CACHE="0")
+    processor, engine, request_queue, _ = build_processor()
+    require(engine.prefix_cache is None and engine.spec_gamma == spec,
+            "serve_spec: the cold engine kept the prefix cache")
+    log = _count_loops(engine)
+    engine.warmup()
+    log.clear()
+    reset_launches()
+    processor.start()
+    try:
+        _, seconds = _answered(request_queue, queries[65:97])
+    finally:
+        processor.stop(drain_timeout=10.0)
+        processor.join(timeout=30)
+    cold = read_launches()
+    layout = engine.stage_prompts(engine.prepare(queries[65:97], [2] * 32))[0]
+    require(layout == "packed", f"serve_spec: 32 cold prompts staged {layout}")
+    steps["d_32_cold_packed"] = {"seconds": seconds, "requests": 32,
+                                 **_loop_summary(engine, log)}
+    del processor, engine
+    _release()
+    torch.cuda.empty_cache()
+    return steps, total, cold, step_ms
+
+
+def _spec_step_times(engine, queries: list, reps: int = 5, rounds: int = 5) -> dict:
+    """One `decode_step` against one `decode_step_spec` over S = 2, 4 and 8
+    positions a row, on the engine's weights and dtype at batch 32 over a
+    cold padded prefill of real prompts: CUDA-event ms and CUDA-synced host
+    ms, the median of `rounds` rounds of `reps` calls each, the calls taking
+    turns. The cost of an iteration against a step is what an accepted draft
+    has to pay for."""
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch.models import qwen2
+
+    n = len(queries)
+    with mock.patch.object(engine, "prefix_cache", None), \
+            mock.patch.object(engine, "packed", False):
+        staged = engine.stage_prompts(engine.prepare(queries, [2] * n))
+    require(staged[0] == "padded", f"spec_step: staged {staged[0]}")
+    ids, mask = staged[1], staged[2]
+    b, p = ids.shape
+    mnt = engine.settings.max_new_tokens
+    dev = ids.device
+
+    def timed_once(fn):
+        """(CUDA-event ms, CUDA-synced host ms) of one call, mean of `reps`."""
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps, (time.perf_counter() - t0) / reps * 1e3
+
+    out = {"batch": b, "prompt_slots": p, "dtype": str(engine.dtype).split(".")[-1],
+           "reps": reps, "rounds": rounds}
+    with torch.inference_mode():
+        _, cache = qwen2.prefill(engine.dec_params, engine.dec_cfg, ids, mask, mnt + 8,
+                                 dtype=engine.dtype)
+        tok = torch.full((b,), 100, dtype=torch.int32, device=dev)
+        step0 = torch.ones((b,), dtype=torch.int32, device=dev)
+        hist = torch.randint(0, 50, (b, p + mnt + 1), device=dev, dtype=torch.int32)
+        cur = torch.full((b,), p + 3, dtype=torch.int32, device=dev)
+        calls = {"decode_step": lambda: qwen2.decode_step(
+            engine.dec_params, engine.dec_cfg, cache, tok, 1, p, mask, dtype=engine.dtype),
+            "draft_ngram_gamma3": lambda: qwen2.draft_ngram(hist, cur, 3)}
+        for s in (2, 4, 8):
+            chunk = tok[:, None].expand(b, s).contiguous()
+            calls[f"decode_step_spec_S{s}"] = lambda chunk=chunk: qwen2.decode_step_spec(
+                engine.dec_params, engine.dec_cfg, cache, chunk, step0, p, mask,
+                dtype=engine.dtype)
+        # the host's speed drifts within a run: time the calls in turns and
+        # keep each call's median round
+        seen = {name: [] for name in calls}
+        for rnd in range(rounds + 1):
+            for name, fn in calls.items():
+                pair = timed_once(fn)
+                if rnd:                     # round 0 warms up
+                    seen[name].append(pair)
+        for name, pairs in seen.items():
+            out[name] = {"device_ms": sorted(d for d, _ in pairs)[len(pairs) // 2],
+                         "host_ms": sorted(h for _, h in pairs)[len(pairs) // 2],
+                         "host_ms_min_max": [min(h for _, h in pairs),
+                                             max(h for _, h in pairs)]}
+        for s in (2, 4, 8):
+            out[f"S{s}_over_step"] = (out[f"decode_step_spec_S{s}"]["host_ms"]
+                                      / out["decode_step"]["host_ms"])
+    del cache
+    return out
+
+
+def _spec_loop_times(engine, queries: list, mnts=(10, 32), reps: int = 3) -> dict:
+    """The acceptance → time curve: whole decode loops over one cold padded
+    prefill of 32 real prompts on the engine's weights and dtype, CUDA-synced
+    host ms (median of `reps`, the loops taking turns) and iterations:
+    the sequential loop; the speculative loop fed wrong drafts (gamma 3: one
+    token an iteration, the dearest case); and fed right drafts at gamma 1,
+    3 and 7 (the cheapest case). In bf16 a verify forward may pick another
+    near-tie than the single step did, after which the sequential output no
+    longer drafts the loop's own trajectory; the right drafts are therefore
+    the loop's own output at that gamma. The iterations are printed."""
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch.models import qwen2
+
+    n = len(queries)
+    with mock.patch.object(engine, "prefix_cache", None), \
+            mock.patch.object(engine, "packed", False):
+        staged = engine.stage_prompts(engine.prepare(queries, [2] * n))
+    ids, mask = staged[1], staged[2]
+    b, p = ids.shape
+    params, cfg, dtype = engine.dec_params, engine.dec_cfg, engine.dtype
+    out = {"batch": b, "prompt_slots": p, "dtype": str(dtype).split(".")[-1], "reps": reps}
+    with torch.inference_mode():
+        for mnt in mnts:
+            seq = qwen2.generate(params, cfg, ids, mask, max_new_tokens=mnt,
+                                 do_sample=False, dtype=dtype)
+            wrong = torch.full((b, mnt + 3), 7, dtype=torch.int32, device=ids.device)
+            cases = {"sequential": (0, None), "wrong_gamma3": (3, wrong)}
+            for gamma in (1, 3, 7):
+                # the loop's own output at this gamma, reached from the
+                # sequential one: a position's logits depend on the tokens
+                # before it and on the forward's shape, not on where in a
+                # chunk it stands, so these drafts are all accepted
+                logits0, kv = qwen2.prefill(params, cfg, ids, mask, mnt + gamma, dtype=dtype)
+                own, _ = qwen2._spec_decode_loop(
+                    params, cfg, logits0, kv, mask, mnt, gamma, dtype, None, p, ids,
+                    draft_source=torch.cat([seq, seq[:, :gamma]], dim=1))
+                del kv
+                cases[f"right_gamma{gamma}"] = (gamma, torch.cat([own, own[:, :gamma]], dim=1))
+            seen = {name: [] for name in cases}
+            for _ in range(reps + 1):
+                for name, (gamma, src) in cases.items():
+                    logits0, kv = qwen2.prefill(params, cfg, ids, mask, mnt + gamma, dtype=dtype)
+                    stats = {}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if gamma:
+                        _, iters = qwen2._spec_decode_loop(params, cfg, logits0, kv, mask, mnt,
+                                                           gamma, dtype, None, p, ids,
+                                                           draft_source=src)
+                    else:
+                        qwen2._decode_loop(params, cfg, logits0, kv, mask, None, mnt, 0.7, 20,
+                                           0.8, False, dtype, None, p, loop_stats=stats)
+                        iters = stats["iters"]
+                    torch.cuda.synchronize()
+                    seen[name].append(((time.perf_counter() - t0) * 1e3, iters))
+                    del kv
+            out[f"max_new_tokens_{mnt}"] = {
+                name: {"ms": sorted(t for t, _ in runs[1:])[len(runs[1:]) // 2],
+                       "iterations": runs[-1][1]} for name, runs in seen.items()}
+    return out
+
+
+def phase_serve_spec(queries: list) -> tuple:
+    """DO_SAMPLE=0 SPEC_DECODE=3 at full width in bf16 behind the queue and
+    the processor: a lone request, 64 at once (misses), the same 64 (hits),
+    then PREFIX_CACHE=0, 32 at once (packed); and the same requests at
+    SPEC_DECODE=0 DO_SAMPLE=0 beside them: seconds, loop iterations and
+    decode tokens a row an iteration. Random weights give the n-gram drafter
+    little to find, so this shows the iteration's cost, not a gain. Returns
+    the launch counts of the speculative run (three steps; cold step)."""
+    spec, total, cold, step_ms = _greedy_steps(queries, 3)
+    seq, _, _, _ = _greedy_steps(queries, 0)
+    emit("serve_spec", gamma=3, dtype="bfloat16", do_sample=False, launches=total,
+         launches_cold=cold,
+         steps={name: {"spec": spec[name], "sequential": seq[name]} for name in spec})
+    emit("spec_step", **step_ms[0])
+    emit("spec_loop", **step_ms[1])
+    for name in ("cosine_topk", "flash_attention"):
+        require(total[name] > 0, f"kernel {name} never launched in serve_spec")
+    require(cold["flash_attention_packed"] > 0 and cold["cosine_topk"] > 0,
+            f"serve_spec: the cold packed step did not launch B3: {cold}")
+    for name, st in spec.items():
+        # a live row gets at least one token out of every iteration (one more
+        # a batch is allowed for a stop id that equals the pad id)
+        require(st["iterations"] <= st["iterations_of_a_sequential_loop"] + st["batches"],
+                f"serve_spec: step {name} took {st['iterations']} iterations where a "
+                f"sequential loop takes {st['iterations_of_a_sequential_loop']}")
+        require(seq[name]["tokens_per_row_iteration"] <= 1.0 + 1e-9,
+                f"serve_spec: the sequential loop's tokens an iteration: {seq[name]}")
+    require(sum(st["iterations"] for st in spec.values()) > 0,
+            f"serve_spec: no speculative iteration ran: {spec}")
+    return total, cold
+
+
+def _top2_gaps(engine, prompts: list) -> tuple:
+    """One sequential greedy batch with the top-2 gap of every pick recorded:
+    (tokens (n, mnt) on the host, gaps (n, mnt): the gap of the logits
+    (EOS bias applied) that chose each token; inf where the loop had ended)."""
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch.models import qwen2
+
+    seen = []
+    real = qwen2.pick_token
+
+    def recorded(logits, generator, do_sample, temperature=0.7, top_k=20, top_p=0.8,
+                 eos_bias=0.0, eos_ids=()):
+        top = torch.topk(qwen2.bias_eos(logits, eos_ids, eos_bias), 2, dim=-1).values
+        seen.append(top[:, 0] - top[:, 1])
+        return real(logits, generator, do_sample, temperature, top_k, top_p, eos_bias,
+                    eos_ids)
+
+    with mock.patch.object(engine, "spec_gamma", 0), \
+            mock.patch.object(qwen2, "pick_token", recorded):
+        toks, n = engine.generate_tokens(prompts)
+    mnt = toks.shape[1]
+    gaps = torch.full((n, mnt), float("inf"))
+    for j, g in enumerate(seen):
+        gaps[:, j] = g[:n].float().cpu()
+    return toks[:n].cpu(), gaps
+
+
+GAP_THRESHOLD = 1e-3    # logit units; below it a pick may flip between shapes
+
+
+def _parity_spec(engine, cases: dict) -> None:
+    """Speculative against sequential greedy on the f32 engine, the decoder's
+    matrices scaled by 4 (so that picks have clear gaps): gamma 1 and 3, on
+    the prefix route (a miss, then the hit), the cold packed route (batch of
+    8) and the cold padded route (the lone request), with mixed row budgets
+    and an EOS bias. A verify forward over gamma + 1 positions may reduce in
+    another order than a single step, so tokens must be equal up to the
+    first pick whose sequential top-2 gap is under GAP_THRESHOLD; the share
+    of equal tokens and every row's first differing step are printed.
+
+    Then `_spec_decode_loop` alone with `draft_source`: the sequential output
+    (every draft right: the same tokens in ceil((mnt - 1) / (gamma + 1))
+    iterations) and wrong drafts (one token an iteration)."""
+    import math
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch.models import qwen2
+    from rag_serving_system_torch.models.tokenizer import pad_and_stack
+
+    cache = engine.prefix_cache
+    mnt = engine.settings.max_new_tokens
+    batch, lone = cases["batch_of_8"], cases["lone"]
+    budgets = {8: [None, 3, 1, 7, None, 2, 5, None], 1: [None]}
+    report, worst = {}, []
+
+    def compare(name, qs, gamma):
+        prompts = engine.prepare(qs, [2] * len(qs), budgets[len(qs)])
+        layout = engine.stage_prompts(prompts)[0]
+        if cache is not None and engine.prefix_cache is not None and "miss" in name:
+            cache.clear()
+        seq, gaps = _top2_gaps(engine, prompts)
+        if cache is not None and engine.prefix_cache is not None and "miss" in name:
+            cache.clear()
+        before = dict(engine.loop_stats)
+        with mock.patch.object(engine, "spec_gamma", gamma):
+            toks, n = engine.generate_tokens(prompts)
+        spec = toks[:n].cpu()
+        iters = engine.loop_stats["iters"] - before["iters"]
+        differ = (spec != seq)
+        first = [int(row.nonzero()[0]) if row.any() else None for row in differ]
+        excused = all(f is None or gaps[r, :f + 1].min() < GAP_THRESHOLD
+                      for r, f in enumerate(first))
+        report[f"{name}_gamma{gamma}"] = {
+            "layout": layout, "rows": n, "iterations": iters,
+            "equal_share": 1.0 - differ.float().mean().item(),
+            "first_differing_step": first, "least_gap": gaps.min().item(),
+            "ok": excused}
+        if not excused:
+            worst.append((name, gamma, first, spec.tolist(), seq.tolist()))
+
+    with mock.patch.object(engine.settings, "eos_bias", 2.0):
+        for gamma in (1, 3):
+            compare("prefix_miss", batch, gamma)
+            compare("prefix_hit", batch, gamma)
+            with mock.patch.object(engine, "prefix_cache", None):
+                compare("cold_packed", batch, gamma)
+                compare("cold_padded", lone, gamma)
+    layouts = {k: v["layout"] for k, v in report.items()}
+    emit("parity_spec", dtype="float32", decoder_scale=4.0, eos_bias=2.0,
+         budgets=budgets[8], gap_threshold=GAP_THRESHOLD, cases=report)
+    require(all(("packed" if "cold_packed" in k else "padded") == v
+                for k, v in layouts.items()), f"parity_spec: layouts {layouts}")
+    require(not worst, f"parity_spec: speculative tokens differ from sequential greedy "
+            f"where the sequential gap is above {GAP_THRESHOLD}: {worst[:2]}")
+
+    # the loop alone over a padded prefill of the 8 prompts, drafts supplied
+    with mock.patch.object(engine, "prefix_cache", None):
+        prompts = engine.prepare(batch, [2] * len(batch))
+    rows = engine._prompt_tokens_batch(prompts)
+    plen = -(-max(len(r) for r in rows) // 64) * 64
+    ids, mask = pad_and_stack(rows, plen, engine.dec_tok.pad_id, pad_side="left",
+                              truncate_side="left")
+    ids, mask = engine._put_batch(ids), engine._put_batch(mask)
+    kw = dict(max_new_tokens=mnt, do_sample=False, dtype=engine.dtype)
+    with torch.inference_mode():
+        seq = qwen2.generate(engine.dec_params, engine.dec_cfg, ids, mask, **kw)
+        ended = bool(qwen2.token_is_eos(seq, qwen2.eos_id_set(engine.dec_cfg)).any())
+        wrong_id = next(v for v in range(100, engine.dec_cfg.vocab_size)
+                        if not bool((seq == v).any()))
+        drafts = {}
+        for gamma in (1, 3):
+            for kind in ("right", "wrong"):
+                src = (torch.cat([seq, seq[:, :gamma]], dim=1) if kind == "right"
+                       else torch.full((len(rows), mnt + gamma), wrong_id,
+                                       dtype=torch.int32, device=ids.device))
+                logits0, kv = qwen2.prefill(engine.dec_params, engine.dec_cfg, ids, mask,
+                                            mnt + gamma, dtype=engine.dtype)
+                out, iters = qwen2._spec_decode_loop(
+                    engine.dec_params, engine.dec_cfg, logits0, kv, mask, mnt, gamma,
+                    engine.dtype, None, plen, ids, draft_source=src)
+                want = math.ceil((mnt - 1) / (gamma + 1)) if kind == "right" else mnt - 1
+                drafts[f"{kind}_gamma{gamma}"] = {
+                    "iterations": iters, "expected": want,
+                    "tokens_equal": bool(torch.equal(out, seq))}
+                del kv
+    emit("parity_spec_drafts", max_new_tokens=mnt, rows=len(rows), prompt_slots=plen,
+         a_row_ended_early=ended, cases=drafts)
+    for name, d in drafts.items():
+        require(d["tokens_equal"], f"parity_spec: draft_source {name}: tokens differ "
+                f"from sequential greedy")
+        require(d["iterations"] == d["expected"] or (ended and d["iterations"] <= d["expected"]),
+                f"parity_spec: draft_source {name}: {d}")
+    emit("spec_step", **_spec_step_times(engine, (batch * 4)[:32]))
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """Write name → tensor as one .safetensors file (8-byte little-endian
+    header length, JSON header, raw little-endian data): the inverse of
+    `models/weights.py:read_safetensors`. Tensors are copied to the host one
+    at a time. Returns the bytes written."""
+    import torch
+    from rag_serving_system_torch.models.weights import SAFETENSORS_DTYPES
+
+    codes = {dtype: code for code, dtype in SAFETENSORS_DTYPES.items()}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().data)
+    return 8 + len(blob) + offset
+
+
+def decoder_to_hf(params: dict, cfg) -> dict:
+    """The port's decoder tree in HF names and (out, in) layout: the inverse
+    of `load_decoder_params`."""
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    ff = cfg.intermediate_size
+    lay = params["layers"]
+    out = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["ln_f"]}
+    if "lm_head" in params:
+        out["lm_head.weight"] = params["lm_head"].t()
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        qkv, gu = lay["qkv_w"][i], lay["gu_w"][i]
+        out.update({
+            p + "input_layernorm.weight": lay["ln1"][i],
+            p + "post_attention_layernorm.weight": lay["ln2"][i],
+            p + "self_attn.q_proj.weight": qkv[:, :qd].t(),
+            p + "self_attn.k_proj.weight": qkv[:, qd:qd + kvd].t(),
+            p + "self_attn.v_proj.weight": qkv[:, qd + kvd:].t(),
+            p + "self_attn.o_proj.weight": lay["o_w"][i].t(),
+            p + "mlp.gate_proj.weight": gu[:, :ff].t(),
+            p + "mlp.up_proj.weight": gu[:, ff:].t(),
+            p + "mlp.down_proj.weight": lay["down_w"][i].t()})
+        if "qkv_b" in lay:
+            b = lay["qkv_b"][i]
+            out.update({p + "self_attn.q_proj.bias": b[:qd],
+                        p + "self_attn.k_proj.bias": b[qd:qd + kvd],
+                        p + "self_attn.v_proj.bias": b[qd + kvd:]})
+    return out
+
+
+def encoder_to_hf(params: dict, cfg) -> dict:
+    """The port's encoder tree in XLM-RoBERTa's HF names: the inverse of
+    `load_encoder_params`."""
+    h = cfg.hidden_size
+    emb, lay = params["embed"], params["layers"]
+    out = {"embeddings.word_embeddings.weight": emb["word"],
+           "embeddings.position_embeddings.weight": emb["pos"],
+           "embeddings.token_type_embeddings.weight": emb["type"],
+           "embeddings.LayerNorm.weight": emb["ln_scale"],
+           "embeddings.LayerNorm.bias": emb["ln_bias"]}
+    for i in range(cfg.num_layers):
+        p = f"encoder.layer.{i}."
+        w, b = lay["qkv_w"][i], lay["qkv_b"][i]
+        for j, name in enumerate(("query", "key", "value")):
+            out[p + f"attention.self.{name}.weight"] = w[:, j * h:(j + 1) * h].t()
+            out[p + f"attention.self.{name}.bias"] = b[j * h:(j + 1) * h]
+        out.update({
+            p + "attention.output.dense.weight": lay["o_w"][i].t(),
+            p + "attention.output.dense.bias": lay["o_b"][i],
+            p + "attention.output.LayerNorm.weight": lay["attn_ln_scale"][i],
+            p + "attention.output.LayerNorm.bias": lay["attn_ln_bias"][i],
+            p + "intermediate.dense.weight": lay["ff_w1"][i].t(),
+            p + "intermediate.dense.bias": lay["ff_b1"][i],
+            p + "output.dense.weight": lay["ff_w2"][i].t(),
+            p + "output.dense.bias": lay["ff_b2"][i],
+            p + "output.LayerNorm.weight": lay["ff_ln_scale"][i],
+            p + "output.LayerNorm.bias": lay["ff_ln_bias"][i]})
+    return out
+
+
+def decoder_hf_config(cfg) -> dict:
+    """The config.json that `decoder_config_from_hf` reads back as `cfg`."""
+    return {"model_type": "qwen2" if cfg.qkv_bias else "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+            "intermediate_size": cfg.intermediate_size, "rms_norm_eps": cfg.rms_norm_eps,
+            "rope_theta": cfg.rope_theta, "tie_word_embeddings": cfg.tie_word_embeddings,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "eos_token_id": list(cfg.eos_token_ids), "pad_token_id": cfg.pad_token_id,
+            "attention_bias": cfg.qkv_bias}
+
+
+def encoder_hf_config(cfg) -> dict:
+    return {"model_type": "xlm-roberta" if cfg.position_style == "roberta" else "bert",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+            "intermediate_size": cfg.intermediate_size,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "type_vocab_size": cfg.type_vocab_size, "layer_norm_eps": cfg.layer_norm_eps,
+            "pad_token_id": cfg.pad_token_id}
+
+
+def write_checkpoints(root: str, engine, names: dict) -> dict:
+    """The engine's two models as HF snapshots under `root` (one directory a
+    model, named as `find_snapshot` looks for it): model.safetensors in the
+    parameters' own dtype and config.json. Returns the bytes of each."""
+    out = {}
+    for which, params, cfg, to_hf, to_cfg in (
+            ("encoder", engine.enc_params, engine.enc_cfg, encoder_to_hf, encoder_hf_config),
+            ("decoder", engine.dec_params, engine.dec_cfg, decoder_to_hf, decoder_hf_config)):
+        d = os.path.join(root, names[which])
+        os.makedirs(d, exist_ok=True)
+        out[which] = write_safetensors(os.path.join(d, "model.safetensors"),
+                                       to_hf(params, cfg))
+        with open(os.path.join(d, "config.json"), "w", encoding="utf-8") as f:
+            json.dump(to_cfg(cfg), f)
+    return out
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+def phase_serve_checkpoint(queries: list) -> dict:
+    """The checkpoint loader at full width. An engine with seeded random
+    weights writes both models as HF snapshots (safetensors in BF16 and a
+    config.json each) into a temporary directory; a second engine starts
+    with WEIGHTS_DIR on it. Required: both architectures derived from the
+    config.json files equal the presets, every loaded leaf bit-equal to the
+    seeded one, a lone request and 32 at once answered through the
+    processor, and one greedy batch of 32 answered exactly as by the
+    random-init engine. Both engines name their models by the snapshot
+    directories, which hold the repository's BPE tokenizer from the start, so
+    both tokenize alike: through the HF adapter where `transformers` is
+    importable, else by hashing (the line says which). With less than
+    10 GB free in the temporary directory the models are cut to 4 layers
+    each (widths are never cut) and the line says so."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch.core import engine as engine_mod
+    from rag_serving_system_torch.main import build_processor
+
+    root = tempfile.mkdtemp(prefix="rag_ckpt_")
+    try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        reduced = free_gb < 10.0
+        names = {"encoder": "e5-large-seeded", "decoder": "qwen2.5-1.5b-seeded"}
+        dirs = {k: os.path.join(root, v) for k, v in names.items()}
+        for d in dirs.values():
+            # the repository's BPE tokenizer stands in for both models' own
+            # (its 27,056 ids fit both vocabularies)
+            shutil.copytree(os.path.join(DATA, "bpe_tokenizer"), d)
+        cut = (lambda cfg: dataclasses.replace(cfg, num_layers=4)) if reduced else (lambda c: c)
+        enc_for, dec_for = engine_mod.encoder_config_for, engine_mod.decoder_config_for
+        env = dict(DO_SAMPLE="0", EMBED_MODEL_NAME=dirs["encoder"],
+                   LLM_MODEL_NAME=dirs["decoder"], QUERY_CACHE_SIZE="0")
+        _serve_env(**env)
+        with mock.patch.object(engine_mod, "encoder_config_for", lambda p: cut(enc_for(p))), \
+                mock.patch.object(engine_mod, "decoder_config_for", lambda p: cut(dec_for(p))):
+            _, seeded, _, _ = build_processor()
+        require(seeded.weights_loaded == {"encoder": False, "decoder": False},
+                f"serve_checkpoint: the first engine loaded {seeded.weights_loaded}")
+        batch = queries[33:65]
+        want = seeded.process(batch, [2] * len(batch))
+        t0 = time.perf_counter()
+        nbytes = write_checkpoints(root, seeded, names)
+        write_s = time.perf_counter() - t0
+
+        _serve_env(WEIGHTS_DIR=root, **env)
+        reset_launches()
+        t0 = time.perf_counter()
+        processor, loaded, request_queue, settings = build_processor()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        require(loaded.weights_loaded == {"encoder": True, "decoder": True}
+                and settings.weights_dir == root,
+                f"serve_checkpoint: WEIGHTS_DIR={root} loaded {loaded.weights_loaded}")
+        require(loaded.enc_cfg == seeded.enc_cfg and loaded.dec_cfg == seeded.dec_cfg
+                and (reduced or (loaded.enc_cfg == enc_for(settings.model_preset)
+                                 and loaded.dec_cfg == dec_for(settings.model_preset))),
+                f"serve_checkpoint: derived configs {loaded.enc_cfg} / {loaded.dec_cfg}")
+        n_leaves, unequal = 0, []
+        for a, b in ((seeded.enc_params, loaded.enc_params),
+                     (seeded.dec_params, loaded.dec_params)):
+            mine = dict(_leaves(b))
+            for name, leaf in _leaves(a):
+                n_leaves += 1
+                other = mine.pop(name, None)
+                if (other is None or other.dtype != leaf.dtype or other.device != leaf.device
+                        or not torch.equal(other, leaf)):
+                    unequal.append(name)
+            unequal += list(mine)
+        require(not unequal, f"serve_checkpoint: leaves differ after the round trip: {unequal}")
+        toks = [type(t).__name__ for t in (loaded.enc_tok, loaded.dec_tok,
+                                           seeded.enc_tok, seeded.dec_tok)]
+        require(toks[:2] == toks[2:], f"serve_checkpoint: the engines tokenize "
+                f"differently: {toks}")
+        r = _drive(processor, request_queue, queries[:33], 32)
+        launches = read_launches()
+        loaded.prefix_cache.clear()     # all misses, as the seeded engine's batch was
+        got = loaded.process(batch, [2] * len(batch))
+        equal = sum(a == b for a, b in zip(got, want))
+        emit("serve_checkpoint", reduced="layers=4" if reduced else None,
+             tmp_free_gb=free_gb, dtype="bfloat16", stored="BF16", bytes=nbytes,
+             write_s=write_s, load_s=loaded.models_ready_s, init_s=init_s,
+             random_init_s=seeded.models_ready_s, leaves=n_leaves, leaves_bit_equal=True,
+             configs_equal_presets=not reduced, tokenizers=toks[:2],
+             answers_equal=equal, of=len(batch), launches=launches, **r)
+        require(equal == len(batch), f"serve_checkpoint: {len(batch) - equal} of "
+                f"{len(batch)} greedy answers differ from the random-init engine's")
+        for name in ("cosine_topk", "flash_attention"):
+            require(launches[name] > 0, f"kernel {name} never launched in serve_checkpoint")
+        del processor, loaded, seeded
+        _release()
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined processor and the roles
+# ---------------------------------------------------------------------------
+
+PIPELINE_MODES = (("serial", dict(prefetch=False), {}),
+                  ("w1_async", {}, dict(PREFETCH_WORKERS="1", FINALIZE_ASYNC="1")),
+                  ("w2_async", {}, dict(PREFETCH_WORKERS="2", FINALIZE_ASYNC="1")),
+                  ("w1_sync", {}, dict(PREFETCH_WORKERS="1", FINALIZE_ASYNC="0")),
+                  ("w2_sync", {}, dict(PREFETCH_WORKERS="2", FINALIZE_ASYNC="0")))
+
+
+def _through_processor(engine, settings, queries: list, kw: dict, env: dict) -> tuple:
+    """`queries` at once through a new queue and a new processor of the given
+    mode over `engine`: (answers in request order, seconds, the processor)."""
+    from rag_serving_system_torch.core.batch_processor import BatchProcessor
+    from rag_serving_system_torch.core.request_queue import make_queue
+
+    for var in ("PREFETCH_WORKERS", "FINALIZE_ASYNC"):
+        os.environ.pop(var, None)
+    os.environ.update(env)
+    request_queue = make_queue(settings)
+    processor = BatchProcessor(request_queue, engine,
+                               polling_interval=min(settings.polling_interval, 0.05), **kw)
+    processor.start()
+    try:
+        results, seconds = _answered(request_queue, queries)
+    finally:
+        processor.stop(drain_timeout=10.0)
+        processor.join(timeout=30)
+    require(not processor.is_alive() and processor.requests_processed == len(queries),
+            f"serve_pipeline: the processor counted {processor.requests_processed} of "
+            f"{len(queries)} requests, alive={processor.is_alive()}")
+    return [r["result"] for r in results], seconds, processor
+
+
+def phase_serve_pipeline(queries: list) -> dict:
+    """The full processor at full width.
+
+    (a) f32, greedy, the decoder's matrices scaled by 4 (answers then follow
+    the prompt, and picks have clear gaps): 129 requests at once through the
+    serial mode (`prefetch=False`) and through PREFETCH_WORKERS 1 and 2 with
+    FINALIZE_ASYNC 1 and 0. A request's batch differs between modes
+    (regrouping, partial batches), and so do its matmul shapes, so the bound
+    is 127 of 129 answers identical to the serial mode's, printed with the
+    count; a wrong request-to-answer mapping would change most.
+    (b) bf16 at the defaults (sampling): the same 129 through each mode, in
+    seconds, after one untimed pass (the 129th request is a batch of its
+    own, which `get_batch` holds for MAX_WAIT_TIME in every mode); then the
+    A/B behind the default of PREFETCH_WORKERS: 64 at once, all misses (the
+    prefix cache emptied) and all hits, at 1, 2, 2, 1 workers.
+    (c) ROLE=api and ROLE=engine built by `main.build_app` in this process
+    over one in-memory queue (a stand-in for Redis): one request through
+    HTTP where aiohttp is importable, else through the queue."""
+    import importlib.util
+    import urllib.request
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch import main as main_mod
+    from rag_serving_system_torch.core import request_queue as rq_mod
+    from rag_serving_system_torch.main import build_processor
+
+    batch = queries[:129]
+    _serve_env(COMPUTE_DTYPE="float32", DO_SAMPLE="0")
+    _, engine, _, settings = build_processor()
+    _scale_decoder(engine, 4.0)
+    engine.warmup()
+    # one untimed pass first: the first batches at a new shape pay for it
+    _through_processor(engine, settings, batch, dict(prefetch=False), {})
+    answers, f32_seconds = {}, {}
+    for name, kw, env in PIPELINE_MODES:
+        engine.prefix_cache.clear()
+        answers[name], f32_seconds[name], _ = _through_processor(engine, settings, batch,
+                                                                 kw, env)
+    same = {name: sum(a == b for a, b in zip(got, answers["serial"]))
+            for name, got in answers.items()}
+    distinct = len(set(answers["serial"]))
+    emit("serve_pipeline_equal", dtype="float32", decoder_scale=4.0, requests=len(batch),
+         identical_to_serial=same, required=len(batch) - 2, distinct_answers=distinct,
+         seconds=f32_seconds)
+    require(all(n >= len(batch) - 2 for n in same.values()),
+            f"serve_pipeline: answers identical to the serial mode's: {same}")
+    require(distinct >= 10, f"serve_pipeline: only {distinct} distinct answers")
+    del engine
+    _release()
+
+    _serve_env()
+    _, engine, _, settings = build_processor()
+    engine.warmup()
+    reset_launches()    # the untimed pass retrieves; the query cache answers after it
+    _through_processor(engine, settings, batch, dict(prefetch=False), {})
+    seconds, backlog = {}, {}
+    for name, kw, env in PIPELINE_MODES:
+        engine.prefix_cache.clear()
+        _, seconds[name], proc = _through_processor(engine, settings, batch, kw, env)
+        backlog[name] = {"batches": proc.batches_processed,
+                         "workers": proc.prefetch_workers,
+                         "finalize_async": proc.finalize_async and proc.prefetch}
+    launches = read_launches()
+    ab = []
+    for workers in ("1", "2", "2", "1"):
+        row = {"workers": int(workers)}
+        for step, clear in (("misses_s", True), ("hits_s", False)):
+            if clear:
+                engine.prefix_cache.clear()
+            _, row[step], _ = _through_processor(
+                engine, settings, queries[1:65], {},
+                dict(PREFETCH_WORKERS=workers, FINALIZE_ASYNC="1"))
+        ab.append(row)
+    emit("serve_pipeline", dtype="bfloat16", requests=len(batch), seconds=seconds,
+         modes=backlog, launches=launches, prefetch_workers_ab_64_requests=ab,
+         stages=engine.timer.summary())
+    for name in ("cosine_topk", "flash_attention"):
+        require(launches[name] > 0, f"kernel {name} never launched in serve_pipeline")
+    del engine
+    _release()
+
+    # (c) the two roles over one queue
+    _serve_env(REDIS_URL="redis://in-process-stand-in:6379", MAX_WAIT_TIME="0.1")
+    shared = rq_mod.RequestQueue(max_batch_size=32, max_wait_time=0.1)
+    have_http = importlib.util.find_spec("aiohttp") is not None
+    with mock.patch.object(rq_mod, "make_queue", lambda s: shared):
+        app = None
+        if have_http:
+            app, no_proc, no_engine, _ = main_mod.build_app(role="api")
+            require(app is not None and no_proc is None and no_engine is None,
+                    "serve_pipeline: ROLE=api built an engine")
+        no_app, processor, engine, _ = main_mod.build_app(role="engine", warmup=False)
+    require(no_app is None and processor.is_alive() and engine is not None,
+            "serve_pipeline: ROLE=engine did not start a processor without an app")
+    t0 = time.perf_counter()
+    try:
+        if have_http:
+            from rag_serving_system_torch.api.endpoints import ServerThread
+
+            server = ServerThread(app).start()
+            try:
+                req = urllib.request.Request(
+                    server.url + "/rag?wait=30", method="POST",
+                    data=json.dumps({"query": queries[0], "k": 2}).encode(),
+                    headers={"content-type": "application/json"})
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    body = json.loads(resp.read())
+                with urllib.request.urlopen(server.url + "/stats", timeout=30) as resp:
+                    stats_keys = sorted(json.loads(resp.read()))
+            finally:
+                server.stop()
+            result = body.get("result")
+        else:
+            stats_keys = None
+            result = shared.get_result(shared.add_request(queries[0], 2), timeout=120)
+    finally:
+        processor.stop(drain_timeout=10.0)
+        processor.join(timeout=30)
+    emit("serve_roles", through="http" if have_http else "queue (aiohttp is not importable)",
+         seconds=time.perf_counter() - t0, api_stats_keys=stats_keys, answer=result)
+    require(isinstance(result, dict) and isinstance(result.get("result"), str),
+            f"serve_pipeline: the api and engine roles did not answer: {result}")
+    del processor, engine
+    _release()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def timed(phase: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1798,14 +2645,25 @@ def main() -> int:
         return 1
     with open(os.path.join(DATA, "squad_real_queries.json"), encoding="utf-8") as f:
         queries = json.load(f)
-    if sys.argv[1:] in (["--stage-split"], ["--crossover"]):
+    only = {"serve_spec": phase_serve_spec, "serve_checkpoint": phase_serve_checkpoint,
+            "serve_pipeline": phase_serve_pipeline, "parity": phase_parity}
+    if sys.argv[1:] in (["--stage-split"], ["--crossover"]) or (
+            sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3
+            and set(sys.argv[2].split(",")) <= set(only)):
         smi = phase_device()
         phase_build()
-        if sys.argv[1] == "--stage-split":
-            phase_stage_split(queries)
-        else:
-            for seed in (9, 10):
-                _crossover(resolve_device("cuda"), seed)
+        try:
+            if sys.argv[1] == "--stage-split":
+                phase_stage_split(queries)
+            elif sys.argv[1] == "--crossover":
+                for seed in (9, 10):
+                    _crossover(resolve_device("cuda"), seed)
+            else:
+                for name in sys.argv[2].split(","):
+                    timed(name, only[name], queries)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1829,6 +2687,11 @@ def main() -> int:
             "serve_continuous", phase_serve_continuous, queries)
         launches["serve_tiny"] = timed("serve_tiny", phase_serve_tiny, 16)
         launches["serve_tiny_d32"] = timed("serve_tiny_d32", phase_serve_tiny, 32)
+        launches["serve_spec"], launches["serve_spec_cold"] = timed(
+            "serve_spec", phase_serve_spec, queries)
+        launches["serve_checkpoint"] = timed("serve_checkpoint", phase_serve_checkpoint,
+                                             queries)
+        launches["serve_pipeline"] = timed("serve_pipeline", phase_serve_pipeline, queries)
         emit("timing", of="all", seconds=time.perf_counter() - t_start)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -14,14 +14,18 @@ functions, so the two can be held against each other on the same inputs.
 - core/      serving engine, batch processor, request queues, retrievers
 - api/       the HTTP surface (aiohttp)
 - utils/     the memo LRU, stage timers, the RESP client
-- main.py    the HTTP server (python -m rag_serving_system_torch.main)
+- main.py    the service (python -m rag_serving_system_torch.main;
+             ROLE=all|api|engine)
 
 The package imports nothing of `rag_serving_system_tpu`: where it needs a
 host module of the JAX package, it keeps its own copy, under the same name.
 
-The slice served is the request path at its default settings, the exact
-prefix-KV cache with its hit, miss and bypass routes included; settings the
-port does not implement make the engine raise (core/engine.py).
+What is served: the single-device request path with every setting of the
+JAX package's that one device can serve (the prefix-KV cache with its hit,
+miss and bypass routes, the quantized decoder, the continuous decode pool,
+speculative greedy decode, HF checkpoints and tokenizers, the pipelined batch
+processor, the api and engine roles); what the port does not implement makes
+the engine raise (core/engine.py).
 """
 
 __version__ = "0.1.0"

@@ -148,6 +148,11 @@ def create_api(request_queue, processor=None, engine=None,
             body["batches_processed"] = processor.batches_processed
             body["requests_processed"] = processor.requests_processed
             body["last_batch_seconds"] = processor.last_batch_seconds
+            # pipeline depth: batches prepared by the stage-1 workers that
+            # await generation, and generated batches that await the
+            # finalize worker
+            body["ready_backlog"] = processor.ready_backlog
+            body["finalize_backlog"] = processor.finalize_backlog
         if engine is not None:
             body["stages"] = engine.timer.summary()
             qstats = engine.query_cache_stats()

@@ -13,9 +13,15 @@ prefill whole prompts, padded (B2) or packed (B3). Retrieval is exact cosine top
 approximate IVF (`RETRIEVER=ivf`). Public method signatures are the JAX
 engine's, so one batch processor contract drives either.
 
-Settings this port does not implement yet (speculative decode, a
-multi-device mesh, checkpoints) make the constructor raise rather than serve
-another configuration (see `unsupported_settings`).
+With a local HF snapshot (under WEIGHTS_DIR or in the HF hub cache) the
+architectures come from its config.json, the weights from its safetensors
+files and the tokenizers from its tokenizer files; without one the presets
+serve random weights behind the hashing tokenizer. SPEC_DECODE=gamma makes
+the fixed decode loop speculative under greedy decoding.
+
+Settings this port does not implement yet (a multi-device mesh) or values it
+does not know make the constructor raise rather than serve another
+configuration (see `unsupported_settings`).
 """
 
 from __future__ import annotations
@@ -38,7 +44,13 @@ from rag_serving_system_torch.core.prefix_cache import (
     split_prefix_tokens,
 )
 from rag_serving_system_torch.device import resolve_device, torch_dtype
-from rag_serving_system_torch.models.configs import decoder_config_for, encoder_config_for
+from rag_serving_system_torch.models.configs import (
+    DecoderConfig,
+    decoder_config_for,
+    decoder_config_from_hf,
+    encoder_config_for,
+    encoder_config_from_hf,
+)
 from rag_serving_system_torch.models.e5 import encode
 from rag_serving_system_torch.models.qwen2 import (
     compute_prefix_kv,
@@ -48,10 +60,15 @@ from rag_serving_system_torch.models.qwen2 import (
     prefill_packed_for_pool,
     quantize_prefix_kv,
 )
-from rag_serving_system_torch.models.tokenizer import HashTokenizer, pad_and_stack
+from rag_serving_system_torch.models.tokenizer import (
+    HashTokenizer,
+    get_tokenizer,
+    pad_and_stack,
+)
 from rag_serving_system_torch.models.weights import (
-    init_decoder_params,
-    init_encoder_params,
+    get_decoder_params,
+    get_encoder_params,
+    snapshot_hf_config,
 )
 from rag_serving_system_torch.ops.attention import HEAD_DIMS
 from rag_serving_system_torch.ops.ivf import build_ivf, ivf_search
@@ -119,14 +136,18 @@ def _l2n(x: np.ndarray) -> np.ndarray:  # rag_serving_system_tpu/core/retriever.
     return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
 
 
-def unsupported_settings(settings: Settings, device: torch.device) -> list[str]:
+def unsupported_settings(settings: Settings, device: torch.device,
+                         dec_cfg: DecoderConfig | None = None) -> list[str]:
     """The settings this port does not implement yet on `device`, each with
-    its value."""
+    its value. `dec_cfg` is the decoder the engine will serve (read from a
+    snapshot's config.json, when there is one); the preset's by default."""
     bad = []
-    head_dim = decoder_config_for(settings.model_preset).head_dim
+    if dec_cfg is None:
+        dec_cfg = decoder_config_for(settings.model_preset)
+    head_dim = dec_cfg.head_dim
     if device.type == "cuda" and head_dim not in HEAD_DIMS:
         # every prefill on a CUDA device goes through kernels B2 / B3 (every
-        # preset's head size has an instance today)
+        # preset's head size has an instance; a checkpoint's may not)
         bad.append(f"MODEL_PRESET={settings.model_preset} on a CUDA device (its "
                    f"decoder head size {head_dim} has no prefill attention "
                    f"kernel: those are built for {HEAD_DIMS})")
@@ -136,17 +157,9 @@ def unsupported_settings(settings: Settings, device: torch.device) -> list[str]:
         bad.append(f"QUANT_WEIGHTS={settings.quant_weights} (none, int8 or int4)")
     if settings.quant_act not in ("none", "int8"):
         bad.append(f"QUANT_ACT={settings.quant_act} (none or int8)")
-    if settings.spec_gamma > 0:
-        bad.append(f"SPEC_DECODE={settings.spec_gamma}")
     if settings.mesh_shape and np.prod(
             [int(x) for x in settings.mesh_shape.split(",") if x.strip()]) > 1:
         bad.append(f"MESH_SHAPE={settings.mesh_shape} (one device only)")
-    if settings.weights_dir:
-        bad.append(f"WEIGHTS_DIR={settings.weights_dir} (no checkpoint loader yet)")
-    for var, name in (("EMBED_MODEL_NAME", settings.embed_model_name),
-                      ("LLM_MODEL_NAME", settings.llm_model_name)):
-        if os.path.isdir(name):
-            bad.append(f"{var}={name} (no local tokenizer loader yet)")
     return bad
 
 
@@ -157,7 +170,19 @@ class RagEngine:
                  doc_embeddings: np.ndarray, device: str | torch.device | None = None):
         emb = np.asarray(doc_embeddings, dtype=np.float32)
         self.device = resolve_device(device)
-        bad = unsupported_settings(settings, self.device)
+        # architectures: from the snapshot's own config.json when a local
+        # checkpoint exists (any BERT / XLM-R encoder, any Llama-family
+        # decoder), else the preset
+        enc_hf = snapshot_hf_config(settings.weights_dir, settings.embed_model_name)
+        dec_hf = snapshot_hf_config(settings.weights_dir, settings.llm_model_name)
+        self.enc_cfg = (encoder_config_from_hf(enc_hf) if enc_hf
+                        else encoder_config_for(settings.model_preset))
+        self.dec_cfg = (decoder_config_from_hf(dec_hf) if dec_hf
+                        else decoder_config_for(settings.model_preset))
+        if enc_hf or dec_hf:
+            logger.info("architectures from snapshot config.json (enc=%s, dec=%s)",
+                        bool(enc_hf), bool(dec_hf))
+        bad = unsupported_settings(settings, self.device, self.dec_cfg)
         if bad:
             raise ValueError("rag_serving_system_torch does not implement: "
                              + "; ".join(bad))
@@ -165,20 +190,28 @@ class RagEngine:
         self.batch_buckets = _batch_buckets(settings)
         self.documents = list(documents)
         self.dtype = torch_dtype(settings.dtype)
-        self.enc_cfg = encoder_config_for(settings.model_preset)
-        self.dec_cfg = decoder_config_for(settings.model_preset)
         if emb.ndim != 2 or emb.shape[1] != self.enc_cfg.hidden_size:
             raise ValueError(
                 f"corpus embeddings {emb.shape} do not match encoder hidden size "
                 f"{self.enc_cfg.hidden_size} (model_preset={settings.model_preset!r})")
 
         t0 = time.time()
-        self.enc_params = init_encoder_params(self.enc_cfg, seed=0,
-                                              dtype=self.dtype, device=self.device)
-        self.dec_params = init_decoder_params(self.dec_cfg, seed=1,
-                                              dtype=self.dtype, device=self.device)
-        logger.info("random-init models ready on %s in %.1fs", self.device,
-                    time.time() - t0)
+        self.enc_params, enc_real = get_encoder_params(
+            self.enc_cfg, settings.weights_dir, settings.embed_model_name,
+            dtype=self.dtype, device=self.device)
+        self.dec_params, dec_real = get_decoder_params(
+            self.dec_cfg, settings.weights_dir, settings.llm_model_name,
+            dtype=self.dtype, device=self.device)
+        # which model came from a checkpoint, and the seconds both took (the
+        # copies and the init run behind the host on a CUDA device: wait)
+        self.weights_loaded = {"encoder": enc_real, "decoder": dec_real}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.models_ready_s = time.time() - t0
+        logger.info("models ready on %s in %.1fs (encoder weights: %s, decoder "
+                    "weights: %s)", self.device, self.models_ready_s,
+                    "hf" if enc_real else "random-init",
+                    "hf" if dec_real else "random-init")
         # the decoder's weight bytes as initialised and as held for serving
         self.weight_bytes_init = weight_bytes(self.dec_params)
         if settings.quant_weights in ("int8", "int4"):
@@ -193,11 +226,29 @@ class RagEngine:
         if settings.quant_act == "int8" and not self.act_quant:
             logger.warning("QUANT_ACT=int8 requires QUANT_WEIGHTS=int8/int4; "
                            "prefill stays %s", settings.dtype)
-        self.enc_tok = HashTokenizer(self.enc_cfg.vocab_size,
-                                     pad_id=self.enc_cfg.pad_token_id)
-        self.dec_tok = HashTokenizer(self.dec_cfg.vocab_size,
-                                     pad_id=self.dec_cfg.pad_token_id,
-                                     eos_id=self.dec_cfg.eos_token_id)
+        # a real tokenizer loads when real weights were found, or when the
+        # model name is a local directory (a tokenizer-only snapshot such as
+        # data/bpe_tokenizer: real BPE over random weights, as long as its
+        # vocabulary fits the model's, which _fits_vocab checks)
+        self.enc_tok = (self._fits_vocab(
+                            get_tokenizer(settings.embed_model_name,
+                                          self.enc_cfg.vocab_size),
+                            self.enc_cfg.vocab_size)
+                        if enc_real or os.path.isdir(settings.embed_model_name)
+                        else None) or HashTokenizer(
+                            self.enc_cfg.vocab_size,
+                            pad_id=self.enc_cfg.pad_token_id)
+        self.dec_tok = (self._fits_vocab(
+                            get_tokenizer(settings.llm_model_name,
+                                          self.dec_cfg.vocab_size),
+                            self.dec_cfg.vocab_size)
+                        if dec_real or os.path.isdir(settings.llm_model_name)
+                        else None) or HashTokenizer(
+                            self.dec_cfg.vocab_size,
+                            pad_id=self.dec_cfg.pad_token_id,
+                            eos_id=self.dec_cfg.eos_token_id)
+        logger.info("tokenizers: encoder %s, decoder %s",
+                    type(self.enc_tok).__name__, type(self.dec_tok).__name__)
         emb = _l2n(emb)
         self.n_docs = emb.shape[0]
         self.corpus = None
@@ -234,6 +285,14 @@ class RagEngine:
         # packed prefill for no-prefix batches: B is pinned to the largest
         # batch bucket, T to a ladder of multiples of PACKED_T_STEP
         self.packed = settings.packed_prefill
+        # speculative decode (SPEC_DECODE=gamma) is greedy only: sampling
+        # would need rejection resampling to keep its distribution
+        self.spec_gamma = settings.spec_gamma if not settings.do_sample else 0
+        if self.spec_gamma:
+            logger.info("speculative decode on: gamma=%d (greedy verify; a "
+                        "feature for trained checkpoints)", self.spec_gamma)
+        # decode loops and their forwards after the prefill, fixed path only
+        self.loop_stats = {"calls": 0, "iters": 0}
         if self.packed:
             self.packed_p, mean_len = self._auto_packed_p(documents)
             cap = self.batch_buckets[-1]
@@ -498,6 +557,21 @@ class RagEngine:
             for i, doc in enumerate(sample))
         return min(768, max(128, -(-longest // 128) * 128))
 
+    @staticmethod
+    def _fits_vocab(tok, vocab_size: int):
+        """Hold a loaded tokenizer against the model's embedding table: one
+        with more ids than the table has rows would index past it. Returns
+        the tokenizer, or None, which sends the caller to the hash
+        tokenizer."""
+        hf = getattr(tok, "tok", None)
+        if hf is None:
+            return tok  # get_tokenizer's hash fallback, made at the model's vocabulary
+        if len(hf) > vocab_size:
+            logger.warning("tokenizer vocab %d exceeds model vocab %d: falling back "
+                           "to the hash tokenizer", len(hf), vocab_size)
+            return None
+        return tok
+
     def _auto_packed_p(self, documents: List[str]) -> tuple[int, int]:
         """Packed per-row cache bucket: the prompt bucket covering the longest
         sampled full prompt (2-doc context + a typical question) + 32; and the
@@ -649,7 +723,8 @@ class RagEngine:
         s = self.settings
         common = dict(generator=self._generator, max_new_tokens=s.max_new_tokens,
                       do_sample=s.do_sample, dtype=self.dtype,
-                      eos_bias=s.eos_bias, act_quant=self.act_quant)
+                      eos_bias=s.eos_bias, act_quant=self.act_quant,
+                      spec_gamma=self.spec_gamma, loop_stats=self.loop_stats)
         if staged[0] == "packed":
             _, stream, gather, last, n, bud = staged
             toks = generate_packed(

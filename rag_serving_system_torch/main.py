@@ -4,8 +4,8 @@
 
 Settings → corpus → engine (models and corpus on TORCH_DEVICE, default cuda)
 → queue backend (Redis iff REDIS_URL) → batch processor → the HTTP surface
-of `api/endpoints.py` (aiohttp, imported only here).
-The counterpart of `main.py` in role "all".
+of `api/endpoints.py` (aiohttp, imported only here). The counterpart of the
+root `main.py`, with its three roles (ROLE=all|api|engine).
 """
 
 from __future__ import annotations
@@ -14,14 +14,17 @@ import json
 import logging
 import os
 
-import numpy as np
-
-from rag_serving_system_torch.config import get_settings
-from rag_serving_system_torch.core.batch_processor import BatchProcessor
-from rag_serving_system_torch.core.engine import RagEngine
-from rag_serving_system_torch.core.request_queue import make_queue
-
 logger = logging.getLogger("rag_serving_system_torch.main")
+
+
+def _refuse_native_front() -> None:
+    """NATIVE_FRONT_PORT asks for the JAX package's C++ epoll listener, which
+    the port does not carry: refuse it rather than serve without it."""
+    if int(os.environ.get("NATIVE_FRONT_PORT", "0") or 0):
+        raise SystemExit(
+            "NATIVE_FRONT_PORT is set, but rag_serving_system_torch has no native "
+            "HTTP front (the C++ listener of the JAX package is not ported): "
+            "unset it and serve through aiohttp on PORT")
 
 
 def build_processor(settings=None, documents=None, doc_embeddings=None):
@@ -29,6 +32,13 @@ def build_processor(settings=None, documents=None, doc_embeddings=None):
     started. Settings come from the environment when not given; the corpus
     from DOCUMENT_TEXT_FILE and DOCUMENT_EMBEDDINGS_FILE unless `documents`
     and `doc_embeddings` (N, D) are passed."""
+    import numpy as np
+
+    from rag_serving_system_torch.config import get_settings
+    from rag_serving_system_torch.core.batch_processor import BatchProcessor
+    from rag_serving_system_torch.core.engine import RagEngine
+    from rag_serving_system_torch.core.request_queue import make_queue
+
     settings = settings or get_settings()
     if documents is None:
         logger.info("loading corpus: %s", settings.document_text_file)
@@ -43,34 +53,85 @@ def build_processor(settings=None, documents=None, doc_embeddings=None):
     return processor, engine, request_queue, settings
 
 
-def build_app(settings=None, warmup: bool = True):
-    """(app, processor, engine, settings) with the processor running."""
-    from rag_serving_system_torch.api.endpoints import create_api
+def build_app(settings=None, warmup: bool = True, role: str = "all"):
+    """(app, processor, engine, settings) with the processor running.
+
+    `role` splits the service across processes (one process's HTTP parsing,
+    queue work and host staging share one interpreter lock):
+      - "all"    — API and engine in one process
+      - "api"    — the HTTP front only: takes requests into the shared Redis
+                   queue and serves result polls. No torch, no model
+                   (app, None, None, settings). Run several behind one port
+                   with REUSE_PORT=1.
+      - "engine" — the queue's consumer only: owns the device, drains the
+                   Redis queue, stores results. No HTTP surface
+                   (None, processor, engine, settings).
+    The api and engine roles need REDIS_URL: the queue is what joins them."""
+    from rag_serving_system_torch.config import get_settings
+
+    settings = settings or get_settings()
+    _refuse_native_front()
+    max_queue_size = int(os.environ.get("MAX_QUEUE_SIZE", "0"))
+    if role == "api":
+        if not settings.redis_url:
+            raise SystemExit("ROLE=api requires REDIS_URL (shared queue)")
+        from rag_serving_system_torch.api.endpoints import create_api
+        from rag_serving_system_torch.core.request_queue import make_queue
+
+        request_queue = make_queue(settings)
+        logger.info("role=api: queue backend %s, no engine in-process",
+                    type(request_queue).__name__)
+        return (create_api(request_queue, None, None, max_queue_size=max_queue_size),
+                None, None, settings)
+    if role == "engine" and not settings.redis_url:
+        raise SystemExit("ROLE=engine requires REDIS_URL (shared queue)")
+    if role not in ("all", "engine"):
+        raise SystemExit(f"ROLE={role}: all, api or engine")
 
     processor, engine, request_queue, settings = build_processor(settings)
+    logger.info("queue backend: %s", type(request_queue).__name__)
     if warmup:
         engine.warmup()
     processor.start()
-    app = create_api(request_queue, processor, engine,
-                     max_queue_size=int(os.environ.get("MAX_QUEUE_SIZE", "0")))
+    if role == "engine":
+        logger.info("role=engine: consuming the shared queue, no HTTP surface")
+        return None, processor, engine, settings
+    from rag_serving_system_torch.api.endpoints import create_api
+
+    app = create_api(request_queue, processor, engine, max_queue_size=max_queue_size)
     return app, processor, engine, settings
 
 
 def main() -> None:
-    from rag_serving_system_torch.api.endpoints import run_app
+    import signal
+    import threading
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     role = os.environ.get("ROLE", "all")
-    if role != "all":
-        raise SystemExit(f"ROLE={role}: the PyTorch port serves role 'all' only")
-    app, processor, _, settings = build_app()
+    app, processor, _, settings = build_app(role=role)
+    drain = float(os.environ.get("DRAIN_TIMEOUT", "30"))
+    if role == "engine":
+        # headless consumer: block until SIGTERM / SIGINT, then drain
+        stop = threading.Event()
+        signal.signal(signal.SIGTERM, lambda *_: stop.set())
+        signal.signal(signal.SIGINT, lambda *_: stop.set())
+        try:
+            stop.wait()
+        finally:
+            logger.info("draining in-flight work before exit...")
+            processor.stop(drain_timeout=drain)
+        return
+    from rag_serving_system_torch.api.endpoints import run_app
+
     try:
+        # aiohttp's run_app handles SIGTERM / SIGINT itself and returns
         run_app(app, host=settings.host, port=settings.port,
                 reuse_port=os.environ.get("REUSE_PORT", "0") in ("1", "true"))
     finally:
-        logger.info("draining in-flight work before exit...")
-        processor.stop(drain_timeout=float(os.environ.get("DRAIN_TIMEOUT", "30")))
+        if processor is not None:
+            logger.info("draining in-flight work before exit...")
+            processor.stop(drain_timeout=drain)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Model architecture configs: e5-large (XLM-RoBERTa) and Qwen2.5-1.5B.
 
-A copy of `rag_serving_system_tpu/models/configs.py` without the HF
-config.json readers (the port loads no checkpoint yet). The `*_TINY`
-presets keep the architectures at toy size for the CPU tests.
+A copy of `rag_serving_system_tpu/models/configs.py`. The `*_TINY` presets
+keep the architectures at toy size for the CPU tests; `*_config_from_hf`
+read an architecture from a checkpoint's config.json.
 """
 
 from __future__ import annotations
@@ -84,3 +84,51 @@ def decoder_config_for(preset: str) -> DecoderConfig:
     if preset == "llama":
         return LLAMA32_1B
     return QWEN25_15B
+
+
+def decoder_config_from_hf(hf: dict) -> DecoderConfig:
+    """A DecoderConfig from an HF snapshot's config.json dict. Covers the
+    Llama family (llama / mistral / qwen2): pre-RMSNorm, RoPE, GQA, SwiGLU;
+    Qwen2 has a QKV bias besides."""
+    mt = hf.get("model_type", "llama")
+    heads = hf["num_attention_heads"]
+    eos = hf.get("eos_token_id", 2)
+    eos_all = tuple(eos) if isinstance(eos, list) else (eos,)
+    eos = eos_all[0]
+    pad = hf.get("pad_token_id")
+    return DecoderConfig(
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=heads,
+        num_kv_heads=hf.get("num_key_value_heads", heads),
+        head_dim=hf.get("head_dim") or hf["hidden_size"] // heads,
+        intermediate_size=hf["intermediate_size"],
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+        rope_theta=hf.get("rope_theta", 10_000.0),
+        tie_word_embeddings=hf.get("tie_word_embeddings", False),
+        max_position_embeddings=hf.get("max_position_embeddings", 4096),
+        eos_token_id=eos,
+        eos_token_ids=eos_all,
+        pad_token_id=pad if pad is not None else eos,
+        qkv_bias=hf.get("attention_bias", mt == "qwen2"),
+    )
+
+
+def encoder_config_from_hf(hf: dict) -> EncoderConfig:
+    """An EncoderConfig from an HF config.json dict (bert / roberta /
+    xlm-roberta: one weight layout, two position-id conventions)."""
+    mt = hf.get("model_type", "bert")
+    pad = hf.get("pad_token_id", 1 if "roberta" in mt else 0)
+    return EncoderConfig(
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=hf["num_attention_heads"],
+        intermediate_size=hf["intermediate_size"],
+        max_position_embeddings=hf["max_position_embeddings"],
+        type_vocab_size=hf.get("type_vocab_size", 1),
+        layer_norm_eps=hf.get("layer_norm_eps", 1e-5),
+        pad_token_id=pad,
+        position_style="roberta" if "roberta" in mt else "absolute",
+    )

@@ -1,7 +1,7 @@
 """Qwen2-family causal decoder (Qwen2.5-1.5B-Instruct) on dicts of tensors.
 
-Counterpart of `rag_serving_system_tpu/models/qwen2.py:51-370, 625-1073,
-1082-1151` without the speculative path. The parameter tree is the JAX one:
+Counterpart of `rag_serving_system_tpu/models/qwen2.py`. The parameter tree
+is the JAX one:
 dense weights (in, out), QKV fused into one matmul and gate+up into another,
 layer weights stacked on a leading L axis (the forwards loop over it),
 `lm_head` omitted when tied to `embed`. Matmul weights, the embedding and
@@ -16,7 +16,12 @@ suffix prefill over cached prefix K/V (queries shorter than keys) and the
 single-token decode attention are plain torch, as both are einsum in the
 JAX package.
 The fixed decode loop runs on the host, one step per iteration, and stops
-as soon as every row is done. `decode_chunk` is the continuous mode's step:
+as soon as every row is done. With `spec_gamma` > 0 (greedy only) the loop
+is speculative: `draft_ngram` proposes gamma tokens a row from the row's own
+history, `decode_step_spec` verifies them in one forward over gamma + 1
+positions, and the longest matching prefix plus one token is emitted, so an
+iteration yields 1 to gamma + 1 tokens. Its attention is plain torch too.
+`decode_chunk` is the continuous mode's step:
 `chunk` steps over the slot pool of `core/decode_pool.py` with no host read
 between them.
 """
@@ -282,6 +287,54 @@ def decode_step(params: dict, cfg: DecoderConfig, cache: KVCache,
     return logits_from_hidden(params, cfg, x[:, 0, :]), cache
 
 
+def decode_step_spec(params: dict, cfg: DecoderConfig, cache: KVCache,
+                     toks: torch.Tensor, step0: torch.Tensor, prompt_len: int,
+                     prompt_mask: torch.Tensor, dtype=torch.bfloat16):
+    """The verify step of speculative decode: one forward over S consecutive
+    positions a row against the cache. `toks` (B, S) holds [last accepted
+    token, S - 1 drafts], `step0` (B,) the generation index of `toks[:, 0]`.
+    Returns ((B, S, V) f32 logits, logits[:, j] predicting generation index
+    step0 + j + 1, and the cache with all S tokens' K/V written in place).
+
+    Rows stand at different offsets (each accepts its own number of drafts an
+    iteration), so the cache write is one scatter at (row, prompt_len +
+    step0[b] + j) a layer, not a slice. The bias is banded-causal inside the
+    chunk: query j sees the valid prompt slots and the generated slots
+    <= step0[b] + j. Slots past a row's frontier hold the K/V of rejected
+    drafts; the band hides them, and the next iteration's writes begin at the
+    new frontier, so each is overwritten before it can be read."""
+    b, s = toks.shape
+    t_max = cache.k.shape[2]
+    dev = toks.device
+    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=dev)
+    gidx = step0[:, None] + torch.arange(s, device=dev)[None, :]       # (B, S)
+    positions = prompt_mask.sum(dim=-1)[:, None] + gidx
+    tidx = (prompt_len + gidx).long()                                  # cache slots
+    slot = torch.arange(t_max - prompt_len, device=dev)
+    gen_valid = slot[None, None, :] <= gidx[:, :, None]                # (B, S, Tg)
+    valid = torch.cat([(prompt_mask > 0)[:, None, :].expand(b, s, prompt_len),
+                       gen_valid], dim=-1)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    bias = torch.where(valid, zero, NEG_INF)[:, None, :, :]
+    rows = torch.arange(b, device=dev)[:, None]
+
+    x = embed_lookup(params, toks, dtype)
+    for i in range(cfg.num_layers):
+        layer = _layer(params, i)
+        h = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
+        q, k, v = _qkv(layer, cfg, h, b, s)
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
+        # one (row, slot) per value: the indices of a call are distinct
+        cache.k[i].index_put_((rows, tidx), k.to(cache.k.dtype))
+        cache.v[i].index_put_((rows, tidx), v.to(cache.v.dtype))
+        a = attention(q, cache.k[i].to(dtype), cache.v[i].to(dtype), bias)
+        x = x + dense(a.reshape(b, s, cfg.num_heads * cfg.head_dim), layer["o_w"])
+        h = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
+        x = x + _mlp(layer, h)
+    return logits_from_hidden(params, cfg, x), cache
+
+
 def sample_candidates(logits: torch.Tensor, temperature: float = 0.7,
                       top_k: int = 20, top_p: float = 0.8):
     """The kept candidates of Qwen2.5-Instruct's default sampling: exact top-k
@@ -334,13 +387,23 @@ def pick_token(logits, generator, do_sample, temperature=0.7, top_k=20,
     return torch.argmax(logits, dim=-1)
 
 
+def _note_loop(loop_stats: dict | None, iters: int) -> None:
+    """Add one decode loop and its forwards after the prefill to a caller's
+    counters ({"calls", "iters"}); both are host integers already."""
+    if loop_stats is not None:
+        loop_stats["calls"] = loop_stats.get("calls", 0) + 1
+        loop_stats["iters"] = loop_stats.get("iters", 0) + iters
+
+
 def _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
                  max_new_tokens, temperature, top_k, top_p, do_sample, dtype,
-                 row_valid, p, row_budget=None, eos_bias=0.0) -> torch.Tensor:
+                 row_valid, p, row_budget=None, eos_bias=0.0,
+                 loop_stats=None) -> torch.Tensor:
     """Sample, then decode until every row is done or max_new_tokens are out.
     Pad rows (row_valid False) are born done; a row is done at any stop id
     or once it holds row_budget[b] tokens. Returns (B, max_new_tokens) int32,
-    pad_token_id past each row's end."""
+    pad_token_id past each row's end. `loop_stats`, when given, counts the
+    call and its decode steps (see `_note_loop`)."""
     b = attention_mask.shape[0]
     eos_ids = eos_id_set(cfg)
     pad = cfg.pad_token_id
@@ -360,9 +423,11 @@ def _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
     out = torch.full((b, max_new_tokens), pad, dtype=torch.int32,
                      device=tok.device)
     out[:, 0] = tok
+    steps = 0
     for step in range(max_new_tokens - 1):
         if bool(done.all()):
             break
+        steps += 1
         logits, cache = decode_step(params, cfg, cache, tok, step, p,
                                     attention_mask, dtype=dtype)
         nxt = torch.where(done, pad, pick(logits))
@@ -372,7 +437,136 @@ def _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
             done = done | (step + 2 >= row_budget)
         out[:, step + 1] = nxt
         tok = nxt
+    _note_loop(loop_stats, steps)
     return out
+
+
+def draft_ngram(hist: torch.Tensor, cur: torch.Tensor, gamma: int) -> torch.Tensor:
+    """Prompt-lookup drafting on the device: find the latest earlier
+    occurrence of each row's last trigram in its history (B, H), else of its
+    last bigram, and propose the `gamma` tokens that followed it; with
+    neither, the last token repeated. `cur` (B,) is each row's next free
+    history index. Returns (B, gamma) int32.
+
+    The position bounds (window start <= cur - 4 for the trigram, cur - 3 for
+    the bigram) keep the current occurrence itself out. The three lookups are
+    clamped at 0 because `torch.gather` does not take a negative index; the
+    decode loop starts every row at cur = P_in + 1 >= 2, so only `cur - 3`
+    can go below 0 there, and then the position bound admits no trigram
+    window anyway."""
+    b, h = hist.shape
+    dev = hist.device
+
+    def at(i):
+        return torch.gather(hist, 1, i.clamp(min=0)[:, None].long())   # (B, 1)
+
+    t0, t1, t2 = at(cur - 3), at(cur - 2), at(cur - 1)
+    idx2 = torch.arange(h - 1, device=dev)[None, :]
+    win2 = (hist[:, :-1] == t1) & (hist[:, 1:] == t2)
+    pos2 = torch.where(win2 & (idx2 <= (cur - 3)[:, None]), idx2, -1).amax(dim=-1)
+    idx3 = torch.arange(h - 2, device=dev)[None, :]
+    win3 = (hist[:, :-2] == t0) & (hist[:, 1:-1] == t1) & (hist[:, 2:] == t2)
+    pos3 = torch.where(win3 & (idx3 <= (cur - 4)[:, None]), idx3, -1).amax(dim=-1)
+
+    use3 = pos3 >= 0
+    start = torch.where(use3, pos3 + 3, pos2 + 2)      # where the continuation begins
+    found = use3 | (pos2 >= 0)
+    cont = (start[:, None] + torch.arange(gamma, device=dev)[None, :]).clamp(0, h - 1)
+    looked_up = torch.gather(hist, 1, cont)
+    return torch.where(found[:, None], looked_up, t2.expand(b, gamma)).to(torch.int32)
+
+
+def _spec_decode_loop(params, cfg, logits0, cache, attention_mask, max_new_tokens,
+                      gamma, dtype, row_valid, p, input_ids, row_budget=None,
+                      eos_bias=0.0, draft_source=None):
+    """Greedy speculative decode over a prefilled cache (of max_new_tokens +
+    gamma generation slots): an iteration drafts `gamma` tokens a row
+    (`draft_ngram`), verifies them in one forward (`decode_step_spec`) and
+    emits the longest matching prefix plus the token after it.
+
+    Greedy only, and output-preserving in exact arithmetic: position j's
+    argmax comes from the model's own logits whenever drafts 0..j-1 matched,
+    so the tokens are `_decode_loop`'s (EOS kept then pad, row budgets, pad
+    rows born done, exit once every row is done). In f32 they are equal; in
+    bf16 the chunk's products reduce in another order than a single step's,
+    which can flip an argmax whose top-2 gap is below that noise.
+
+    `input_ids` (B, P_in) seeds the lookup history; over a cached prefix it
+    is the suffix only. `draft_source` (B, >= max_new_tokens + gamma), when
+    given, replaces the drafter: the drafts for generation indices gc.. are
+    read from it, which feeds the loop drafts of a chosen quality.
+
+    The exit test reads `done.all()` on the host once an iteration, as
+    `_decode_loop` does; nothing else is read back. Returns (out (B,
+    max_new_tokens) int32, the number of iterations)."""
+    b = attention_mask.shape[0]
+    dev = logits0.device
+    s = gamma + 1
+    eos_ids = eos_id_set(cfg)
+    pad = cfg.pad_token_id
+    mnt = max_new_tokens
+
+    budget = (row_budget.clamp(1, mnt).to(torch.int32) if row_budget is not None
+              else torch.full((b,), mnt, dtype=torch.int32, device=dev))
+    tok0 = torch.argmax(bias_eos(logits0, eos_ids, eos_bias), dim=-1).to(torch.int32)
+    if row_valid is not None:
+        tok0 = torch.where(row_valid, tok0, pad)
+    done = token_is_eos(tok0, eos_ids) | (budget <= 1)
+    if row_valid is not None:
+        done = done | ~row_valid
+
+    # `out` and `hist` each end in a spill column, where the masked writes of
+    # a scatter land (several a row, all the pad id); it lies past the last
+    # real write slot and is cut off at the exit
+    out = torch.full((b, mnt + 1), pad, dtype=torch.int32, device=dev)
+    out[:, 0] = tok0
+    if mnt == 1:
+        return out[:, :mnt], 0
+    p_in = input_ids.shape[1]
+    hlen = p_in + mnt + 1
+    hist = torch.cat([input_ids.to(torch.int32),
+                      torch.full((b, mnt + 1), pad, dtype=torch.int32, device=dev)],
+                     dim=1)
+    hist[:, p_in] = tok0
+    cur = torch.full((b,), p_in + 1, dtype=torch.int32, device=dev)
+    rows = torch.arange(b, device=dev)[:, None]
+    jar = torch.arange(s, device=dev)[None, :]
+    last = tok0
+    gc = torch.ones((b,), dtype=torch.int32, device=dev)   # tokens a row holds
+
+    n_iters = 0
+    while n_iters < mnt and not bool(done.all()):
+        if draft_source is not None:
+            didx = (gc[:, None] + jar[:, :gamma]).clamp(0, draft_source.shape[1] - 1)
+            drafts = torch.gather(draft_source, 1, didx.long()).to(torch.int32)
+        else:
+            drafts = draft_ngram(hist, cur, gamma)
+        chunk = torch.cat([last[:, None], drafts], dim=1)              # (B, S)
+        logits, cache = decode_step_spec(params, cfg, cache, chunk, gc - 1, p,
+                                         attention_mask, dtype=dtype)
+        if eos_bias:
+            logits[:, :, list(eos_ids)] += eos_bias
+        g = torch.argmax(logits, dim=-1).to(torch.int32)               # (B, S)
+        # draft j (chunk[:, j + 1], generation index gc + j) is right iff it
+        # is the model's own pick g[:, j]; the longest right prefix is taken
+        match = (chunk[:, 1:] == g[:, :-1]).to(torch.int32)
+        accept = torch.cumprod(match, dim=-1).sum(dim=-1)              # (B,)
+        g_eos = token_is_eos(g, eos_ids).to(torch.int32)
+        eos_before = torch.cumsum(g_eos, dim=-1) - g_eos               # exclusive
+        emit = (~done[:, None] & (jar <= accept[:, None])
+                & (jar < (budget - gc)[:, None]) & (eos_before == 0))  # (B, S)
+        n_emit = emit.sum(dim=-1).to(torch.int32)
+        val = torch.where(emit, g, pad)
+        out.index_put_((rows, torch.where(emit, gc[:, None] + jar, mnt).long()), val)
+        hist.index_put_((rows, torch.where(emit, cur[:, None] + jar, hlen - 1).long()),
+                        val)
+        gc = gc + n_emit
+        done = done | (emit & (g_eos > 0)).any(dim=-1) | (gc >= budget)
+        last_new = torch.gather(g, 1, (n_emit - 1).clamp(0, s - 1)[:, None].long())[:, 0]
+        last = torch.where(n_emit > 0, last_new, last)
+        cur = cur + n_emit
+        n_iters += 1
+    return out[:, :mnt], n_iters
 
 
 @torch.inference_mode()
@@ -384,23 +578,37 @@ def generate(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
              row_budget: torch.Tensor | None = None,
              eos_bias: float = 0.0, prefix_kv=None,
              prefix_len: torch.Tensor | None = None,
-             act_quant: bool = False) -> torch.Tensor:
+             act_quant: bool = False, spec_gamma: int = 0,
+             loop_stats: dict | None = None) -> torch.Tensor:
     """Padded prefill + decode. Returns (B, max_new_tokens) int32 ids.
 
     With `prefix_kv` / `prefix_len` (see `prefill`), `input_ids` holds each
     row's suffix only, and decode attends over the [prefix | suffix |
-    generated] cache."""
+    generated] cache.
+
+    `spec_gamma` > 0 makes the decode loop speculative (`_spec_decode_loop`)
+    under greedy decoding; sampling ignores it and keeps the one-token loop."""
+    use_spec = spec_gamma > 0 and not do_sample and max_new_tokens > 1
+    # a verify step writes up to gamma slots past a row's last token
+    alloc = max_new_tokens + (spec_gamma if use_spec else 0)
     logits0, cache = prefill(params, cfg, input_ids, attention_mask,
-                             max_new_tokens, dtype=dtype, prefix_kv=prefix_kv,
+                             alloc, dtype=dtype, prefix_kv=prefix_kv,
                              prefix_len=prefix_len, act_quant=act_quant)
     # decode sees one combined prompt of PL + P slots: the prefix part
     # left-aligned and valid for prefix_len, the suffix part left-padded
     attention_mask = _combined_mask(attention_mask, prefix_kv, prefix_len)
     p = attention_mask.shape[1]
+    if use_spec:
+        out, n_iters = _spec_decode_loop(
+            params, cfg, logits0, cache, attention_mask, max_new_tokens,
+            spec_gamma, dtype, row_valid, p, input_ids, row_budget=row_budget,
+            eos_bias=eos_bias)
+        _note_loop(loop_stats, n_iters)
+        return out
     return _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
                         max_new_tokens, temperature, top_k, top_p, do_sample,
                         dtype, row_valid, p, row_budget=row_budget,
-                        eos_bias=eos_bias)
+                        eos_bias=eos_bias, loop_stats=loop_stats)
 
 
 def prefill_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
@@ -445,16 +653,30 @@ def generate_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
                     top_k: int = 20, top_p: float = 0.8, do_sample: bool = True,
                     dtype=torch.bfloat16, row_valid: torch.Tensor | None = None,
                     row_budget: torch.Tensor | None = None,
-                    eos_bias: float = 0.0, act_quant: bool = False) -> torch.Tensor:
+                    eos_bias: float = 0.0, act_quant: bool = False,
+                    spec_gamma: int = 0,
+                    loop_stats: dict | None = None) -> torch.Tensor:
     """Packed prefill (B3) + the padded path's decode; same contract as
-    `generate`."""
+    `generate`. The speculative loop's history is each row's ids, rebuilt
+    from the packed stream through `gather_idx`."""
+    use_spec = spec_gamma > 0 and not do_sample and max_new_tokens > 1
+    alloc = max_new_tokens + (spec_gamma if use_spec else 0)
     logits0, cache = prefill_packed(params, cfg, input_ids, seg, positions,
                                     last_idx, gather_idx, prompt_mask,
-                                    max_new_tokens, dtype=dtype, act_quant=act_quant)
+                                    alloc, dtype=dtype, act_quant=act_quant)
+    p = gather_idx.shape[1]
+    if use_spec:
+        row_ids = torch.where(prompt_mask > 0, input_ids[0][gather_idx.long()],
+                              cfg.pad_token_id)
+        out, n_iters = _spec_decode_loop(
+            params, cfg, logits0, cache, prompt_mask, max_new_tokens, spec_gamma,
+            dtype, row_valid, p, row_ids, row_budget=row_budget, eos_bias=eos_bias)
+        _note_loop(loop_stats, n_iters)
+        return out
     return _decode_loop(params, cfg, logits0, cache, prompt_mask, generator,
                         max_new_tokens, temperature, top_k, top_p, do_sample,
-                        dtype, row_valid, gather_idx.shape[1],
-                        row_budget=row_budget, eos_bias=eos_bias)
+                        dtype, row_valid, p, row_budget=row_budget,
+                        eos_bias=eos_bias, loop_stats=loop_stats)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
-"""The offline hashing tokenizer and batch padding.
+"""Tokenization with an offline fallback, and batch padding.
 
-A copy of `HashTokenizer` and `pad_and_stack` from
-`rag_serving_system_tpu/models/tokenizer.py`. Only the Python blake2b path
-is kept: the JAX package's C fast path for ASCII text (`native/hashtok.c`)
-gives the same ids, faster, and is not carried over, so the port builds no
-host library. The HF tokenizer adapter is not ported (the engine refuses a
-local model directory).
+A copy of `rag_serving_system_tpu/models/tokenizer.py`: an HF tokenizer when
+a local snapshot holds one (`HFTokenizer`, which imports `transformers`
+inside its constructor only), else the deterministic hashing tokenizer, so
+that the whole pipeline runs with no network and no `transformers`. Of the
+hashing tokenizer only the Python blake2b path is kept: the JAX package's C
+fast path for ASCII text (`native/hashtok.c`) gives the same ids, faster,
+and is not carried over, so the port builds no host library.
 """
 
 from __future__ import annotations
@@ -44,6 +45,45 @@ class HashTokenizer:
 
     def encode_many(self, texts: List[str]) -> List[List[int]]:
         return [self.encode(t) for t in texts]
+
+
+class HFTokenizer:
+    """Thin adapter over a locally stored HF tokenizer."""
+
+    def __init__(self, model_name: str):
+        from transformers import AutoTokenizer  # local snapshot only
+        self.tok = AutoTokenizer.from_pretrained(model_name, local_files_only=True)
+        if self.tok.pad_token_id is None:
+            self.tok.pad_token = self.tok.eos_token
+        self.pad_id = self.tok.pad_token_id
+        self.eos_id = self.tok.eos_token_id
+
+    def encode(self, text: str) -> List[int]:
+        return self.tok.encode(text)
+
+    def encode_many(self, texts: List[str]) -> List[List[int]]:
+        """One call of the Rust `tokenizers` batch API for the whole batch
+        (it releases the GIL and spreads the rows over its own threads);
+        the ids are those of per-row `encode`."""
+        if not texts:
+            return []
+        fast = getattr(self.tok, "_tokenizer", None)  # rust backend
+        if fast is not None:
+            return [e.ids for e in fast.encode_batch(list(texts))]
+        return [self.tok.encode(t) for t in texts]
+
+    def decode(self, ids) -> str:
+        return self.tok.decode([int(i) for i in ids], skip_special_tokens=True)
+
+
+def get_tokenizer(model_name: str, vocab_size: int):
+    """The HF tokenizer of `model_name` if it can be loaded from local files;
+    otherwise the hash fallback (no `transformers`, no tokenizer files, or a
+    broken snapshot)."""
+    try:
+        return HFTokenizer(model_name)
+    except Exception:
+        return HashTokenizer(vocab_size=vocab_size)
 
 
 def pad_and_stack(rows: List[List[int]], max_len: int, pad_id: int,

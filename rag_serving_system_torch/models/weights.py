@@ -1,13 +1,19 @@
-"""Random-init parameters at full width, and the converters of JAX parameter
-trees, prefix-KV entries and IVF indexes.
+"""Parameters: random init at full width, HF safetensors checkpoints, and the
+converters of JAX parameter trees, prefix-KV entries and IVF indexes.
 
-Counterpart of `rag_serving_system_tpu/models/weights.py:31-102`. The trees
-keep the JAX layout: dense weights (in, out), layer weights stacked on a
-leading L axis, the decoder's `lm_head` omitted when tied to `embed`. The
-HF safetensors loader is not ported yet.
+Counterpart of `rag_serving_system_tpu/models/weights.py`. The trees keep
+the JAX layout: dense weights (in, out), layer weights stacked on a leading
+L axis, the decoder's `lm_head` omitted when tied to `embed`. Checkpoints
+are read by a safetensors reader of this module's own (`read_safetensors`):
+the format is an 8-byte header length, a JSON header and raw little-endian
+data, and the port must not need the `safetensors` package.
 """
 
 from __future__ import annotations
+
+import json
+import mmap
+import os
 
 import numpy as np
 import torch
@@ -85,6 +91,218 @@ def init_decoder_params(cfg: DecoderConfig, seed: int = 1, dtype=torch.bfloat16,
         params["lm_head"] = rnd(h, cfg.vocab_size)
     return params
 
+
+# ---------------------------------------------------------------------------
+# HF safetensors checkpoints
+# ---------------------------------------------------------------------------
+
+SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+def read_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """One .safetensors file as a name → CPU tensor dict. The tensors are
+    views of a private (copy-on-write) memory map of the file, which lives
+    as long as any of them: nothing is read until a tensor is used, and a
+    write to one never reaches the file."""
+    with open(path, "rb") as f:
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    n = int.from_bytes(mm[:8], "little")
+    header = json.loads(mm[8:8 + n].decode("utf-8"))
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}, "
+                             f"not one of {sorted(SAFETENSORS_DTYPES)}")
+        dtype = SAFETENSORS_DTYPES[info["dtype"]]
+        shape = tuple(info["shape"])
+        begin, end = info["data_offsets"]
+        count = int(np.prod(shape, dtype=np.int64))
+        if (end - begin) != count * dtype.itemsize:
+            raise ValueError(f"{path}: tensor {name!r} spans {end - begin} bytes, "
+                             f"its shape {shape} needs {count * dtype.itemsize}")
+        if count == 0:
+            out[name] = torch.empty(shape, dtype=dtype)
+        else:
+            out[name] = torch.frombuffer(mm, dtype=dtype, count=count,
+                                         offset=8 + n + begin).reshape(shape)
+    return out
+
+
+def load_safetensors_dir(path: str) -> dict[str, torch.Tensor]:
+    """Every *.safetensors file under `path` as one flat name → tensor dict."""
+    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors files in {path}")
+    tensors: dict[str, torch.Tensor] = {}
+    for fname in files:
+        tensors.update(read_safetensors(os.path.join(path, fname)))
+    return tensors
+
+
+def _getter(tensors: dict, device, prefixes=("",)):
+    """(A, W): `A(name)` is the named checkpoint tensor on `device` (tried
+    under each prefix), `W(name)` the same transposed from HF's (out, in) to
+    (in, out). Tensors move to the device as stored; the transposes,
+    concatenations and the cast to the serving dtype then run there."""
+    def A(name):
+        for pre in prefixes:
+            if pre + name in tensors:
+                return tensors[pre + name].to(device)
+        raise KeyError(f"none of {[pre + name for pre in prefixes]} in checkpoint "
+                       f"(have {len(tensors)} tensors)")
+
+    def W(name):
+        return A(name).t()
+
+    return A, W
+
+
+def _stack_layers(layer_list: list[dict], dtype) -> dict:
+    """[{name: (...)}] one dict a layer → {name: (L, ...)} in `dtype`."""
+    return {k: torch.stack([layer[k] for layer in layer_list]).to(dtype)
+            for k in layer_list[0]}
+
+
+def load_encoder_params(cfg: EncoderConfig, snapshot_dir: str, dtype=torch.bfloat16,
+                        device="cpu") -> dict:
+    """An XLM-RoBERTa / BERT checkpoint in HF names as the port's tree: linear
+    weights transposed to (in, out), q/k/v fused, layers stacked."""
+    A, W = _getter(load_safetensors_dir(snapshot_dir), device,
+                   ("", "roberta.", "bert."))
+    layer_list = []
+    for i in range(cfg.num_layers):
+        p = f"encoder.layer.{i}."
+        layer_list.append({
+            "qkv_w": torch.cat([W(p + "attention.self.query.weight"),
+                                W(p + "attention.self.key.weight"),
+                                W(p + "attention.self.value.weight")], dim=1),
+            "qkv_b": torch.cat([A(p + "attention.self.query.bias"),
+                                A(p + "attention.self.key.bias"),
+                                A(p + "attention.self.value.bias")], dim=0),
+            "o_w": W(p + "attention.output.dense.weight"),
+            "o_b": A(p + "attention.output.dense.bias"),
+            "attn_ln_scale": A(p + "attention.output.LayerNorm.weight"),
+            "attn_ln_bias": A(p + "attention.output.LayerNorm.bias"),
+            "ff_w1": W(p + "intermediate.dense.weight"),
+            "ff_b1": A(p + "intermediate.dense.bias"),
+            "ff_w2": W(p + "output.dense.weight"),
+            "ff_b2": A(p + "output.dense.bias"),
+            "ff_ln_scale": A(p + "output.LayerNorm.weight"),
+            "ff_ln_bias": A(p + "output.LayerNorm.bias"),
+        })
+    return {
+        "embed": {
+            "word": A("embeddings.word_embeddings.weight").to(dtype),
+            "pos": A("embeddings.position_embeddings.weight").to(dtype),
+            "type": A("embeddings.token_type_embeddings.weight").to(dtype),
+            "ln_scale": A("embeddings.LayerNorm.weight").to(dtype),
+            "ln_bias": A("embeddings.LayerNorm.bias").to(dtype),
+        },
+        "layers": _stack_layers(layer_list, dtype),
+    }
+
+
+def load_decoder_params(cfg: DecoderConfig, snapshot_dir: str, dtype=torch.bfloat16,
+                        device="cpu") -> dict:
+    """A Llama-family (Qwen2, Llama, Mistral) checkpoint in HF names as the
+    port's tree: q/k/v and gate/up fused, `qkv_b` only under `cfg.qkv_bias`,
+    `lm_head` only when the checkpoint has one and the config does not tie
+    it."""
+    tensors = load_safetensors_dir(snapshot_dir)
+    A, W = _getter(tensors, device)
+    layer_list = []
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        layer = {
+            "ln1": A(p + "input_layernorm.weight"),
+            "qkv_w": torch.cat([W(p + "self_attn.q_proj.weight"),
+                                W(p + "self_attn.k_proj.weight"),
+                                W(p + "self_attn.v_proj.weight")], dim=1),
+            "o_w": W(p + "self_attn.o_proj.weight"),
+            "ln2": A(p + "post_attention_layernorm.weight"),
+            "gu_w": torch.cat([W(p + "mlp.gate_proj.weight"),
+                               W(p + "mlp.up_proj.weight")], dim=1),
+            "down_w": W(p + "mlp.down_proj.weight"),
+        }
+        if cfg.qkv_bias:
+            layer["qkv_b"] = torch.cat([A(p + "self_attn.q_proj.bias"),
+                                        A(p + "self_attn.k_proj.bias"),
+                                        A(p + "self_attn.v_proj.bias")], dim=0)
+        layer_list.append(layer)
+    params = {
+        "embed": A("model.embed_tokens.weight").to(dtype),
+        "layers": _stack_layers(layer_list, dtype),
+        "ln_f": A("model.norm.weight").to(dtype),
+    }
+    if "lm_head.weight" in tensors and not cfg.tie_word_embeddings:
+        params["lm_head"] = W("lm_head.weight").contiguous().to(dtype)
+    return params
+
+
+def find_snapshot(weights_dir: str | None, model_name: str) -> str | None:
+    """A local HF snapshot of `model_name`: under `weights_dir` (as
+    `org--name`, as `name`, or the directory itself), else in the HF hub
+    cache of the user's home. The first candidate that holds a .safetensors
+    file."""
+    candidates = []
+    if weights_dir:
+        candidates.append(os.path.join(weights_dir, model_name.replace("/", "--")))
+        candidates.append(os.path.join(weights_dir, model_name.split("/")[-1]))
+        candidates.append(weights_dir)
+    hub = os.path.expanduser("~/.cache/huggingface/hub")
+    repo = os.path.join(hub, "models--" + model_name.replace("/", "--"), "snapshots")
+    if os.path.isdir(repo):
+        for snap in sorted(os.listdir(repo)):
+            candidates.append(os.path.join(repo, snap))
+    for c in candidates:
+        if c and os.path.isdir(c) and any(f.endswith(".safetensors")
+                                          for f in os.listdir(c)):
+            return c
+    return None
+
+
+def snapshot_hf_config(weights_dir: str | None, model_name: str) -> dict | None:
+    """The snapshot's config.json, when a local snapshot with one exists: the
+    engine then takes the architecture from the checkpoint, not a preset."""
+    snap = find_snapshot(weights_dir, model_name)
+    if not snap:
+        return None
+    cfg_path = os.path.join(snap, "config.json")
+    if not os.path.exists(cfg_path):
+        return None
+    with open(cfg_path, "r", encoding="utf-8") as f:
+        return json.load(f)
+
+
+def get_encoder_params(cfg: EncoderConfig, weights_dir: str | None, model_name: str,
+                       dtype=torch.bfloat16, device="cpu") -> tuple[dict, bool]:
+    """(params, whether a checkpoint was loaded); random init (seed 0)
+    without a snapshot."""
+    snap = find_snapshot(weights_dir, model_name)
+    if snap:
+        return load_encoder_params(cfg, snap, dtype=dtype, device=device), True
+    return init_encoder_params(cfg, seed=0, dtype=dtype, device=device), False
+
+
+def get_decoder_params(cfg: DecoderConfig, weights_dir: str | None, model_name: str,
+                       dtype=torch.bfloat16, device="cpu") -> tuple[dict, bool]:
+    """(params, whether a checkpoint was loaded); random init (seed 1)
+    without a snapshot."""
+    snap = find_snapshot(weights_dir, model_name)
+    if snap:
+        return load_decoder_params(cfg, snap, dtype=dtype, device=device), True
+    return init_decoder_params(cfg, seed=1, dtype=dtype, device=device), False
+
+
+# ---------------------------------------------------------------------------
+# converters of the JAX package's trees
+# ---------------------------------------------------------------------------
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)

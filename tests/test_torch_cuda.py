@@ -949,3 +949,124 @@ def test_engine_serves_quantized_on_the_card(dev, quant_weights):
     engine.prefix_cache.clear()
     with mock.patch.object(tl, "int_matmul", tl.int_matmul_plain):
         assert engine.process(TINY_QUERIES, [2] * 4) == got
+
+
+@pytest.mark.parametrize("over", [
+    dict(prefix_cache=True), dict(prefix_cache=False),
+    dict(prefix_cache=False, packed_prefill=False),
+], ids=["prefix", "packed", "padded"])
+@pytest.mark.parametrize("gamma", [1, 3])
+def test_engine_spec_decode_equals_sequential_on_the_card(dev, over, gamma):
+    """SPEC_DECODE on the card at the tiny preset (f32, greedy, decoder scaled
+    by 8): the speculative loop's answers equal the sequential loop's on the
+    prefix (miss, then hit), packed and padded routes, in no more
+    iterations than the sequential loop's steps."""
+    engine = _tiny_engine(dev, spec_gamma=gamma, **over)
+    assert engine.spec_gamma == gamma
+    budgets = [None, 2, 6, 4]
+    runs = []
+    for g in (gamma, 0):
+        engine.spec_gamma = g
+        if engine.prefix_cache is not None:
+            engine.prefix_cache.clear()
+        before = engine.loop_stats["iters"]
+        answers = [engine.process(TINY_QUERIES, [2] * 4, budgets) for _ in range(2)]
+        runs.append((answers, engine.loop_stats["iters"] - before))
+    (spec, spec_iters), (seq, seq_iters) = runs
+    assert spec == seq
+    assert 0 < spec_iters <= seq_iters <= 2 * 5
+    assert all(r["result"] for r in seq[0])
+
+
+def test_spec_decode_loop_draft_source_on_the_card(dev):
+    """`_spec_decode_loop` on the card with every draft right and every
+    draft wrong: sequential greedy's tokens, in ceil((mnt - 1) / (gamma +
+    1)) and in mnt - 1 iterations (Qwen2.5-1.5B's width cut to 2 layers)."""
+    import dataclasses
+    import math
+
+    from rag_serving_system_torch.models import qwen2 as tq
+    from rag_serving_system_torch.models.configs import QWEN25_15B
+    from rag_serving_system_torch.models.weights import init_decoder_params
+
+    cfg = dataclasses.replace(QWEN25_15B, num_layers=2)
+    params = init_decoder_params(cfg, seed=3, dtype=torch.float32, device=dev)
+    for key in ("qkv_w", "o_w", "gu_w", "down_w"):
+        params["layers"][key] *= 2.0
+    params["embed"] *= 2.0
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, p, mnt, gamma = 4, 64, 10, 3
+    lens = torch.tensor([37, 12, 64, 23], device=dev)
+    ids = torch.randint(10, cfg.vocab_size, (b, p), generator=g, device=dev, dtype=torch.int32)
+    mask = (torch.arange(p, device=dev)[None, :] >= p - lens[:, None]).to(torch.int32)
+    ids = ids * mask
+    seq = tq.generate(params, cfg, ids, mask, max_new_tokens=mnt, do_sample=False,
+                      dtype=torch.float32)
+    assert not tq.token_is_eos(seq, tq.eos_id_set(cfg)).any()
+    wrong = torch.full((b, mnt + gamma), 7, dtype=torch.int32, device=dev)
+    assert not (seq == 7).any()
+    for src, want in ((torch.cat([seq, seq[:, :gamma]], dim=1),
+                       math.ceil((mnt - 1) / (gamma + 1))), (wrong, mnt - 1)):
+        with torch.inference_mode():
+            logits0, cache = tq.prefill(params, cfg, ids, mask, mnt + gamma,
+                                        dtype=torch.float32)
+            out, iters = tq._spec_decode_loop(params, cfg, logits0, cache, mask, mnt, gamma,
+                                              torch.float32, None, p, ids, draft_source=src)
+        assert torch.equal(out, seq) and iters == want
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """The tiny engine's models written as HF snapshots and read back through
+    WEIGHTS_DIR on the card: every leaf bit-equal and on the device, the
+    same greedy answers."""
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from rag_serving_system_torch.config import Settings
+    from rag_serving_system_torch.core.engine import RagEngine
+
+    seeded = _tiny_engine(dev, prefix_cache=True)
+    chip_smoke.write_checkpoints(str(tmp_path), seeded, {"encoder": "enc", "decoder": "dec"})
+    import dataclasses
+    s = dataclasses.replace(seeded.settings, weights_dir=str(tmp_path),
+                            embed_model_name="enc", llm_model_name="dec")
+    docs, emb = _tiny_corpus()
+    loaded = RagEngine(s, docs, emb, device=dev)
+    assert loaded.weights_loaded == {"encoder": True, "decoder": True}
+    for ours, ref in ((loaded.enc_params, seeded.enc_params),
+                      (loaded.dec_params, seeded.dec_params)):
+        ref = dict(chip_smoke._leaves(ref))
+        for name, leaf in chip_smoke._leaves(ours):
+            assert leaf.device == ref[name].device and torch.equal(leaf, ref[name]), name
+    # no tokenizer files beside the weights: the loaded engine hashes with the
+    # hash tokenizer's default special ids, the seeded one with the model's
+    loaded.enc_tok, loaded.dec_tok = seeded.enc_tok, seeded.dec_tok
+    assert loaded.process(TINY_QUERIES, [2] * 4) == seeded.process(TINY_QUERIES, [2] * 4)
+
+
+@pytest.mark.parametrize("workers,fin_async", [("1", "1"), ("2", "1"), ("2", "0")])
+def test_pipelined_processor_equals_serial_on_the_card(dev, monkeypatch, workers, fin_async):
+    """13 greedy requests through the pipelined processor on the card (two
+    threads launch CUDA work): each answer equals the serial mode's."""
+    from rag_serving_system_torch.core.batch_processor import BatchProcessor
+    from rag_serving_system_torch.core.request_queue import RequestQueue
+
+    queries = [f"what is w{i} w{i + 1}" + " and more" * (i % 4) for i in range(13)]
+
+    def serve(**kw):
+        engine = _tiny_engine(dev, prefix_cache=True)
+        q = RequestQueue(max_batch_size=4, max_wait_time=0.05, polling_interval=0.01)
+        rids = [q.add_request(text, 2) for text in queries]
+        proc = BatchProcessor(q, engine, polling_interval=0.01, **kw)
+        proc.start()
+        try:
+            return [q.get_result(r, timeout=120) for r in rids]
+        finally:
+            proc.stop(drain_timeout=5.0)
+
+    serial = serve(prefetch=False)
+    monkeypatch.setenv("PREFETCH_WORKERS", workers)
+    monkeypatch.setenv("FINALIZE_ASYNC", fin_async)
+    assert serve() == serial
+    assert all(isinstance(r.get("result"), str) for r in serial)

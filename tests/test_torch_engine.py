@@ -135,7 +135,7 @@ def test_processor_isolates_a_failing_batch(corpus):
     s = tiny_settings()
     engine = port_engine.RagEngine(s, docs, emb, device="cpu")
 
-    def boom(prompts):
+    def boom(prompts, staged=None):
         raise RuntimeError("device lost")
 
     engine.generate_tokens = boom
@@ -261,11 +261,34 @@ def test_engine_bfloat16_corpus_follows_the_kernel(corpus):
 ])
 def test_unimplemented_settings_raise(corpus, over, var):
     """Each setting (or value of one) the port does not implement raises at
-    construction. MAX_K is implemented at any value: MAX_K=300 over 300 rows
-    (k = N, past the warp lists' 256) retrieves the JAX engine's ids."""
+    construction. The others behave as in the JAX engine: MAX_K=300 over 300
+    rows (k = N, past the warp lists' 256) retrieves its ids; a model
+    directory with no tokenizer files falls back to hashing; SPEC_DECODE=2
+    serves its answers; a WEIGHTS_DIR that does not exist gives random
+    init."""
     docs, emb = corpus
     if var == "MAX_K":
         _assert_max_k_like_jax(over["max_k"], 300)
+        return
+    if var in ("LLM_MODEL_NAME", "SPEC_DECODE", "WEIGHTS_DIR"):
+        assert not port_engine.unsupported_settings(tiny_settings(**over),
+                                                    torch.device("cpu"))
+        je = jax_engine.RagEngine(jax_settings(**over), docs, emb)
+        je.dec_params = _scaled(je.dec_params, 8.0)
+        te = port_engine.RagEngine(tiny_settings(**over), docs, emb, device="cpu")
+        for tok, ref in ((te.enc_tok, je.enc_tok), (te.dec_tok, je.dec_tok)):
+            # hashing on both sides, with the same special ids
+            assert type(tok).__name__ == type(ref).__name__ == "HashTokenizer"
+            assert (tok.pad_id, tok.eos_id, tok.bos_id, tok.vocab_size) == (
+                ref.pad_id, ref.eos_id, ref.bos_id, ref.vocab_size)
+        assert te.spec_gamma == je.spec_gamma == over.get("spec_gamma", 0)
+        # random init: the seeded tree, whatever WEIGHTS_DIR says
+        fresh = port_engine.get_decoder_params(te.dec_cfg, None, "qwen",
+                                               dtype=te.dtype)[0]
+        assert torch.equal(te.dec_params["embed"], fresh["embed"])
+        te.enc_params = params_from_jax(jax.device_get(je.enc_params))
+        te.dec_params = params_from_jax(jax.device_get(je.dec_params))
+        assert te.process(QUERIES, [2] * 4) == je.process(QUERIES, [2] * 4)
         return
     with pytest.raises(ValueError, match=var):
         port_engine.RagEngine(tiny_settings(**over), docs, emb, device="cpu")

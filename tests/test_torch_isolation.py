@@ -3,10 +3,14 @@ JAX package's host modules (settings, model presets, tokenizer, queue,
 RESP client) agree with their originals.
 
 The isolation check runs in a subprocess whose `sys.meta_path` refuses
-`jax`, `jaxlib` and `rag_serving_system_tpu`: every module of the port and
-`chip_smoke` must import there, and one query must be served end to end on
-the CPU through `main.build_processor` at the tiny presets, with
-PREFIX_CACHE at its default (on)."""
+`jax`, `jaxlib` and `rag_serving_system_tpu`, and `safetensors` and
+`transformers` too (the GPU machine has neither): `build_app(role="api")`
+must come up there without importing `torch`; every module of the port and
+`chip_smoke` must import; one query must be served end to end on the CPU
+through `main.build_processor` at the tiny presets, with PREFIX_CACHE at its
+default (on); and the same engine's models, written as HF snapshots by
+`chip_smoke`'s writer, must load through WEIGHTS_DIR bit for bit and serve
+under SPEC_DECODE=2 through two stage-1 workers as the first engine did."""
 
 import dataclasses
 import os
@@ -32,7 +36,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ISOLATED = r'''
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "rag_serving_system_tpu")
+BLOCKED = ("jax", "jaxlib", "rag_serving_system_tpu", "safetensors", "transformers")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -43,6 +47,18 @@ class Refuse(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, Refuse())
+
+# ROLE=api first, while nothing has imported torch: queue and HTTP only
+from rag_serving_system_torch.config import Settings
+from rag_serving_system_torch.core import request_queue
+from rag_serving_system_torch.main import build_app
+shared = request_queue.RequestQueue(max_batch_size=2, max_wait_time=0.1)
+request_queue.make_queue = lambda settings: shared
+app, no_processor, no_engine, _ = build_app(
+    Settings(model_preset="tiny", redis_url="redis://stand-in:6379"), role="api")
+assert app is not None and no_processor is None and no_engine is None
+assert "torch" not in sys.modules, "ROLE=api imported torch"
+
 import rag_serving_system_torch
 names = [m.name for m in pkgutil.walk_packages(rag_serving_system_torch.__path__,
                                                "rag_serving_system_torch.")]
@@ -50,8 +66,9 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
 
+import dataclasses, os, tempfile
 import numpy as np
-from rag_serving_system_torch.config import Settings
+import torch
 from rag_serving_system_torch.main import build_processor
 
 rng = np.random.default_rng(0)
@@ -71,6 +88,37 @@ finally:
     processor.join(timeout=10)
 assert isinstance(result, dict) and isinstance(result.get("result"), str), result
 assert s.prefix_cache and engine.prefix_cache.stats()["entries"] == 1
+
+# the new paths: checkpoints through the port's own reader, the hash
+# tokenizer where `transformers` cannot be imported, greedy speculative
+# decode, two stage-1 workers
+with tempfile.TemporaryDirectory() as root:
+    ckpt_names = {"encoder": "enc", "decoder": "dec"}
+    chip_smoke.write_checkpoints(root, engine, ckpt_names)
+    os.environ["PREFETCH_WORKERS"] = "2"
+    s2 = dataclasses.replace(s, weights_dir=root, embed_model_name="enc",
+                             llm_model_name="dec", do_sample=False, spec_gamma=2)
+    processor2, loaded, queue2, _ = build_processor(s2, docs, emb)
+    assert loaded.weights_loaded == {"encoder": True, "decoder": True}
+    assert loaded.enc_cfg == engine.enc_cfg and loaded.dec_cfg == engine.dec_cfg
+    for ours, ref in ((loaded.enc_params, engine.enc_params),
+                      (loaded.dec_params, engine.dec_params)):
+        ref = dict(chip_smoke._leaves(ref))
+        got = dict(chip_smoke._leaves(ours))
+        assert set(got) == set(ref)
+        assert all(torch.equal(got[k], ref[k]) for k in ref)
+    assert type(loaded.dec_tok).__name__ == "HashTokenizer"
+    assert loaded.spec_gamma == 2 and processor2.prefetch_workers == 2
+    processor2.start()
+    try:
+        rids = [queue2.add_request(f"what is w{i} w7", 2) for i in range(5)]
+        results = [queue2.get_result(rid, timeout=120) for rid in rids]
+    finally:
+        processor2.stop(drain_timeout=5.0)
+        processor2.join(timeout=10)
+    assert all(isinstance(r, dict) and isinstance(r.get("result"), str)
+               for r in results), results
+    assert loaded.loop_stats["calls"] >= 3
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("MODULES", len(names), "LEAKED", leaked)
 '''
