@@ -34,8 +34,10 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 and the query cache skips retrieval). Then the stage split
                 of a batch of 32, all miss (the cache emptied before each
                 run) and all hit: prepare, prefix_resolve, prefill, decode
-                (CUDA-synced host clock, mean of 3, query cache off), and
-                the peak device memory.
+                (CUDA-synced host clock, mean of 3, query cache off); one
+                more batch of 32 (all hit) under `device_trace`: the
+                device-busy share, the kernel count, the top kernels and the
+                share of launches in decode; and the peak device memory.
 6. serve_cold - the same engine with PREFIX_CACHE=0: one lone request
                 (padded prefill, B2), then 64 at once (packed prefill, B3),
                 and the stage split of a lone request and a batch of 32.
@@ -99,6 +101,19 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 seconds; 64 requests at 1, 2, 2, 1 workers (misses and hits);
                 ROLE=api and ROLE=engine over one in-memory queue, a request
                 through HTTP (or through the queue without aiohttp).
+17. train     - the contrastive trainer at full width (e5-large, f32
+                parameters from a seed, squad_real's 1,000 pairs, batches of
+                16 at 64 tokens): one f32 step at 2 layers on the card against
+                the CPU (loss, every gradient, the parameters after AdamW); 8
+                steps on a fixed batch at 24 layers in bf16 (the loss falls at
+                lr 5e-4, else at the first of 1e-4, 2e-5 where it does);
+                one epoch through `train_encoder` (62 steps, lr 1e-5: seconds,
+                step ms, pairs/s, peak memory, losses); recall@1 and @5 of the
+                1,000 queries over the distinct facts through B1 (its ids
+                equal to its plain version's) before and after the epoch; a
+                checkpoint round trip of the trained tree (bytes, seconds,
+                every leaf bit-equal); one step under `device_trace` (busy
+                share, kernel count, the top five kernels).
 
 The parity phase (7) also holds speculative decode (gamma 1 and 3, row
 budgets, an EOS bias) to sequential greedy on the prefix, packed and padded
@@ -109,12 +124,12 @@ alone (5 reps each: cold lone and batch of 32, then all miss and all hit),
 for an A/B of two checkouts on one card. `python3 chip_smoke.py --crossover`
 runs phases 1, 2 and the kernels phase's crossover alone, on two seeded
 corpora. `python3 chip_smoke.py --phases serve_spec,serve_pipeline` runs phases
-1, 2 and the named ones (of parity, serve_spec, serve_checkpoint,
-serve_pipeline) alone.
+1, 2 and the named ones (of serve, parity, serve_spec, serve_checkpoint,
+serve_pipeline, train) alone.
 
 Each path phase (roofline, serve, serve_cold, serve_int8, serve_ivf,
 serve_wide_k, serve_quant, serve_continuous, serve_tiny, serve_spec,
-serve_checkpoint, serve_pipeline) sets every launch
+serve_checkpoint, serve_pipeline, train) sets every launch
 count to 0 just before it and reads the counts just after; each kernel of
 the path must have launched, and every request must come back as
 {"result": str}. Then the nvidia-smi name and power limit, the kernels'
@@ -952,6 +967,7 @@ def phase_serve(queries: list) -> tuple:
         splits[label] = _stage_split(engine, queries[1:33], label=label,
                                      before_rep=before_rep)
         emit("stage_split", **splits[label])
+    emit("serve_trace", route="hit", **_traced_serve_batch(engine, queries[1:33]))
     stats = cache.stats()
     emit("serve_memory",
          peak_memory_gb=max(*peaks.values(), torch.cuda.max_memory_allocated() / 1e9),
@@ -2219,31 +2235,6 @@ def _parity_spec(engine, cases: dict) -> None:
 # checkpoints
 # ---------------------------------------------------------------------------
 
-def write_safetensors(path: str, tensors: dict) -> int:
-    """Write name → tensor as one .safetensors file (8-byte little-endian
-    header length, JSON header, raw little-endian data): the inverse of
-    `models/weights.py:read_safetensors`. Tensors are copied to the host one
-    at a time. Returns the bytes written."""
-    import torch
-    from rag_serving_system_torch.models.weights import SAFETENSORS_DTYPES
-
-    codes = {dtype: code for code, dtype in SAFETENSORS_DTYPES.items()}
-    header, offset = {}, 0
-    for name, t in tensors.items():
-        nbytes = t.numel() * t.element_size()
-        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + nbytes]}
-        offset += nbytes
-    blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
-    blob += b" " * (-len(blob) % 8)
-    with open(path, "wb") as f:
-        f.write(len(blob).to_bytes(8, "little"))
-        f.write(blob)
-        for t in tensors.values():
-            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().data)
-    return 8 + len(blob) + offset
-
-
 def decoder_to_hf(params: dict, cfg) -> dict:
     """The port's decoder tree in HF names and (out, in) layout: the inverse
     of `load_decoder_params`."""
@@ -2331,6 +2322,8 @@ def write_checkpoints(root: str, engine, names: dict) -> dict:
     """The engine's two models as HF snapshots under `root` (one directory a
     model, named as `find_snapshot` looks for it): model.safetensors in the
     parameters' own dtype and config.json. Returns the bytes of each."""
+    from rag_serving_system_torch.models.weights import write_safetensors
+
     out = {}
     for which, params, cfg, to_hf, to_cfg in (
             ("encoder", engine.enc_params, engine.enc_cfg, encoder_to_hf, encoder_hf_config),
@@ -2342,14 +2335,6 @@ def write_checkpoints(root: str, engine, names: dict) -> dict:
         with open(os.path.join(d, "config.json"), "w", encoding="utf-8") as f:
             json.dump(to_cfg(cfg), f)
     return out
-
-
-def _leaves(tree, prefix=""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, prefix + k + ".")
-        else:
-            yield prefix + k, v
 
 
 def phase_serve_checkpoint(queries: list) -> dict:
@@ -2374,6 +2359,7 @@ def phase_serve_checkpoint(queries: list) -> dict:
     import torch
     from rag_serving_system_torch.core import engine as engine_mod
     from rag_serving_system_torch.main import build_processor
+    from rag_serving_system_torch.models.weights import named_leaves
 
     root = tempfile.mkdtemp(prefix="rag_ckpt_")
     try:
@@ -2417,8 +2403,8 @@ def phase_serve_checkpoint(queries: list) -> dict:
         n_leaves, unequal = 0, []
         for a, b in ((seeded.enc_params, loaded.enc_params),
                      (seeded.dec_params, loaded.dec_params)):
-            mine = dict(_leaves(b))
-            for name, leaf in _leaves(a):
+            mine = dict(named_leaves(b))
+            for name, leaf in named_leaves(a):
                 n_leaves += 1
                 other = mine.pop(name, None)
                 if (other is None or other.dtype != leaf.dtype or other.device != leaf.device
@@ -2616,6 +2602,335 @@ def phase_serve_pipeline(queries: list) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# traces and the trainer
+# ---------------------------------------------------------------------------
+
+def trace_summary(prof, wall_s: float, top: int = 5) -> dict:
+    """What a `device_trace` profiler saw on the card over a window of
+    wall_s seconds (host clock, synchronised at both ends): the share of it
+    in which the device ran a kernel or a copy (the union of their
+    intervals), the kernel count, and the `top` kernels by device time. The
+    device-side copies of `record_function` ranges (and of the optimizer's
+    own range) are annotations, not work: they are left out."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    host_names = {e.name for e in events if e.device_type != DeviceType.CUDA}
+    spans, by_name, kernels = [], {}, 0
+    for e in events:
+        if (e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False)
+                or e.name in host_names):
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        if not e.name.startswith(("Memcpy", "Memset")):
+            kernels += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / (wall_s * 1e6), "kernels": kernels,
+            "top_kernels": [{"name": n[:120], "ms": us / 1e3} for n, us in ranked]}
+
+
+def launch_share(prof, region: str) -> dict:
+    """Kernel launches on the host (the CUDA runtime's launch calls) inside
+    the `record_function(region)` ranges, against all of them."""
+    events = prof.events()
+    ranges = [(e.time_range.start, e.time_range.end) for e in events if e.name == region]
+    launches = [e.time_range.start for e in events if "LaunchKernel" in e.name]
+    inside = sum(any(lo <= t <= hi for lo, hi in ranges) for t in launches)
+    return {"launches": len(launches), f"{region}_launches": inside,
+            f"{region}_share": inside / max(len(launches), 1)}
+
+
+def _traced_serve_batch(engine, queries: list) -> dict:
+    """One `engine.process` of the batch under `device_trace`, with the
+    decode loop marked as a profiler range: the device-busy share, the
+    kernel count, the top kernels and the share of launches in decode. The
+    profiler slows the host, so the same batch is also timed untraced just
+    before, and the traced device time is set against that wall too."""
+    import tempfile
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch.models import qwen2
+    from rag_serving_system_torch.utils.timing import device_trace
+
+    def marked(fn):
+        def call(*a, **kw):
+            with torch.profiler.record_function("decode"):
+                return fn(*a, **kw)
+        return call
+
+    ks = [2] * len(queries)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.process(queries, ks)
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as log_dir, \
+            mock.patch.object(qwen2, "_decode_loop", marked(qwen2._decode_loop)):
+        with device_trace(log_dir, device=engine.device) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = engine.process(queries, ks)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        files = os.listdir(log_dir)
+    require(len(out) == len(queries) and all(isinstance(r.get("result"), str) for r in out),
+            f"the traced batch did not answer: {out[:2]}")
+    require(len(files) == 1, f"device_trace wrote {files}")
+    summary = trace_summary(prof, wall)
+    summary = {"batch": len(queries), **summary, "untraced_wall_ms": untraced * 1e3,
+               "busy_share_of_untraced": summary["device_busy_ms"] / (untraced * 1e3),
+               **launch_share(prof, "decode")}
+    require(summary["kernels"] > 0 and summary["decode_launches"] > 0,
+            f"the serve trace saw no kernels on the card or none in decode: {summary}")
+    return summary
+
+
+TRAIN_BATCH, TRAIN_LEN = 16, 64
+
+
+def _train_parity(params: dict, cfg, tok, pairs: list, dev) -> dict:
+    """(a) The full-width tree cut to its first 2 layers: one f32
+    contrastive_loss, backward and AdamW step on the card and on the CPU from
+    the same weights and batch. The loss within 1e-4; every gradient leaf
+    within 1e-4 of its largest magnitude; the parameters after the step
+    within 1e-6, or 2 lr where either gradient is within 1e-6 of zero (Adam's
+    first step moves an element by lr times the sign of its gradient, so a
+    near-zero gradient whose sign differs between the two sums may move it
+    the other way)."""
+    import dataclasses
+
+    import torch
+    from rag_serving_system_torch.models.weights import map_tree, named_leaves
+    from rag_serving_system_torch.training import contrastive as tc
+
+    lr, layers = 1e-5, 2
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        p = map_tree({"embed": params["embed"],
+                      "layers": {k: v[:layers] for k, v in params["layers"].items()}},
+                     lambda t: t.detach().to(where, copy=True))
+        opt = tc.adamw(p, lr)
+        batch = next(tc.pair_batches(tok, pairs, TRAIN_BATCH, TRAIN_LEN, device=where))
+        loss, acc = tc.contrastive_loss(p, cut, batch, dtype=torch.float32)
+        loss.backward()
+        grads = {n: t.grad.cpu() for n, t in named_leaves(p)}
+        opt.step()
+        runs.append((float(loss.detach()), float(acc), grads,
+                     {n: t.detach().cpu() for n, t in named_leaves(p)}))
+        del p, opt
+    (l_gpu, a_gpu, g_gpu, p_gpu), (l_cpu, a_cpu, g_cpu, p_cpu) = runs
+    grad_rel, param_err, caveat = {}, {}, 0
+    for name, g in g_cpu.items():
+        grad_rel[name] = float((g_gpu[name] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+        near = torch.minimum(g.abs(), g_gpu[name].abs()) <= 1e-6
+        err = (p_gpu[name] - p_cpu[name]).abs()
+        caveat += int((near & (err > 1e-6)).sum())
+        param_err[name] = float(err[~near].max()) if bool((~near).any()) else 0.0
+        require(bool((err <= 1e-6 + 2 * lr * near.float()).all()),
+                f"train parity: {name} after the step differs by {float(err.max())}")
+    out = {"layers": layers, "lr": lr, "loss_card": l_gpu, "loss_cpu": l_cpu,
+           "acc_card": a_gpu, "acc_cpu": a_cpu, "max_grad_rel_err": max(grad_rel.values()),
+           "grad_rel_err": grad_rel, "max_param_err": max(param_err.values()),
+           "near_zero_elements_past_1e-6": caveat}
+    require(abs(l_gpu - l_cpu) <= 1e-4, f"train parity: loss {l_gpu} on the card, {l_cpu} "
+            f"on the CPU")
+    require(max(grad_rel.values()) <= 1e-4, f"train parity: gradients differ: {grad_rel}")
+    return out
+
+
+def _fixed_batch(params: dict, cfg, batch: dict, dev) -> dict:
+    """(b) 8 steps on one fixed batch at full depth in bf16, from a copy of
+    `params`: at lr 5e-4 (the JAX package's test), and again from the same
+    weights at a lower rate only if the loss did not fall."""
+    import torch
+    from rag_serving_system_torch.models.weights import map_tree
+    from rag_serving_system_torch.training import contrastive as tc
+
+    tries = []
+    for lr in (5e-4, 1e-4, 2e-5):
+        p = map_tree(params, lambda t: t.detach().to(dev, copy=True))
+        step = tc.make_train_step(cfg, tc.adamw(p, lr), dtype=torch.bfloat16)
+        losses = [float(step(p, batch)["loss"]) for _ in range(8)]
+        tries.append({"lr": lr, "losses": losses})
+        del p, step
+        torch.cuda.empty_cache()
+        if losses[-1] < losses[0]:
+            break
+    require(tries[-1]["losses"][-1] < tries[-1]["losses"][0],
+            f"train: the loss on a fixed batch did not fall at any rate: {tries}")
+    return {"steps": 8, "lr_used": tries[-1]["lr"], "tries": tries}
+
+
+def _recall(params: dict, cfg, tok, pairs: list, dev) -> dict:
+    """(d) Recall@1 and @5 of every query of `pairs` against the distinct
+    facts, both embedded as the trainer embeds them (`_embed`: masked mean,
+    unit norm, bf16), retrieved through B1 and through its plain version;
+    the ids must agree."""
+    import torch
+    from rag_serving_system_torch.ops import topk
+    from rag_serving_system_torch.training import contrastive as tc
+
+    facts = list(dict.fromkeys(p["fact"] for p in pairs))
+    target = torch.tensor([facts.index(p["fact"]) for p in pairs], device=dev)
+
+    @torch.inference_mode()
+    def embed(texts):
+        out = []
+        for lo in range(0, len(texts), 250):
+            ids, mask = tok.encode_batch(texts[lo:lo + 250], TRAIN_LEN)
+            out.append(tc._embed(params, cfg, torch.as_tensor(ids, device=dev),
+                                 torch.as_tensor(mask, device=dev), torch.bfloat16))
+        return torch.cat(out)
+
+    corpus = embed(["passage: " + f for f in facts]).contiguous()
+    queries = embed(["query: " + p["query"] for p in pairs])
+    _, ids = topk.cosine_topk(corpus, queries, 5)
+    _, plain = topk.cosine_topk_reference(corpus, queries, 5)
+    hits = ids.long() == target[:, None]
+    return {"queries": len(pairs), "facts": len(facts), "ids_equal_plain": bool(
+        torch.equal(ids, plain)), "recall_at_1": float(hits[:, 0].float().mean()),
+        "recall_at_5": float(hits.any(dim=1).float().mean())}
+
+
+def phase_train(_queries=None) -> dict:
+    """The contrastive trainer at full width on the card: e5-large (24
+    layers, 1024 wide, 250,002-row vocabulary) with f32 parameters from a
+    seed, on squad_real's 1,000 (query, fact) pairs, hashed to the vocabulary,
+    batches of 16 at 64 tokens: (a) parity with the CPU at 2 layers, (b) 8
+    steps on one fixed batch, (c) one epoch through `train_encoder` (62
+    steps, lr 1e-5, bf16 activations), (d) recall through B1 before and after
+    (c), (e) a checkpoint round trip of the trained tree, (f) one step under
+    `device_trace`. Returns each kernel's launch count in the phase."""
+    import math
+    import statistics
+    import tempfile
+    from unittest import mock
+
+    import torch
+    from rag_serving_system_torch.device import resolve_device
+    from rag_serving_system_torch.models.configs import E5_LARGE
+    from rag_serving_system_torch.models.tokenizer import HashTokenizer
+    from rag_serving_system_torch.models.weights import init_encoder_params, named_leaves
+    from rag_serving_system_torch.training import contrastive as tc
+    from rag_serving_system_torch.utils.timing import device_trace
+
+    dev = resolve_device("cuda")
+    cfg = E5_LARGE
+    with open(os.path.join(DATA, "squad_real_pairs.json"), encoding="utf-8") as f:
+        pairs = json.load(f)
+    tok = HashTokenizer(cfg.vocab_size, pad_id=cfg.pad_token_id)
+    params = init_encoder_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    reset_launches()
+
+    t0 = time.perf_counter()
+    emit("train_parity", **_train_parity(params, cfg, tok, pairs, dev))
+    emit("timing", of="train_parity", seconds=time.perf_counter() - t0)
+    batch = next(tc.pair_batches(tok, pairs, TRAIN_BATCH, TRAIN_LEN, device=dev))
+    emit("train_fixed_batch", **_fixed_batch(params, cfg, batch, dev))
+
+    before = _recall(params, cfg, tok, pairs, dev)
+    step_events = []
+
+    make_step = tc.make_train_step
+
+    def timed_steps(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def call(p, b):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = step(p, b)
+            end.record()
+            step_events.append((start, end))
+            return out
+        return call
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(tc, "make_train_step", timed_steps):
+        trained, history = tc.train_encoder(params, cfg, tok, pairs, epochs=1,
+                                            batch_size=TRAIN_BATCH, max_len=TRAIN_LEN,
+                                            lr=1e-5, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    step_ms = [s.elapsed_time(e) for s, e in step_events]
+    losses = [h["loss"] for h in history]
+    epoch = {"pairs": len(pairs), "steps": len(history), "seconds": seconds,
+             "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
+             "max_step_ms": max(step_ms), "pairs_per_s": len(history) * TRAIN_BATCH / seconds,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "params": n_params, "first_loss": losses[0], "last_loss": losses[-1],
+             "first_acc": history[0]["in_batch_acc"], "last_acc": history[-1]["in_batch_acc"],
+             "losses": losses}
+    emit("train_epoch", **epoch)
+    require(len(history) == len(pairs) // TRAIN_BATCH, f"train: {len(history)} steps")
+    require(all(map(math.isfinite, losses)), f"train: a loss is not finite: {losses}")
+    del params
+    torch.cuda.empty_cache()
+
+    after = _recall(trained, cfg, tok, pairs, dev)
+    emit("train_recall", before=before, after=after)
+    for r in (before, after):
+        require(r["ids_equal_plain"], f"train: B1's ids differ from its plain version's: {r}")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "encoder.safetensors")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = tc.save_checkpoint(path, trained)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = tc.load_checkpoint(path, trained)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    equal = all(b.device == a.device and b.dtype == a.dtype and torch.equal(a, b)
+                for (_, a), (_, b) in zip(named_leaves(trained), named_leaves(back)))
+    emit("train_checkpoint", bytes=nbytes, write_s=t_write, load_s=t_load,
+         leaves=len(list(named_leaves(back))), bit_equal=equal)
+    require(equal, "train: the checkpoint did not load back bit for bit")
+    del back
+
+    step = tc.make_train_step(cfg, tc.adamw(trained, 1e-5), dtype=torch.bfloat16)
+    step(trained, batch)     # the optimizer's state is made here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(trained, batch)     # untraced, for the wall beside the traced one
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as log_dir:
+        with device_trace(log_dir) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(trained, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        files = os.listdir(log_dir)
+        trace_bytes = sum(os.path.getsize(os.path.join(log_dir, f)) for f in files)
+    summary = trace_summary(prof, wall)
+    emit("train_trace", files=len(files), trace_bytes=trace_bytes, **summary,
+         untraced_wall_ms=untraced * 1e3,
+         busy_share_of_untraced=summary["device_busy_ms"] / (untraced * 1e3))
+    require(len(files) == 1 and trace_bytes > 0 and summary["kernels"] > 0,
+            f"train: the traced step wrote {files} and saw {summary['kernels']} kernels")
+    launches = read_launches()
+    emit("train_launches", **launches)
+    require(launches["cosine_topk"] > 0, "train: B1 never launched in the recall check")
+    del trained, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def timed(phase: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2645,8 +2960,9 @@ def main() -> int:
         return 1
     with open(os.path.join(DATA, "squad_real_queries.json"), encoding="utf-8") as f:
         queries = json.load(f)
-    only = {"serve_spec": phase_serve_spec, "serve_checkpoint": phase_serve_checkpoint,
-            "serve_pipeline": phase_serve_pipeline, "parity": phase_parity}
+    only = {"serve": phase_serve, "serve_spec": phase_serve_spec, "serve_checkpoint": phase_serve_checkpoint,
+            "serve_pipeline": phase_serve_pipeline, "parity": phase_parity,
+            "train": phase_train}
     if sys.argv[1:] in (["--stage-split"], ["--crossover"]) or (
             sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3
             and set(sys.argv[2].split(",")) <= set(only)):
@@ -2692,6 +3008,7 @@ def main() -> int:
         launches["serve_checkpoint"] = timed("serve_checkpoint", phase_serve_checkpoint,
                                              queries)
         launches["serve_pipeline"] = timed("serve_pipeline", phase_serve_pipeline, queries)
+        launches["train"] = timed("train", phase_train, queries)
         emit("timing", of="all", seconds=time.perf_counter() - t_start)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,9 +1,11 @@
 """XLM-RoBERTa-family encoder (e5-large) on dicts of tensors.
 
-Counterpart of `rag_serving_system_tpu/models/e5.py:39-128`. Pooling is the
-reference's unmasked mean over every position, pads included (parity with
-the upstream service, not a bug to fix). Encoder attention stays plain
-torch: the JAX encoder uses einsum attention too, not a Pallas kernel.
+Counterpart of `rag_serving_system_tpu/models/e5.py:39-128`. The engine
+pools with the reference's unmasked mean over every position, pads included
+(`mean_all`: parity with the upstream service, not a bug to fix); the
+trainer pools with the masked mean (`mean_masked`), and `cls` takes the
+first position. Encoder attention stays plain torch: the JAX encoder uses
+einsum attention too, not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -50,8 +52,12 @@ def encoder_forward(params: dict, cfg: EncoderConfig, input_ids: torch.Tensor,
     bias = padding_bias(attention_mask)
     b, n = input_ids.shape
     h, d = cfg.num_heads, cfg.head_dim
+    # each stacked weight unbound once: under autograd the backward stacks
+    # the L layer gradients in one op, where indexing w[i] a layer would
+    # build and add L zero-padded gradients of the whole stack
+    stacked = {name: w.unbind(0) for name, w in params["layers"].items()}
     for i in range(cfg.num_layers):
-        layer = {name: w[i] for name, w in params["layers"].items()}
+        layer = {name: ws[i] for name, ws in stacked.items()}
         qkv = dense(x, layer["qkv_w"], layer["qkv_b"])
         q, k, v = (qkv[..., j * h * d:(j + 1) * h * d].reshape(b, n, h, d)
                    for j in range(3))
@@ -66,9 +72,26 @@ def encoder_forward(params: dict, cfg: EncoderConfig, input_ids: torch.Tensor,
     return x
 
 
+def pool(hidden: torch.Tensor, attention_mask: torch.Tensor,
+         pooling: str = "mean_all") -> torch.Tensor:
+    """(B, L, H) hidden states → (B, H) f32: `mean_all` (every position),
+    `mean_masked` (real positions over max(count, 1)) or `cls` (position 0)."""
+    hf = hidden.float()
+    if pooling == "mean_all":
+        return hf.mean(dim=1)
+    if pooling == "mean_masked":
+        m = attention_mask.float()[:, :, None]
+        return (hf * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+    if pooling == "cls":
+        return hf[:, 0, :]
+    raise ValueError(f"unknown pooling: {pooling}")
+
+
 @torch.inference_mode()
 def encode(params: dict, cfg: EncoderConfig, input_ids: torch.Tensor,
-           attention_mask: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """Pooled (B, H) f32 embeddings: the mean over all L positions."""
+           attention_mask: torch.Tensor, pooling: str = "mean_all",
+           dtype=torch.bfloat16) -> torch.Tensor:
+    """Pooled (B, H) f32 embeddings, under inference mode (no autograd: the
+    trainer calls `encoder_forward` and `pool` itself)."""
     hidden = encoder_forward(params, cfg, input_ids, attention_mask, dtype=dtype)
-    return hidden.float().mean(dim=1)
+    return pool(hidden, attention_mask, pooling)

@@ -32,7 +32,18 @@ def dense(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
     bias, then one cast, in the JAX package's order. The int4 form is the
     grouped product, scaled per (group, out) and summed over the groups.
     The converted copy of the weight lives for the call only: nothing
-    dequantized is kept."""
+    dequantized is kept.
+
+    A plain `w` of another dtype than `x` (bf16 activations over f32
+    parameters, as the trainer runs) follows jnp's promotion, as the JAX
+    einsum does: the product in the wider type (IEEE f32: TF32 stays off),
+    the bias added in it, one cast back to x's dtype."""
+    if not hasattr(w, "q") and w.dtype != x.dtype:
+        wide = torch.promote_types(x.dtype, w.dtype)
+        y = torch.matmul(x.to(wide), w.to(wide))
+        if b is not None:
+            y = y + b.to(wide)
+        return y.to(x.dtype)
     if not hasattr(w, "q"):
         y = torch.matmul(x, w)
         if b is not None:

@@ -46,6 +46,12 @@ class HashTokenizer:
     def encode_many(self, texts: List[str]) -> List[List[int]]:
         return [self.encode(t) for t in texts]
 
+    def encode_batch(self, texts: List[str], max_len: int,
+                     pad_side: str = "right",
+                     truncate_side: str = "right") -> Tuple[np.ndarray, np.ndarray]:
+        return pad_and_stack(self.encode_many(texts), max_len, self.pad_id,
+                             pad_side, truncate_side)
+
 
 class HFTokenizer:
     """Thin adapter over a locally stored HF tokenizer."""
@@ -74,6 +80,12 @@ class HFTokenizer:
 
     def decode(self, ids) -> str:
         return self.tok.decode([int(i) for i in ids], skip_special_tokens=True)
+
+    def encode_batch(self, texts: List[str], max_len: int,
+                     pad_side: str = "right",
+                     truncate_side: str = "right") -> Tuple[np.ndarray, np.ndarray]:
+        return pad_and_stack(self.encode_many(texts), max_len, self.pad_id,
+                             pad_side, truncate_side)
 
 
 def get_tokenizer(model_name: str, vocab_size: int):

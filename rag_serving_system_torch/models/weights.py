@@ -4,9 +4,10 @@ converters of JAX parameter trees, prefix-KV entries and IVF indexes.
 Counterpart of `rag_serving_system_tpu/models/weights.py`. The trees keep
 the JAX layout: dense weights (in, out), layer weights stacked on a leading
 L axis, the decoder's `lm_head` omitted when tied to `embed`. Checkpoints
-are read by a safetensors reader of this module's own (`read_safetensors`):
-the format is an 8-byte header length, a JSON header and raw little-endian
-data, and the port must not need the `safetensors` package.
+are read and written by this module's own safetensors reader and writer
+(`read_safetensors`, `write_safetensors`): the format is an 8-byte header
+length, a JSON header and raw little-endian data, and the port must not need
+the `safetensors` package.
 """
 
 from __future__ import annotations
@@ -132,6 +133,43 @@ def read_safetensors(path: str) -> dict[str, torch.Tensor]:
             out[name] = torch.frombuffer(mm, dtype=dtype, count=count,
                                          offset=8 + n + begin).reshape(shape)
     return out
+
+
+def named_leaves(tree: dict, prefix: str = ""):
+    """(dotted name, leaf) of every leaf of a nested dict, in its order:
+    `embed.word`, `layers.qkv_w`, ..."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from named_leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+def map_tree(tree: dict, fn) -> dict:
+    """The nested dict with fn applied to every leaf."""
+    return {k: map_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """Write name → tensor as one .safetensors file (8-byte little-endian
+    header length, JSON header, raw little-endian data), each tensor in its
+    own dtype: the inverse of `read_safetensors`. Tensors are copied to the
+    host one at a time. Returns the bytes written."""
+    codes = {dtype: code for code, dtype in SAFETENSORS_DTYPES.items()}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().data)
+    return 8 + len(blob) + offset
 
 
 def load_safetensors_dir(path: str) -> dict[str, torch.Tensor]:

@@ -1,17 +1,23 @@
-"""Per-stage wall-time accumulation (the /stats and /metrics stage means).
+"""Per-stage wall-time accumulation (the /stats and /metrics stage means),
+and a device trace.
 
-A copy of `StageTimer` from `rag_serving_system_tpu/utils/timing.py`; that
-module's `device_trace` (a `jax.profiler` context) is not carried over, as
-nothing in the port calls it.
+Counterpart of `rag_serving_system_tpu/utils/timing.py`: `StageTimer` is a
+copy; `device_trace` runs `torch.profiler` where the JAX module runs
+`jax.profiler`, and writes a Chrome trace. The module imports torch only
+inside `device_trace`, so the API role can time stages without it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
 import threading
 import time
 from collections import defaultdict
 from typing import Dict
+
+logger = logging.getLogger(__name__)
 
 
 class StageTimer:
@@ -53,3 +59,33 @@ class StageTimer:
             }
             for name in self.totals
         }
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str | None, device=None):
+    """A `torch.profiler` trace of the block into `log_dir`; a no-op that
+    yields None when `log_dir` is falsy. CPU activity always, CUDA activity
+    on a CUDA `device` (`resolve_device`'s default: the card, which raises
+    without one). Yields the profiler (its `events()` and `key_averages()`
+    for the caller); the trace is written, and the profiler stopped, also
+    when the block raises."""
+    if not log_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_serving_system_torch.device import resolve_device
+
+    activities = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        logger.info("torch profiler trace written to %s", path)

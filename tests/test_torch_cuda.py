@@ -1025,6 +1025,7 @@ def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
     import chip_smoke
     from rag_serving_system_torch.config import Settings
     from rag_serving_system_torch.core.engine import RagEngine
+    from rag_serving_system_torch.models.weights import named_leaves
 
     seeded = _tiny_engine(dev, prefix_cache=True)
     chip_smoke.write_checkpoints(str(tmp_path), seeded, {"encoder": "enc", "decoder": "dec"})
@@ -1036,8 +1037,8 @@ def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
     assert loaded.weights_loaded == {"encoder": True, "decoder": True}
     for ours, ref in ((loaded.enc_params, seeded.enc_params),
                       (loaded.dec_params, seeded.dec_params)):
-        ref = dict(chip_smoke._leaves(ref))
-        for name, leaf in chip_smoke._leaves(ours):
+        ref = dict(named_leaves(ref))
+        for name, leaf in named_leaves(ours):
             assert leaf.device == ref[name].device and torch.equal(leaf, ref[name]), name
     # no tokenizer files beside the weights: the loaded engine hashes with the
     # hash tokenizer's default special ids, the seeded one with the model's
@@ -1070,3 +1071,39 @@ def test_pipelined_processor_equals_serial_on_the_card(dev, monkeypatch, workers
     monkeypatch.setenv("FINALIZE_ASYNC", fin_async)
     assert serve() == serial
     assert all(isinstance(r.get("result"), str) for r in serial)
+
+
+def test_training_step_on_the_card_equals_the_cpu(dev):
+    """One tiny f32 contrastive step (loss, backward, AdamW) on the card and
+    on the CPU from the same weights and batch: the loss within 1e-5, every
+    gradient within 1e-4 of its leaf's largest magnitude, the parameters
+    after the step within 2e-6, or 2 lr where the CPU's gradient is within
+    1e-7 of zero (Adam moves such an element by lr times its sign)."""
+    from rag_serving_system_torch.models.configs import E5_TINY
+    from rag_serving_system_torch.models.tokenizer import HashTokenizer
+    from rag_serving_system_torch.models.weights import init_encoder_params
+    from rag_serving_system_torch.models.weights import named_leaves
+    from rag_serving_system_torch.training import adamw, contrastive_loss, pair_batches
+
+    lr = 5e-4
+    pairs = [{"fact": f"the colour of object {i} is shade {i}",
+              "query": f"what colour is object {i}?"} for i in range(16)]
+    tok = HashTokenizer(E5_TINY.vocab_size, pad_id=E5_TINY.pad_token_id)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        params = init_encoder_params(E5_TINY, seed=0, dtype=torch.float32)
+        params = {k: {n: t.to(where) for n, t in v.items()} for k, v in params.items()}
+        opt = adamw(params, lr)
+        batch = next(pair_batches(tok, pairs, 16, 32, device=where))
+        loss, acc = contrastive_loss(params, E5_TINY, batch, dtype=torch.float32)
+        loss.backward()
+        grads = {n: t.grad.cpu().clone() for n, t in named_leaves(params)}
+        opt.step()
+        runs[where.type] = (float(loss), float(acc), grads,
+                            {n: t.detach().cpu() for n, t in named_leaves(params)})
+    (l_gpu, a_gpu, g_gpu, p_gpu), (l_cpu, a_cpu, g_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+    assert abs(l_gpu - l_cpu) <= 1e-5 and a_gpu == a_cpu
+    for name, g in g_cpu.items():
+        assert (g_gpu[name] - g).abs().max() <= 1e-4 * g.abs().max(), name
+        allowed = 2e-6 + 2 * lr * (g.abs() <= 1e-7).float()
+        assert ((p_gpu[name] - p_cpu[name]).abs() <= allowed).all(), name

@@ -3,10 +3,10 @@ JAX package's host modules (settings, model presets, tokenizer, queue,
 RESP client) agree with their originals.
 
 The isolation check runs in a subprocess whose `sys.meta_path` refuses
-`jax`, `jaxlib` and `rag_serving_system_tpu`, and `safetensors` and
-`transformers` too (the GPU machine has neither): `build_app(role="api")`
-must come up there without importing `torch`; every module of the port and
-`chip_smoke` must import; one query must be served end to end on the CPU
+`jax`, `jaxlib`, `rag_serving_system_tpu`, `optax`, `flax`, `safetensors` and
+`transformers`: `build_app(role="api")` must come up there without importing
+`torch`; every module of the port (the trainer's included) and `chip_smoke`
+must import; one query must be served end to end on the CPU
 through `main.build_processor` at the tiny presets, with PREFIX_CACHE at its
 default (on); and the same engine's models, written as HF snapshots by
 `chip_smoke`'s writer, must load through WEIGHTS_DIR bit for bit and serve
@@ -36,7 +36,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ISOLATED = r'''
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "rag_serving_system_tpu", "safetensors", "transformers")
+BLOCKED = ("jax", "jaxlib", "rag_serving_system_tpu", "safetensors", "transformers",
+           "optax", "flax")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -65,11 +66,15 @@ names = [m.name for m in pkgutil.walk_packages(rag_serving_system_torch.__path__
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
+from rag_serving_system_torch import training
+assert {"contrastive_loss", "make_train_step", "train_encoder", "pair_batches", "adamw",
+        "save_checkpoint", "load_checkpoint"} <= set(vars(training))
 
 import dataclasses, os, tempfile
 import numpy as np
 import torch
 from rag_serving_system_torch.main import build_processor
+from rag_serving_system_torch.models.weights import named_leaves
 
 rng = np.random.default_rng(0)
 docs = [" ".join(f"w{rng.integers(0, 50)}" for _ in range(12)) for _ in range(20)]
@@ -103,8 +108,8 @@ with tempfile.TemporaryDirectory() as root:
     assert loaded.enc_cfg == engine.enc_cfg and loaded.dec_cfg == engine.dec_cfg
     for ours, ref in ((loaded.enc_params, engine.enc_params),
                       (loaded.dec_params, engine.dec_params)):
-        ref = dict(chip_smoke._leaves(ref))
-        got = dict(chip_smoke._leaves(ours))
+        ref = dict(named_leaves(ref))
+        got = dict(named_leaves(ours))
         assert set(got) == set(ref)
         assert all(torch.equal(got[k], ref[k]) for k in ref)
     assert type(loaded.dec_tok).__name__ == "HashTokenizer"
@@ -132,7 +137,7 @@ def test_port_runs_with_the_jax_package_blocked():
     assert out.returncode == 0, out.stderr[-4000:]
     line = [x for x in out.stdout.splitlines() if x.startswith("MODULES")][-1]
     n_modules = int(line.split()[1])
-    assert n_modules >= 28, line          # every module of the package was imported
+    assert n_modules >= 30, line          # every module of the package was imported
     assert line.endswith("LEAKED []"), line
 
 
