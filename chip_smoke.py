@@ -101,7 +101,23 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 seconds; 64 requests at 1, 2, 2, 1 workers (misses and hits);
                 ROLE=api and ROLE=engine over one in-memory queue, a request
                 through HTTP (or through the queue without aiohttp).
-17. train     - the contrastive trainer at full width (e5-large, f32
+17. serve_mesh - the engine over a "2,2" mesh (2 data groups x 2 model
+                positions) placed on the one card, at full width, bf16, every
+                default: the lone miss, 64 misses, the same 64 as hits, then 8
+                cold requests (padded prefill), through the processor. B1 once
+                per shard per retrieval (4 shards of squad_real), B2 on every
+                model position (6 query heads, 1 KV head) in the prefix
+                compute and the padded prefill, each prefix pool part holding
+                half the KV heads; the seconds, peak memory and each
+                position's weight bytes. B2 and B1 at those shapes against
+                their plain versions; f32 greedy answers of the mesh engine
+                equal to the one-device engine's (a lone request and 8, miss
+                and hit routes; decoder scaled by 4); the sharded top-k at
+                1,048,576 x 1024 (f32, bf16; B = 32; k = 16, 1024): ids equal
+                to unsharded B1's, each shard's B1 against its plain version,
+                the times beside unsharded B1 (four positions on ONE card: not
+                a multi-card measurement).
+18. train     - the contrastive trainer at full width (e5-large, f32
                 parameters from a seed, squad_real's 1,000 pairs, batches of
                 16 at 64 tokens): one f32 step at 2 layers on the card against
                 the CPU (loss, every gradient, the parameters after AdamW); 8
@@ -125,11 +141,15 @@ for an A/B of two checkouts on one card. `python3 chip_smoke.py --crossover`
 runs phases 1, 2 and the kernels phase's crossover alone, on two seeded
 corpora. `python3 chip_smoke.py --phases serve_spec,serve_pipeline` runs phases
 1, 2 and the named ones (of serve, parity, serve_spec, serve_checkpoint,
-serve_pipeline, train) alone.
+serve_pipeline, serve_mesh, serve_mesh_cards, train) alone.
+`python3 chip_smoke.py --phases serve_mesh_cards` on a machine of several
+cards serves over meshes of them (one card, "N,1", "N/2,2"): the script's
+only multi-card measurement; the default run needs one card and leaves it
+out.
 
 Each path phase (roofline, serve, serve_cold, serve_int8, serve_ivf,
 serve_wide_k, serve_quant, serve_continuous, serve_tiny, serve_spec,
-serve_checkpoint, serve_pipeline, train) sets every launch
+serve_checkpoint, serve_pipeline, serve_mesh, train) sets every launch
 count to 0 just before it and reads the counts just after; each kernel of
 the path must have launched, and every request must come back as
 {"result": str}. Then the nvidia-smi name and power limit, the kernels'
@@ -237,11 +257,14 @@ def wrapper_of(name: str) -> str:
     return name.split("[")[0]
 
 
+# kernels a phase must launch besides those whose path it is in KERNELS
+ALSO_REQUIRED = {"serve_mesh": ("cosine_topk", "flash_attention")}
+
+
 def require_launched(phase: str, launches: dict) -> None:
-    for name, (_, _, path) in KERNELS.items():
-        if path == phase:
-            require(launches[wrapper_of(name)] > 0,
-                    f"kernel {name} never launched in {phase}")
+    names = [name for name, (_, _, path) in KERNELS.items() if path == phase]
+    for name in names + list(ALSO_REQUIRED.get(phase, ())):
+        require(launches[wrapper_of(name)] > 0, f"kernel {name} never launched in {phase}")
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -2931,6 +2954,366 @@ def phase_train(_queries=None) -> dict:
     return launches
 
 
+# the mesh of serve_mesh: two data groups of two model positions, all on one
+# card (positions share the device; a layout check, never a multi-card time)
+MESH_SHAPE = "2,2"
+
+
+def _mesh_recorders(qwen2, sharded_topk, log: dict):
+    """Patches that record, beside each launch, the thread (the mesh
+    position) and the shapes: B2's from qwen2, B1's from the sharded top-k."""
+    import threading
+    from unittest import mock
+
+    b2, b1 = qwen2.flash_attention, sharded_topk.cosine_topk
+
+    def flash(q, k, v, mask, causal=True):
+        log["b2"].append((threading.current_thread().name, tuple(q.shape), tuple(k.shape)))
+        return b2(q, k, v, mask, causal)
+
+    def topk(corpus, queries, k, normalize_queries=True):
+        log["b1"].append((tuple(corpus.shape), k))
+        return b1(corpus, queries, k, normalize_queries)
+
+    return (mock.patch.object(qwen2, "flash_attention", flash),
+            mock.patch.object(sharded_topk, "cosine_topk", topk))
+
+
+def _mesh_bytes(model) -> dict:
+    """Bytes a position holds of the split leaves and of the replicated rest,
+    per model position of data group 0."""
+    from rag_serving_system_torch.ops.quant import weight_bytes
+    from rag_serving_system_torch.parallel import tp
+
+    split = tp._COL | tp._ROW | tp._COL_BIAS
+    out = []
+    for p in model.params[0]:
+        tp_bytes = sum(weight_bytes(w) for k, w in p["layers"].items() if k in split)
+        out.append({"split_leaves": tp_bytes, "replicated": weight_bytes(p) - tp_bytes})
+    return out
+
+
+def _sharded_topk_check(dev, mesh) -> list:
+    """The sharded top-k at 1,048,576 x 1024 (f32 and bf16), B = 32, over the
+    mesh's 4 shards of one card, at k = 16 (warp lists) and 1024 (score
+    kernel and select): ids equal unsharded B1's, each shard's B1 call
+    against its plain version, and the times of both (4 shards on ONE card:
+    not a multi-card time)."""
+    import torch
+    from rag_serving_system_torch.ops import topk
+    from rag_serving_system_torch.parallel.sharded_topk import (shard_corpus,
+                                                                 sharded_cosine_topk)
+
+    n = 1 << 20
+    g = torch.Generator(device=dev).manual_seed(21)
+    corpus = topk.l2_normalize(torch.randn((n, 1024), generator=g, device=dev))
+    queries = torch.randn((32, 1024), generator=g, device=dev)
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        c = corpus.to(dtype)
+        shards = shard_corpus(c, mesh)
+        for k in (16, 1024):
+            s_sh, i_sh = sharded_cosine_topk(shards, queries, k, mesh, valid_n=n)
+            s_one, i_one = topk.cosine_topk(c, queries, k)
+            require(torch.equal(i_sh, i_one), f"sharded top-k ids differ from unsharded B1 "
+                    f"({dtype}, k={k}) at {(i_sh != i_one).nonzero().tolist()[:8]}")
+            err = (s_sh - s_one).abs().max().item()
+            require(err == 0.0, f"sharded top-k scores differ by {err} ({dtype}, k={k})")
+            per_shard = [_check_topk(sh, queries, k, reps=3) for sh in shards]
+            rec = {"n": n, "d": 1024, "b": 32, "k": k, "corpus": str(dtype),
+                   "shards": len(shards), "shard_rows": shards[0].shape[0],
+                   "ids_equal_unsharded": True,
+                   "shard_max_abs_err": max(r["max_abs_err"] for r in per_shard),
+                   "shard_ms": [r["ms"] for r in per_shard],
+                   "shard_plain_ms": [r["plain_ms"] for r in per_shard],
+                   "sharded_ms": cuda_ms(lambda: sharded_cosine_topk(
+                       shards, queries, k, mesh, valid_n=n), 5),
+                   "unsharded_ms": cuda_ms(lambda: topk.cosine_topk(c, queries, k), 5)}
+            emit("sharded_topk", **rec)
+            out.append(rec)
+        del c, shards
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_parity(docs, emb, mesh, queries: list) -> dict:
+    """Full width, f32, greedy, decoder scaled by 4: the mesh engine answers
+    8 queries (and a lone one) exactly as the one-device engine, on the
+    miss route (cache emptied) and the hit route (the same 8 again)."""
+    import torch
+    from rag_serving_system_torch.config import get_settings
+    from rag_serving_system_torch.core.engine import RagEngine
+
+    _serve_env(COMPUTE_DTYPE="float32", DO_SAMPLE="0", QUERY_CACHE_SIZE="0")
+    settings = get_settings()
+    single = RagEngine(settings, docs, emb)
+    meshed = RagEngine(settings, docs, emb, mesh=mesh)
+    _scale_decoder(single, 4.0)
+    meshed.enc_params, meshed.dec_params = single.enc_params, single.dec_params
+    routes, same = {}, {}
+    for name, qs in (("lone", queries[:1]), ("batch_of_8", queries[1:9])):
+        for eng in (single, meshed):
+            eng.prefix_cache.clear()
+        for route in ("miss", "hit"):
+            before = meshed.prefix_cache.stats()
+            a = single.process(qs, [2] * len(qs))
+            b = meshed.process(qs, [2] * len(qs))
+            after = meshed.prefix_cache.stats()
+            routes[f"{name}_{route}"] = {k: after[k] - before[k] for k in ("hits", "misses")}
+            same[f"{name}_{route}"] = a == b
+            if name == "batch_of_8" and route == "miss":
+                sample = [r["result"] for r in b[:2]]
+    emit("serve_mesh_parity", dtype="float32", identical=same, routes=routes,
+         sample_answers=sample)
+    require(all(same.values()), f"serve_mesh parity: mesh answers differ from one "
+            f"device's: {same}")
+    for key, r in routes.items():
+        want_hit = key.endswith("hit")
+        require((r["misses"] == 0) == want_hit and (r["hits"] > 0) == want_hit,
+                f"serve_mesh parity {key} took the wrong route: {r}")
+    del single, meshed
+    _release()
+    return same
+
+
+def phase_serve_mesh(queries: list) -> dict:
+    """The engine over a "2,2" mesh of four positions on the one card, at
+    full width (e5-large, Qwen2.5-1.5B, seeded random weights, bf16, every
+    default: PREFIX_CACHE=1): the lone miss, 64 misses, the same 64 as hits,
+    then 8 cold requests (the prefix cache switched off: padded prefill),
+    through the processor. B1 must launch once per shard per retrieval, B2
+    on every model position (6 query heads and 1 KV head each) in
+    compute_prefix_kv and in the padded prefill; each prefix pool part holds
+    one of the two KV heads. Then B2 at the mesh's shapes and B1 on a shard
+    against their plain versions, the f32 parity with one device, and the
+    sharded top-k at 1M rows."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from rag_serving_system_torch.main import build_processor
+    from rag_serving_system_torch.models import qwen2
+    from rag_serving_system_torch.parallel import sharded_topk
+    from rag_serving_system_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(MESH_SHAPE, devices=[dev] * 4)
+    _serve_env(MESH_SHAPE=MESH_SHAPE)
+    with open(os.environ["DOCUMENT_TEXT_FILE"], encoding="utf-8") as f:
+        docs = json.load(f)
+    emb = np.load(os.environ["DOCUMENT_EMBEDDINGS_FILE"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    processor, engine, request_queue, settings = build_processor(
+        documents=docs, doc_embeddings=emb, mesh=mesh)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    cache = engine.prefix_cache
+    dec, enc = engine.dec_params, engine.enc_params
+    layers, tp = engine.dec_cfg.num_layers, mesh.shape["model"]
+    require(settings.prefix_cache and cache is not None, "serve_mesh: the prefix cache is off")
+    require(dec.split == enc.split == {"attn": True, "mlp": True},
+            f"serve_mesh: tp = 2 must split every block: {dec.split}, {enc.split}")
+    require(len(engine.corpus) == 4 and not engine.packed,
+            "serve_mesh: the corpus is not in 4 shards, or packed prefill is on")
+    full_hk = engine.dec_cfg.num_kv_heads
+    parts = {f"{p}@{d}": {"kv_heads": pool.shape[4], "bytes": pool.numel() * pool.element_size()}
+             for (p, d), pool in cache._pools.items()}
+    require(len(parts) == tp and all(v["kv_heads"] * tp == full_hk for v in parts.values()),
+            f"serve_mesh: the prefix pool parts do not hold half the KV heads: {parts}")
+    log = {"b1": [], "b2": []}
+    rec_b2, rec_b1 = _mesh_recorders(qwen2, sharded_topk, log)
+    steps = {}
+    plans = (("a_lone_miss", queries[:1], False), ("b_64_misses", queries[1:65], False),
+             ("c_64_hits", queries[1:65], False), ("d_8_cold", queries[65:73], True))
+    with rec_b2, rec_b1:
+        processor.start()
+        try:
+            for step, qs, cold in plans:
+                log["b1"].clear()
+                log["b2"].clear()
+                before = cache.stats()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                if cold:
+                    with mock.patch.object(engine, "prefix_cache", None):
+                        _, seconds = _answered(request_queue, qs)
+                else:
+                    _, seconds = _answered(request_queue, qs)
+                launches = read_launches()
+                after = cache.stats()
+                steps[step] = {
+                    "requests": len(qs), "seconds": seconds, "launches": launches,
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    **{k: after[k] - before[k] for k in ("hits", "misses", "bypassed")},
+                    "entries": after["entries"],
+                    "b2_positions": sorted({t for t, _, _ in log["b2"]}),
+                    "b2_heads": sorted({(q[2], k[2]) for _, q, k in log["b2"]}),
+                    "b2_shapes": sorted({(q[0], q[1]) for _, q, _ in log["b2"]}),
+                    "b1_calls": len(log["b1"]),
+                    "b1_shapes": sorted({(s[0], k) for s, k in log["b1"]})}
+        finally:
+            processor.stop(drain_timeout=10.0)
+            processor.join(timeout=30)
+    launches = {}
+    for st in steps.values():
+        for name, n in st["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    # one all-hit batch of 32 through the engine alone, beside the one-device
+    # stage split of the serve phase
+    t0 = time.perf_counter()
+    engine.process(queries[1:33], [2] * 32)
+    torch.cuda.synchronize()
+    all_hit_32_s = time.perf_counter() - t0
+    emit("serve_mesh", mesh=MESH_SHAPE, devices=[str(d) for d in mesh.devices],
+         init_s=t_init, steps=steps, launches=launches, prefix_parts=parts,
+         decoder_position_bytes=engine.position_weight_bytes,
+         encoder_position_bytes=enc.position_bytes(),
+         decoder_bytes_whole=engine.weight_bytes,
+         decoder_split=_mesh_bytes(dec), encoder_split=_mesh_bytes(enc),
+         peak_memory_gb=max(st["peak_memory_gb"] for st in steps.values()),
+         prefix_stats=cache.stats(), stages=engine.timer.summary(),
+         all_hit_batch_of_32_s=all_hit_32_s)
+    require_launched("serve_mesh", launches)
+    a, b, c, d = (steps[s] for s, _, _ in plans)
+    group0 = ["mesh-0-0", "mesh-0-1"]
+    every = ["mesh-0-0", "mesh-0-1", "mesh-1-0", "mesh-1-1"]
+    shard_rows = engine.corpus[0].shape[0]
+    for name, st in steps.items():
+        # one warp-list launch a shard a retrieval, each on a quarter corpus
+        require(st["launches"]["cosine_topk"] == st["b1_calls"] and st["b1_calls"] % 4 == 0
+                and all(shape == (shard_rows, engine.max_k) for shape in st["b1_shapes"]),
+                f"serve_mesh {name}: B1 did not run once per shard per retrieval: {st}")
+        require(all(h == (6, 1) for h in st["b2_heads"]),
+                f"serve_mesh {name}: B2 ran with other than 6 query / 1 KV heads: {st}")
+    require((a["misses"], a["hits"], a["entries"]) == (1, 0, 1)
+            and a["launches"]["flash_attention"] == tp * layers
+            and a["b2_positions"] == group0 and a["launches"]["cosine_topk"] == 4,
+            f"serve_mesh: the lone miss did not run B2 on both model positions "
+            f"({tp} x {layers}) and B1 on the 4 shards: {a}")
+    require(b["hits"] + b["misses"] == 64 and b["bypassed"] == 0 and b["misses"] > 0
+            and b["launches"]["flash_attention"] > 0
+            and b["launches"]["flash_attention"] % (tp * layers) == 0
+            and set(group0) <= set(b["b2_positions"]) and b["launches"]["cosine_topk"] > 0,
+            f"serve_mesh: the 64 requests did not take the miss route through B2: {b}")
+    require(c["misses"] == 0 and c["hits"] == 64 and c["launches"]["flash_attention"] == 0
+            and c["launches"]["cosine_topk"] == 0,
+            f"serve_mesh: the repeated 64 requests did not hit: {c}")
+    require(d["b2_positions"] == every and d["launches"]["flash_attention"] % (tp * layers) == 0
+            and d["launches"]["flash_attention"] > 0 and d["hits"] + d["misses"] == 0,
+            f"serve_mesh: the cold batch did not prefill through B2 on every position: {d}")
+    # B2 and B1 against their plain versions at the shapes this run gave them
+    # prefix compute (right-padded) in steps a and b, padded prefill in d
+    shapes = {(m, s, "right") for st in (a, b) for m, s in st["b2_shapes"]}
+    shapes |= {(m, s, "left") for m, s in d["b2_shapes"]}
+    for m, s, padding in sorted(shapes):
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-4)):
+            emit("kernel", name="flash_attention", served_shape="serve_mesh",
+                 **_check_flash(dev, dtype, tol, seed=31, b=m, s=s, padding=padding,
+                                heads=(6, 1, engine.dec_cfg.head_dim)))
+    g = torch.Generator(device=dev).manual_seed(32)
+    q = torch.randn((32, engine.corpus[0].shape[1]), generator=g, device=dev)
+    emit("kernel", name="cosine_topk", served_shape="serve_mesh",
+         **_check_topk(engine.corpus[0], q, engine.max_k, reps=5))
+    del processor, engine, cache, dec, enc
+    _release()
+    _mesh_parity(docs, emb, mesh, queries[73:82])
+    _sharded_topk_check(dev, mesh)
+    return launches
+
+
+def phase_serve_mesh_cards(queries: list) -> dict:
+    """The engine over meshes of SEVERAL cards (an even number; run it with
+    `--phases serve_mesh_cards` on such a machine: the default run needs one
+    card and leaves it out), at full width, bf16, every other setting at its
+    default: one card without a mesh, every card on "data" ("N,1": each data
+    group on a card of its own), and tensor parallelism ("N/2,2"). Each serves a lone miss, 64 misses and the same
+    64 as hits through the processor, then one all-hit batch of 32 through
+    the engine three times: seconds, launches, the peak memory of each card.
+    On the meshes the batch of 32 is also timed under both turn-ring plans,
+    taking turns: a ring a data group (the groups at once) and one ring for
+    every group (the groups one after another). Then the f32 greedy answers
+    of the "N/2,2" mesh equal to one card's (a lone request and 8, miss and
+    hit routes)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from rag_serving_system_torch.main import build_processor
+    from rag_serving_system_torch.parallel import tp
+    from rag_serving_system_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    require(n >= 2 and n % 2 == 0, f"serve_mesh_cards needs an even number of cards: {n}")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    with open(os.path.join(DATA, "squad_real_contexts.json"), encoding="utf-8") as f:
+        docs = json.load(f)
+    emb = np.load(os.path.join(DATA, "squad_real_embeddings.npy"))
+
+    def synced() -> None:
+        for c in cards:
+            torch.cuda.synchronize(c)
+
+    def all_hit_32(engine) -> float:
+        t0 = time.perf_counter()
+        engine.process(queries[1:33], [2] * 32)
+        synced()
+        return time.perf_counter() - t0
+
+    plans = {"ring_per_group": lambda mesh, groups: [
+                 [(g, m) for m in range(mesh.shape["model"])] for g in groups],
+             "one_ring": lambda mesh, groups: [
+                 [(g, m) for g in groups for m in range(mesh.shape["model"])]]}
+
+    layouts = {}
+    for shape in ("", f"{n},1", f"{n // 2},2"):
+        _serve_env(MESH_SHAPE=shape)
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        t0 = time.perf_counter()
+        processor, engine, request_queue, _ = build_processor(
+            documents=docs, doc_embeddings=emb,
+            mesh=make_mesh(shape, devices=cards) if shape else None)
+        synced()
+        t_init = time.perf_counter() - t0
+        cache = engine.prefix_cache
+        steps = {}
+        processor.start()
+        try:
+            for step, qs in (("a_lone_miss", queries[:1]), ("b_64_misses", queries[1:65]),
+                             ("c_64_hits", queries[1:65])):
+                before = cache.stats()
+                reset_launches()
+                _, seconds = _answered(request_queue, qs)
+                after = cache.stats()
+                steps[step] = {"requests": len(qs), "seconds": seconds,
+                               "launches": read_launches(),
+                               **{k: after[k] - before[k] for k in ("hits", "misses")}}
+        finally:
+            processor.stop(drain_timeout=10.0)
+            processor.join(timeout=30)
+        all_hit = [all_hit_32(engine) for _ in range(3)]
+        by_plan = {name: [] for name in plans} if shape else {}
+        for _ in range(3 if shape else 0):
+            for name, plan in plans.items():
+                with mock.patch.object(tp, "rings", plan):
+                    by_plan[name].append(all_hit_32(engine))
+        rec = {"layout": shape or "one card", "cards": n, "init_s": t_init, "steps": steps,
+               "all_hit_batch_of_32_s": all_hit,
+               "all_hit_batch_of_32_s_by_ring_plan": by_plan, "stages": engine.timer.summary(),
+               "peak_memory_gb": [torch.cuda.max_memory_allocated(c) / 1e9 for c in cards],
+               "position_weight_bytes": engine.position_weight_bytes}
+        emit("serve_mesh_cards", **rec)
+        require(steps["c_64_hits"]["misses"] == 0 and steps["c_64_hits"]["hits"] == 64,
+                f"serve_mesh_cards {rec['layout']}: the repeated 64 requests did not hit: "
+                f"{steps['c_64_hits']}")
+        layouts[rec["layout"]] = rec
+        del processor, engine, cache
+        _release()
+    _mesh_parity(docs, emb, make_mesh(f"{n // 2},2", devices=cards), queries[73:82])
+    return layouts
+
+
 def timed(phase: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2962,6 +3345,7 @@ def main() -> int:
         queries = json.load(f)
     only = {"serve": phase_serve, "serve_spec": phase_serve_spec, "serve_checkpoint": phase_serve_checkpoint,
             "serve_pipeline": phase_serve_pipeline, "parity": phase_parity,
+            "serve_mesh": phase_serve_mesh, "serve_mesh_cards": phase_serve_mesh_cards,
             "train": phase_train}
     if sys.argv[1:] in (["--stage-split"], ["--crossover"]) or (
             sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3
@@ -3008,6 +3392,7 @@ def main() -> int:
         launches["serve_checkpoint"] = timed("serve_checkpoint", phase_serve_checkpoint,
                                              queries)
         launches["serve_pipeline"] = timed("serve_pipeline", phase_serve_pipeline, queries)
+        launches["serve_mesh"] = timed("serve_mesh", phase_serve_mesh, queries)
         launches["train"] = timed("train", phase_train, queries)
         emit("timing", of="all", seconds=time.perf_counter() - t_start)
     except SmokeFailure as e:

@@ -12,6 +12,8 @@ functions, so the two can be held against each other on the same inputs.
 - models/    e5 (XLM-RoBERTa) encoder and Qwen2 decoder as functions on
              dicts of tensors in the JAX (in, out) layout
 - core/      serving engine, batch processor, request queues, retrievers
+- parallel/  the ("data", "model") mesh of one process, the sharded top-k,
+             tensor-parallel weights
 - api/       the HTTP surface (aiohttp)
 - utils/     the memo LRU, stage timers, the RESP client
 - main.py    the service (python -m rag_serving_system_torch.main;
@@ -20,12 +22,12 @@ functions, so the two can be held against each other on the same inputs.
 The package imports nothing of `rag_serving_system_tpu`: where it needs a
 host module of the JAX package, it keeps its own copy, under the same name.
 
-What is served: the single-device request path with every setting of the
-JAX package's that one device can serve (the prefix-KV cache with its hit,
-miss and bypass routes, the quantized decoder, the continuous decode pool,
-speculative greedy decode, HF checkpoints and tokenizers, the pipelined batch
-processor, the api and engine roles); what the port does not implement makes
-the engine raise (core/engine.py).
+What is served: the request path with every setting of the JAX package's
+(the prefix-KV cache with its hit, miss and bypass routes, the quantized
+decoder, the continuous decode pool, speculative greedy decode, HF
+checkpoints and tokenizers, the pipelined batch processor, the api and
+engine roles), on one device or over a mesh of several (`parallel/`); what
+the port does not implement makes the engine raise (core/engine.py).
 """
 
 __version__ = "0.1.0"

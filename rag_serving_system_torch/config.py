@@ -84,7 +84,8 @@ class Settings:
     # retrieval: the fixed k retrieved per batch; each request's k <= it is
     # sliced on the host
     max_k: int = field(default_factory=lambda: int(_env("MAX_K", "16")))
-    # "dp,tp" mesh sizes; one device only in the port
+    # "dp,tp" mesh sizes over the visible CUDA devices (main.py, with more
+    # than one); empty serves on one device
     mesh_shape: str = field(default_factory=lambda: _env("MESH_SHAPE", ""))
     # a checkpoint directory; none is loaded by the port yet
     weights_dir: Optional[str] = field(default_factory=lambda: os.environ.get("WEIGHTS_DIR"))

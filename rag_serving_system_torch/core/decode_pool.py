@@ -1,8 +1,8 @@
 """Continuous (in-flight) batching: a persistent slot pool for decode
 (DECODE_MODE=continuous).
 
-Counterpart of `rag_serving_system_tpu/core/decode_pool.py` without its mesh
-argument. The fixed `generate` decodes a batch until EVERY row has finished;
+Counterpart of `rag_serving_system_tpu/core/decode_pool.py`. The fixed
+`generate` decodes a batch until EVERY row has finished;
 here finished rows free their slot at once and new requests take it without
 waiting for the rest of a batch to drain:
 
@@ -31,6 +31,15 @@ and RoPE is baked into K at the write.
 One thread owns the pool's device work and its bookkeeping, so the
 bookkeeping needs no lock. `submit` returns at once; results are delivered
 per request through the callback as each completes.
+
+Under the engine's mesh the slot axis goes over "data": data group g holds
+slots [g * S / dp, (g + 1) * S / dp), and each of its model positions holds
+their ring K/V for its own KV heads (the fixed path's cache split) and its
+own copy of the per-slot scalars. A chunk runs `decode_chunk` on every
+position in lockstep (`parallel/tp.py`); an insert copies each row's K/V
+from the prefill's part to the positions of the slot's data group. The
+token blocks are gathered to the lead device, so the host's bookkeeping is
+the one-device pool's.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import numpy as np
 import torch
 
 from rag_serving_system_torch.models.qwen2 import decode_chunk, eos_id_set, token_is_eos
+from rag_serving_system_torch.parallel.tp import run_positions
 
 logger = logging.getLogger(__name__)
 
@@ -152,19 +162,31 @@ class DecodePool:
             raise ValueError(
                 f"DECODE_WINDOW={window} cannot hold max_new_tokens="
                 f"{self.max_new_tokens}")
-        dev = engine.device
-        shape = (cfg.num_layers, slots, window, cfg.num_kv_heads, cfg.head_dim)
-        self.pool_k = torch.zeros(shape, dtype=engine.dtype, device=dev)
-        self.pool_v = torch.zeros(shape, dtype=engine.dtype, device=dev)
-        self.valid = torch.zeros((slots, window), dtype=torch.bool, device=dev)
-        self.last_tok = torch.full((slots,), cfg.pad_token_id, dtype=torch.int32,
-                                   device=dev)
-        self.next_pos = torch.zeros((slots,), dtype=torch.int32, device=dev)
-        self.active = torch.zeros((slots,), dtype=torch.bool, device=dev)
-        self.remaining = torch.zeros((slots,), dtype=torch.int32, device=dev)
-        self.cursor = 0
-        self._generator = torch.Generator(device=dev).manual_seed(
+        self.mesh = mesh = engine.mesh
+        dp = mesh.shape["data"]
+        if slots % dp:
+            raise ValueError(f"DECODE_SLOTS={slots} must be a multiple of the mesh "
+                             f"data axis {dp}")
+        self.group_slots = s_ = slots // dp
+        self._generator = engine._position_generators(
             int(engine.settings.max_new_tokens) * 7919 + slots)
+        # (pool_k, pool_v, valid, last_tok, next_pos, active, remaining) of
+        # each position, `decode_chunk`'s state arguments in order
+        shape = (cfg.num_layers, s_, window, engine._dec.cfg.num_kv_heads, cfg.head_dim)
+        self._states = {}
+        for at in engine._positions():
+            dev = mesh.device(*at)
+            self._states[at] = [
+                torch.zeros(shape, dtype=engine.dtype, device=dev),
+                torch.zeros(shape, dtype=engine.dtype, device=dev),
+                torch.zeros((s_, window), dtype=torch.bool, device=dev),
+                torch.full((s_,), cfg.pad_token_id, dtype=torch.int32, device=dev),
+                torch.zeros((s_,), dtype=torch.int32, device=dev),
+                torch.zeros((s_,), dtype=torch.bool, device=dev),
+                torch.zeros((s_,), dtype=torch.int32, device=dev)]
+        (self.pool_k, self.pool_v, self.valid, self.last_tok, self.next_pos,
+         self.active, self.remaining) = self._states[(0, 0)]
+        self.cursor = 0
 
         self._free = list(range(slots))
         self._meta: dict[int, _Slot] = {}
@@ -194,9 +216,10 @@ class DecodePool:
         self.inserted = 0
         self.tokens_emitted = 0   # real tokens read from DECODE blocks
         self.tokens_prefill = 0   # first tokens (sampled by the prefill)
-        logger.info("decode pool: %d slots x window %d, chunk %d (%s K/V, %.0f MB)",
-                    slots, window, chunk, engine.dtype,
-                    2 * np.prod(shape) * self.pool_k.element_size() / 2**20)
+        logger.info("decode pool: %d slots x window %d, chunk %d (%s K/V, %.0f MB "
+                    "over %d positions)", slots, window, chunk, engine.dtype,
+                    sum(2 * st[0].numel() * st[0].element_size()
+                        for st in self._states.values()) / 2**20, len(self._states))
 
     # -- public API ------------------------------------------------------
 
@@ -355,13 +378,7 @@ class DecodePool:
             return False
         rows = list(range(st.next, st.next + take))
         slots = [self._free.pop() for _ in rows]
-        dev = self.valid.device
-        _insert_rows(self.pool_k, self.pool_v, self.valid, self.last_tok,
-                     self.next_pos, self.active, self.remaining,
-                     st.k, st.v, st.mask, st.tok0,
-                     torch.as_tensor(rows, dtype=torch.int64, device=dev),
-                     torch.as_tensor(slots, dtype=torch.int64, device=dev),
-                     self.cursor, st.bud_dev, self.eos_ids)
+        self._insert(st, rows, slots)
         # the snapshot binds row index -> _Slot OBJECT: by the time tok0 is
         # read, the slot id may already host a successor request
         snapshot = {}
@@ -378,6 +395,29 @@ class DecodePool:
             self._pending_rows.pop(0)
         return True
 
+    def _insert(self, st: "_RowSet", rows: list, slots: list) -> None:
+        """`_insert_rows` on every position of each data group that owns
+        some of `slots`, its K/V from the prefill's part for the position's
+        heads. Where the row set lies on another device than the position,
+        the group's rows are copied there first."""
+        per = self.group_slots
+        for g in sorted({s // per for s in slots}):
+            mine = [(r, s - g * per) for r, s in zip(rows, slots) if s // per == g]
+            for m in range(self.mesh.shape["model"]):
+                dev = self.mesh.device(g, m)
+                part = self.engine._prefix_part(m)
+                src = (st.k[part], st.v[part], st.mask, st.tok0, st.bud_dev)
+                idx = torch.as_tensor([r for r, _ in mine], dtype=torch.int64, device=dev)
+                if any(t.device != dev for t in src):
+                    src = tuple(t.index_select(int(i < 2), idx.to(t.device)).to(dev)
+                                for i, t in enumerate(src))
+                    idx = torch.arange(len(mine), dtype=torch.int64, device=dev)
+                k, v, mask, tok0, bud = src
+                _insert_rows(*self._states[(g, m)], k, v, mask, tok0, idx,
+                             torch.as_tensor([s for _, s in mine], dtype=torch.int64,
+                                             device=dev),
+                             self.cursor, bud, self.eos_ids)
+
     def _dispatch_chunk(self) -> bool:
         """One decode_chunk call when any slot might be live. The host's
         `_meta` (slots not yet delivered) over-approximates the device's
@@ -386,11 +426,17 @@ class DecodePool:
         if not self._meta:
             return False
         s = self.engine.settings
-        *_, self.cursor, toks = decode_chunk(
-            self.engine.dec_params, self.cfg, self.pool_k, self.pool_v,
-            self.valid, self.last_tok, self.next_pos, self.active,
-            self.remaining, self.cursor, self._generator, chunk=self.chunk,
-            do_sample=s.do_sample, dtype=self.engine.dtype, eos_bias=s.eos_bias)
+        kw = dict(chunk=self.chunk, do_sample=s.do_sample, dtype=self.engine.dtype,
+                  eos_bias=s.eos_bias)
+        dec = self.engine._dec
+        res = run_positions(
+            self.mesh, dec, lambda g, m: decode_chunk(
+                dec.params[g][m], dec.cfg, *self._states[(g, m)], self.cursor,
+                self._generator[(g, m)], **kw), range(self.mesh.shape["data"]))
+        self.cursor = res[(0, 0)][-2]
+        # the groups' (chunk, S / dp) blocks side by side: slot order
+        toks = self.engine._gathered(
+            [res[(g, 0)][-1] for g in range(self.mesh.shape["data"])], dim=1)
         # snapshot slot -> _Slot at DISPATCH time: this block's tokens belong
         # to these request objects even if a slot is freed and reused before
         # the block is read (the successor's tokens ride later blocks)

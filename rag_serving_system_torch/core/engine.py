@@ -19,9 +19,20 @@ files and the tokenizers from its tokenizer files; without one the presets
 serve random weights behind the hashing tokenizer. SPEC_DECODE=gamma makes
 the fixed decode loop speculative under greedy decoding.
 
-Settings this port does not implement yet (a multi-device mesh) or values it
-does not know make the constructor raise rather than serve another
-configuration (see `unsupported_settings`).
+One device is a mesh of one position (`parallel/mesh.py`), which every route
+runs through: the mesh code calls a lone position directly. With `mesh=` of
+more than one position the engine serves as the JAX engine does under its
+mesh: both models tensor-parallel over
+"model" (`parallel/tp.py`), batch rows over "data" (the first data group
+serves a batch that does not divide), the corpus sharded over every
+position (`parallel/sharded_topk.py`: B1 on each shard), the prefix pool
+held per model position with that position's KV heads, the decode pool's
+slots over "data". Packed prefill, the int8 corpus and IVF are one-device
+routes: under a mesh prefill is padded, the corpus streams bf16 and
+retrieval is the exact sharded scan, each with the JAX engine's warning.
+
+Values this port does not know make the constructor raise rather than serve
+another configuration (see `unsupported_settings`).
 """
 
 from __future__ import annotations
@@ -80,6 +91,9 @@ from rag_serving_system_torch.ops.topk import (
     pad_depth,
     quantize_corpus_int8_chunked,
 )
+from rag_serving_system_torch.parallel.mesh import Mesh, gather_to
+from rag_serving_system_torch.parallel.sharded_topk import shard_corpus, sharded_cosine_topk
+from rag_serving_system_torch.parallel.tp import row_groups, run_positions, shard_params
 from rag_serving_system_torch.utils.lru import LockedLRU
 from rag_serving_system_torch.utils.timing import StageTimer
 
@@ -157,9 +171,6 @@ def unsupported_settings(settings: Settings, device: torch.device,
         bad.append(f"QUANT_WEIGHTS={settings.quant_weights} (none, int8 or int4)")
     if settings.quant_act not in ("none", "int8"):
         bad.append(f"QUANT_ACT={settings.quant_act} (none or int8)")
-    if settings.mesh_shape and np.prod(
-            [int(x) for x in settings.mesh_shape.split(",") if x.strip()]) > 1:
-        bad.append(f"MESH_SHAPE={settings.mesh_shape} (one device only)")
     return bad
 
 
@@ -167,9 +178,16 @@ class RagEngine:
     """Owns the models, tokenizers and the device-resident corpus."""
 
     def __init__(self, settings: Settings, documents: List[str],
-                 doc_embeddings: np.ndarray, device: str | torch.device | None = None):
+                 doc_embeddings: np.ndarray, device: str | torch.device | None = None,
+                 mesh=None):
         emb = np.asarray(doc_embeddings, dtype=np.float32)
-        self.device = resolve_device(device)
+        # one device is a mesh of one position: every route runs through the
+        # mesh code, which calls a lone position directly
+        self.mesh = mesh if mesh is not None else Mesh([[resolve_device(device)]])
+        self.device = self.mesh.lead
+        # the corpus sharded, and the one-device routes (packed prefill, the
+        # int8 corpus, IVF) off, as in the JAX engine
+        self.sharded = self.mesh.size > 1
         # architectures: from the snapshot's own config.json when a local
         # checkpoint exists (any BERT / XLM-R encoder, any Llama-family
         # decoder), else the preset
@@ -196,10 +214,10 @@ class RagEngine:
                 f"{self.enc_cfg.hidden_size} (model_preset={settings.model_preset!r})")
 
         t0 = time.time()
-        self.enc_params, enc_real = get_encoder_params(
+        enc_params, enc_real = get_encoder_params(
             self.enc_cfg, settings.weights_dir, settings.embed_model_name,
             dtype=self.dtype, device=self.device)
-        self.dec_params, dec_real = get_decoder_params(
+        dec_params, dec_real = get_decoder_params(
             self.dec_cfg, settings.weights_dir, settings.llm_model_name,
             dtype=self.dtype, device=self.device)
         # which model came from a checkpoint, and the seconds both took (the
@@ -213,14 +231,23 @@ class RagEngine:
                     "hf" if enc_real else "random-init",
                     "hf" if dec_real else "random-init")
         # the decoder's weight bytes as initialised and as held for serving
-        self.weight_bytes_init = weight_bytes(self.dec_params)
+        # (the whole model's; `position_weight_bytes` has each position's)
+        self.weight_bytes_init = weight_bytes(dec_params)
         if settings.quant_weights in ("int8", "int4"):
             bits = 4 if settings.quant_weights == "int4" else 8
-            self.dec_params = quantize_decoder_params(self.dec_params, bits=bits)
+            dec_params = quantize_decoder_params(dec_params, bits=bits)
             logger.info("decoder weights quantized to %s (%s)", settings.quant_weights,
                         "group-128 matmuls, int8 embed/head" if bits == 4
                         else "per-channel")
-        self.weight_bytes = weight_bytes(self.dec_params)
+        self.weight_bytes = weight_bytes(dec_params)
+        # the setters shard both models over the mesh
+        self.enc_params = enc_params
+        self.dec_params = dec_params
+        del enc_params, dec_params
+        if self.sharded:
+            logger.info("mesh %s: encoder split %s, decoder split %s, decoder "
+                        "bytes a position %s", self.mesh.shape, self._enc.split,
+                        self._dec.split, self._dec.position_bytes())
         self.act_quant = (settings.quant_act == "int8"
                           and settings.quant_weights in ("int8", "int4"))
         if settings.quant_act == "int8" and not self.act_quant:
@@ -256,14 +283,27 @@ class RagEngine:
         self.corpus_mean = None
         self.corpus_chunks = None
         self.ivf_index = None
+        retriever_kind = settings.retriever
+        corpus_dtype = settings.retrieval_corpus_dtype
+        if self.sharded and corpus_dtype == "int8":
+            logger.warning("int8 corpus is single-device only; the sharded "
+                           "path streams bfloat16 instead")
+            corpus_dtype = "bfloat16"
+        if self.sharded and retriever_kind == "ivf":
+            logger.warning("RETRIEVER=ivf is single-device only; the mesh "
+                           "path serves the exact sharded scan instead")
+            retriever_kind = "exact"
         # the exact kernels read rows in 16-byte pieces: their corpus gets its
         # depth padded once here (zero columns change no score) and _topk
         # pads the queries. IVF is plain tensor code and takes any depth.
-        if settings.retriever != "ivf":
+        if retriever_kind != "ivf":
             emb = pad_depth(emb)
-        if settings.retriever == "ivf":
+        if retriever_kind == "ivf":
             self._build_ivf(emb)
-        elif settings.retrieval_corpus_dtype == "int8":
+        elif self.sharded:
+            dt = torch.bfloat16 if corpus_dtype == "bfloat16" else torch.float32
+            self.corpus = shard_corpus(torch.as_tensor(emb).to(dt), self.mesh)
+        elif corpus_dtype == "int8":
             # host-side chunked quantization (numpy): no corpus-size device
             # transients; several chunks when N > TOPK_CHUNK_ROWS
             chunks, self.corpus_mean = quantize_corpus_int8_chunked(
@@ -275,16 +315,18 @@ class RagEngine:
                 logger.info("int8 corpus in %d chunks of <=%d rows",
                             len(chunks), settings.topk_chunk_rows)
         else:
-            dt = (torch.bfloat16 if settings.retrieval_corpus_dtype == "bfloat16"
-                  else torch.float32)
+            dt = torch.bfloat16 if corpus_dtype == "bfloat16" else torch.float32
             self.corpus = torch.as_tensor(emb, device=self.device).to(dt)
         self.max_k = min(settings.max_k, self.n_docs)
-        self._generator = torch.Generator(device=self.device).manual_seed(0)
+        # one sampling generator a position, seeded alike within a data
+        # group: its positions sample the same tokens from the same logits
+        self._generators = self._position_generators(0)
         self.timer = StageTimer()
 
         # packed prefill for no-prefix batches: B is pinned to the largest
-        # batch bucket, T to a ladder of multiples of PACKED_T_STEP
-        self.packed = settings.packed_prefill
+        # batch bucket, T to a ladder of multiples of PACKED_T_STEP. One
+        # device only: the packed stream has no batch axis to split
+        self.packed = settings.packed_prefill and not self.sharded
         # speculative decode (SPEC_DECODE=gamma) is greedy only: sampling
         # would need rejection resampling to keep its distribution
         self.spec_gamma = settings.spec_gamma if not settings.do_sample else 0
@@ -322,7 +364,10 @@ class RagEngine:
         self.query_cache_hits = 0
         self.query_cache_misses = 0
 
-        # exact prefix-KV cache: one pool tensor on the engine's device
+        # exact prefix-KV cache: one pool tensor on the engine's device; under
+        # a mesh whose decoder splits its attention, one part a model
+        # position (its KV heads) on each of that position's devices, else
+        # the whole pool on every mesh device (`_prefix_placements`)
         self.prefix_cache = None
         self.prefix_int8 = False
         if settings.prefix_cache:
@@ -351,7 +396,8 @@ class RagEngine:
                 adaptive=settings.prefix_adaptive,
                 window=settings.prefix_adaptive_window,
                 low_hit_rate=settings.prefix_adaptive_low,
-                probe_every=settings.prefix_probe_every, device=self.device)
+                probe_every=settings.prefix_probe_every, device=self.device,
+                **self._prefix_placements())
             logger.info("prefix-KV cache on: pool_len=%d, %s storage, "
                         "%.1f MB/entry, capacity %d entries",
                         pool_len, "int8" if self.prefix_int8 else "compute",
@@ -368,12 +414,107 @@ class RagEngine:
             # slots may be FEWER than a batch bucket: prefilled rows enter
             # the pool in waves as slots free
             slots = max(1, settings.decode_slots or 2 * self.batch_buckets[-1])
+            dp = self.mesh.shape["data"]
+            if slots % dp:   # padded up so the slot axis splits evenly over "data"
+                slots = -(-slots // dp) * dp
             window = settings.decode_window
             if window == 0:
                 window = -(-(max(settings.prompt_len_buckets)
                              + settings.max_new_tokens) // 128) * 128
             self.decode_pool = DecodePool(self, slots=slots, window=window,
                                           chunk=max(1, settings.decode_chunk))
+
+    # ------------------------------------------------------------------
+    # the mesh
+    # ------------------------------------------------------------------
+
+    @property
+    def enc_params(self):
+        """The encoder's parameter tree; under a mesh of several positions
+        its `ShardedModel`. Assigning a whole tree shards it over the mesh."""
+        return self._enc if self.sharded else self._enc.params[0][0]
+
+    @enc_params.setter
+    def enc_params(self, params) -> None:
+        self._enc = shard_params(params, self.mesh, self.enc_cfg)
+
+    @property
+    def dec_params(self):
+        """The decoder's parameter tree; under a mesh of several positions
+        its `ShardedModel`. Assigning a whole tree shards it over the mesh."""
+        return self._dec if self.sharded else self._dec.params[0][0]
+
+    @dec_params.setter
+    def dec_params(self, params) -> None:
+        self._dec = shard_params(params, self.mesh, self.dec_cfg)
+
+    @property
+    def position_weight_bytes(self) -> list:
+        """The decoder bytes each mesh position holds, data-major."""
+        return self._dec.position_bytes()
+
+    def _positions(self) -> list:
+        dp, tp = self.mesh.shape["data"], self.mesh.shape["model"]
+        return [(g, m) for g in range(dp) for m in range(tp)]
+
+    def _position_generators(self, seed: int) -> dict:
+        """A sampling generator a position, alike within a data group
+        (seed + g)."""
+        return {(g, m): torch.Generator(device=self.mesh.device(g, m)).manual_seed(seed + g)
+                for g, m in self._positions()}
+
+    def _prefix_part(self, m: int) -> int:
+        """The prefix pool part model position m reads."""
+        return m if self._dec.split["attn"] else 0
+
+    def _prefix_parts(self) -> range:
+        """The prefix pool's parts: one a model position when the decoder's
+        attention is split, else one."""
+        return range(self.mesh.shape["model"] if self._dec.split["attn"] else 1)
+
+    def _prefix_placements(self) -> dict:
+        """PrefixKVCache's `parts` and `placements`: one part a model
+        position when the decoder's attention is split, on each of that
+        position's devices; else one part on every device."""
+        at = {(self._prefix_part(m), self.mesh.device(g, m)) for g, m in self._positions()}
+        return {"parts": len(self._prefix_parts()),
+                "placements": sorted(at, key=lambda a: (a[0], str(a[1])))}
+
+    def _mesh_run(self, model, b: int, fn) -> tuple:
+        """fn(params, g, m, rows, device) on every model position of the data
+        groups that serve a b-row batch (`tp.row_groups`), in lockstep.
+        Returns (the groups, {(g, m): result})."""
+        parts = dict(row_groups(self.mesh, b))
+        res = run_positions(
+            self.mesh, model,
+            lambda g, m: fn(model.params[g][m], g, m, parts[g], self.mesh.device(g, m)),
+            list(parts))
+        return list(parts), res
+
+    def _gathered(self, tensors: list, dim: int = 0, device=None) -> torch.Tensor:
+        """The data groups' pieces, gathered to `device` (the lead device)
+        and concatenated along `dim`."""
+        out = gather_to(tensors, device or self.device)
+        return out[0] if len(out) == 1 else torch.cat(out, dim=dim)
+
+    def _agreed(self, res: dict, groups: list) -> torch.Tensor:
+        """The groups' (rows, ...) results of model position 0, gathered to
+        the lead device, after checking that every model position of a group
+        produced the same values: positions whose replicated state drifted
+        apart would decode different tokens into their own K/V."""
+        for g in groups:
+            lead = res[(g, 0)]
+            for m in range(1, self.mesh.shape["model"]):
+                if not torch.equal(lead, res[(g, m)].to(lead.device)):
+                    raise RuntimeError(f"model positions of data group {g} disagree")
+        return self._gathered([res[(g, 0)] for g in groups])
+
+    def _prefix_rows(self, slots, rows: slice, m: int, device):
+        """Rows `rows` of a batch's prefix K/V (resolved to pool `slots`) as
+        model position m reads them on `device`, or None."""
+        if slots is None:
+            return None
+        return self.prefix_cache.gather(slots[rows], self._prefix_part(m), device)
 
     # ------------------------------------------------------------------
     # stages 1+2: embed + retrieve
@@ -431,7 +572,9 @@ class RagEngine:
                 f"cluster)")
 
     def _put_batch(self, arr) -> torch.Tensor:
-        """A host batch as a tensor on the engine's device."""
+        """A host batch as a tensor on the engine's device (under a mesh the
+        lead device: `_mesh_run` hands each data group its rows, split over
+        "data" when they divide, else all of them to the first group)."""
         return torch.as_tensor(np.asarray(arr), device=self.device)
 
     def embed_and_retrieve(self, queries: List[str], ks: List[int]) -> List[List[int]]:
@@ -502,12 +645,19 @@ class RagEngine:
                                   pad_side="right")
         # give pad rows one real token so their unmasked mean is defined
         mask[len(queries):, 0] = 1
-        return encode(self.enc_params, self.enc_cfg, self._put_batch(ids),
-                      self._put_batch(mask), dtype=self.dtype)
+        ids, mask = self._put_batch(ids), self._put_batch(mask)
+        groups, res = self._mesh_run(
+            self._enc, bsz, lambda params, g, m, rows, dev: encode(
+                params, self.enc_cfg, ids[rows].to(dev), mask[rows].to(dev),
+                dtype=self.dtype))
+        return self._gathered([res[(g, 0)] for g in groups])
 
     def _topk(self, q_emb: torch.Tensor, k: int):
         if self.ivf_index is not None:
             return ivf_search(self.ivf_index, q_emb, k, nprobe=self.ivf_nprobe)
+        if self.sharded:
+            return sharded_cosine_topk(self.corpus, q_emb, k, self.mesh,
+                                       valid_n=self.n_docs)
         q_emb = pad_depth(q_emb)
         if self.corpus_chunks is not None:
             return cosine_topk_int8_chunked(self.corpus_chunks, q_emb, k,
@@ -721,22 +871,31 @@ class RagEngine:
         if staged is None:
             staged = self.stage_prompts(prompts)
         s = self.settings
-        common = dict(generator=self._generator, max_new_tokens=s.max_new_tokens,
-                      do_sample=s.do_sample, dtype=self.dtype,
-                      eos_bias=s.eos_bias, act_quant=self.act_quant,
-                      spec_gamma=self.spec_gamma, loop_stats=self.loop_stats)
+        common = dict(max_new_tokens=s.max_new_tokens, do_sample=s.do_sample,
+                      dtype=self.dtype, eos_bias=s.eos_bias, act_quant=self.act_quant,
+                      spec_gamma=self.spec_gamma)
         if staged[0] == "packed":
             _, stream, gather, last, n, bud = staged
             toks = generate_packed(
                 self.dec_params, self.dec_cfg, *self._packed_args(stream, gather, last),
-                row_valid=last >= 0, row_budget=bud[0], **common)
+                row_valid=last >= 0, row_budget=bud[0], generator=self._generators[(0, 0)],
+                loop_stats=self.loop_stats, **common)
             return toks, n
         _, ids, mask, row_valid, n, metas, bud = staged
-        prefix_kv, prefix_len = self._staged_prefixes(metas)
-        toks = generate(self.dec_params, self.dec_cfg, ids, mask,
-                        row_valid=row_valid, row_budget=bud[0],
-                        prefix_kv=prefix_kv, prefix_len=prefix_len, **common)
-        return toks, n
+        prefix_slots, prefix_len = self._staged_prefixes(metas)
+
+        def fn(params, g, m, rows, dev):
+            def at(t):
+                return None if t is None else t[rows].to(dev)
+            return generate(params, self._dec.cfg, at(ids), at(mask),
+                            row_valid=at(row_valid), row_budget=at(bud[0]),
+                            prefix_kv=self._prefix_rows(prefix_slots, rows, m, dev),
+                            prefix_len=at(prefix_len), generator=self._generators[(g, m)],
+                            loop_stats=self.loop_stats if (g, m) == (0, 0) else None,
+                            **common)
+
+        groups, res = self._mesh_run(self._dec, ids.shape[0], fn)
+        return self._agreed(res, groups), n
 
     @staticmethod
     def _packed_args(stream, gather, last) -> tuple:
@@ -747,8 +906,8 @@ class RagEngine:
                 gather.clamp(min=0), (gather >= 0).to(torch.int32))
 
     def _staged_prefixes(self, metas):
-        """(prefix K/V, prefix lengths) of a padded staged batch, or (None,
-        None) when it carries no prefix."""
+        """(prefix pool slots, prefix lengths) of a padded staged batch, or
+        (None, None) when it carries no prefix."""
         if metas is None:
             return None, None
         with self.timer.stage("prefix_resolve"):
@@ -756,33 +915,54 @@ class RagEngine:
 
     def prefill_rows(self, staged, generator):
         """Prefill a staged batch for the continuous decode pool: (tok0 (B,),
-        k (L, B, T, Hk, D), v, mask (B, T), n): the prompt K/V rows, the
-        combined validity mask (the prefix part included where the prefix
-        cache contributed), each row's first token and the count of real
-        rows. Staging, prefix resolution and the packed route are the fixed
-        path's; only the decode differs."""
+        k, v, mask (B, T), n): the prompt K/V rows, the combined validity
+        mask (the prefix part included where the prefix cache contributed),
+        each row's first token and the count of real rows. Staging, prefix
+        resolution and the packed route are the fixed path's; only the
+        decode differs. `generator` holds one generator a position.
+
+        k and v are lists with one (L, B, T, Hk, D) tensor a prefix pool
+        part: under a mesh whose attention is split, the KV heads of a model
+        position, every row, on that position's device of the first data
+        group. tok0 and mask are on the lead device."""
         s = self.settings
-        common = dict(generator=generator, do_sample=s.do_sample, dtype=self.dtype,
+        common = dict(do_sample=s.do_sample, dtype=self.dtype,
                       act_quant=self.act_quant, eos_bias=s.eos_bias)
         if staged[0] == "packed":
             _, stream, gather, last, n, _bud = staged
-            return (*prefill_packed_for_pool(
+            tok0, k, v, cmask = prefill_packed_for_pool(
                 self.dec_params, self.dec_cfg, *self._packed_args(stream, gather, last),
-                row_valid=last >= 0, **common), n)
+                row_valid=last >= 0, generator=generator[(0, 0)], **common)
+            return tok0, [k], [v], cmask, n
         _, ids, mask, row_valid, n, metas, _bud = staged
-        prefix_kv, prefix_len = self._staged_prefixes(metas)
-        return (*prefill_for_pool(self.dec_params, self.dec_cfg, ids, mask,
-                                  row_valid=row_valid, prefix_kv=prefix_kv,
-                                  prefix_len=prefix_len, **common), n)
+        prefix_slots, prefix_len = self._staged_prefixes(metas)
+
+        def fn(params, g, m, rows, dev):
+            def at(t):
+                return None if t is None else t[rows].to(dev)
+            return prefill_for_pool(params, self._dec.cfg, at(ids), at(mask),
+                                    row_valid=at(row_valid),
+                                    prefix_kv=self._prefix_rows(prefix_slots, rows, m, dev),
+                                    prefix_len=at(prefix_len), generator=generator[(g, m)],
+                                    **common)
+
+        groups, res = self._mesh_run(self._dec, ids.shape[0], fn)
+        tok0 = self._agreed({gm: r[0] for gm, r in res.items()}, groups)
+        cmask = self._gathered([res[(g, 0)][3] for g in groups])
+        k, v = ([self._gathered([res[(g, p)][j] for g in groups], dim=1,
+                                device=self.mesh.device(0, p)) for p in self._prefix_parts()]
+                for j in (1, 2))
+        return tok0, k, v, cmask, n
 
     def _resolve_prefixes(self, metas):
         """Map each row's (key, prefix tokens) to a pool slot: cache hits are
         reused; the batch's distinct misses are computed in ONE
         `compute_prefix_kv` call (a context shared by several rows prefills
-        once) and written with one insert. The rows' prefix K/V is then one
-        gather of the pool; rows without a prefix read the zeros slot.
-        Returns the (B, L, 2, PL, Hk, D) prefix K/V (or an (int8 values,
-        scales) pair) and the (B,) valid lengths."""
+        once) and written with one insert. Returns the rows' pool slots
+        (rows without a prefix read the zeros slot) and the (B,) valid
+        lengths; each model position gathers its rows' (B, L, 2, PL, Hk, D)
+        prefix K/V (or an (int8 values, scales) pair) from its own pool part
+        (`_prefix_rows`)."""
         cache = self.prefix_cache
         entries: list = []
         need: dict = {}
@@ -805,11 +985,17 @@ class RagEngine:
             pids, pmask = pad_and_stack([list(need[k]) for k in keys],
                                         cache.pool_len, self.dec_tok.pad_id,
                                         pad_side="right")
-            kv = compute_prefix_kv(self.dec_params, self.dec_cfg,
-                                   self._put_batch(pids), self._put_batch(pmask),
-                                   dtype=self.dtype, act_quant=self.act_quant)
+            pids, pmask = self._put_batch(pids), self._put_batch(pmask)
+            # B2 on every model position, for the rows of its data group;
+            # each pool part gets its heads' K/V of every row
+            groups, res = self._mesh_run(
+                self._dec, len(keys), lambda params, g, m, rows, dev: compute_prefix_kv(
+                    params, self._dec.cfg, pids[rows].to(dev), pmask[rows].to(dev),
+                    dtype=self.dtype, act_quant=self.act_quant))
+            kv = [self._gathered([res[(g, p)] for g in groups], device=self.mesh.device(0, p))
+                  for p in self._prefix_parts()]
             if self.prefix_int8:
-                kv = quantize_prefix_kv(kv)
+                kv = [quantize_prefix_kv(x) for x in kv]
             hit_slots = {e.slot for e in entries if isinstance(e, PrefixEntry)}
             fresh = cache.put_batch(keys, [need[k] for k in keys], kv,
                                     protected=hit_slots)
@@ -818,7 +1004,7 @@ class RagEngine:
         prefix_len = self._put_batch(np.asarray(
             [len(e.tokens) if e is not None else 0 for e in entries], np.int32))
         slots = [e.slot if e is not None else cache.zero_slot for e in entries]
-        return cache.gather(slots), prefix_len
+        return slots, prefix_len
 
     def finalize_tokens(self, handle) -> List[str]:
         """Copy the tokens to the host and detokenize, dropping stop/pad ids."""

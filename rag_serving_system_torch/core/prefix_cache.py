@@ -20,6 +20,12 @@ retrieved documents:
 
 The pool grows lazily, doubling its slots up to the byte budget (a new
 tensor and a copy); past that, LRU slot reuse.
+
+Under a mesh with a split attention block (engine.py, `parallel/tp.py`) the
+value pool is held per model position: part m holds position m's KV heads
+only, on every device of that model position (replicated over "data"). One
+LRU index and one slot numbering serve every part; an insert writes each
+part's rows into each of its copies, a gather reads one part on one device.
 """
 
 from __future__ import annotations
@@ -62,7 +68,8 @@ class PrefixKVCache:
                  dtype=None, int8: bool = False, min_slots: int = 0,
                  initial_slots: int = 16, adaptive: bool = True,
                  window: int = 512, low_hit_rate: float = 0.25,
-                 probe_every: int = 8, device: str | torch.device = "cpu"):
+                 probe_every: int = 8, device: str | torch.device = "cpu",
+                 parts: int = 1, placements=None):
         self.pool_len = int(pool_len)
         self.entry_bytes = int(entry_bytes)
         self.capacity = max(1, (budget_mb * (1 << 20)) // max(1, entry_bytes))
@@ -101,17 +108,34 @@ class PrefixKVCache:
         self.bypass_mode = False
         self.probes = 0
         self.device = torch.device(device)
-        self._pool = self._pool_scale = None
+        # (part, device) of every copy of the value pool: `parts` slices of
+        # the KV heads, each on the devices that read it
+        self.placements = [(p, torch.device(d)) for p, d in
+                           (placements or [(0, self.device)])]
+        self._pools: dict = {}
+        self._pool_scales: dict = {}
         if entry_shape is not None:
-            ll, two, pl, hk, _ = entry_shape
+            ll, two, pl, hk, d = entry_shape
             self.entry_shape = tuple(entry_shape)
             self.scale_shape = (ll, two, pl, hk, 1)
+            part_shape = (ll, two, pl, hk // parts, d)
             n = self._RESERVED_ROWS + self.n_slots
-            self._pool = torch.zeros((n,) + self.entry_shape, device=self.device,
-                                     dtype=torch.int8 if int8 else dtype)
-            if int8:
-                self._pool_scale = torch.ones((n,) + self.scale_shape,
-                                              dtype=torch.float32, device=self.device)
+            for at in self.placements:
+                self._pools[at] = torch.zeros((n,) + part_shape, device=at[1],
+                                              dtype=torch.int8 if int8 else dtype)
+                if int8:
+                    self._pool_scales[at] = torch.ones(
+                        (n,) + part_shape[:-1] + (1,), dtype=torch.float32, device=at[1])
+
+    @property
+    def _pool(self):
+        """The first placement's value pool (the only one on one device)."""
+        return self._pools.get(self.placements[0])
+
+    @property
+    def _pool_scale(self):
+        """The first placement's int8 scales, None in compute storage."""
+        return self._pool_scales.get(self.placements[0])
 
     @staticmethod
     def _grown(pool: torch.Tensor, rows: int, fill: int) -> torch.Tensor:
@@ -128,9 +152,10 @@ class PrefixKVCache:
         if new_n <= self.n_slots:
             raise RuntimeError("_grow_locked called at full capacity")
         rows = self._RESERVED_ROWS + new_n
-        self._pool = self._grown(self._pool, rows, 0)
-        if self._pool_scale is not None:
-            self._pool_scale = self._grown(self._pool_scale, rows, 1)
+        for at in self._pools:
+            self._pools[at] = self._grown(self._pools[at], rows, 0)
+        for at in self._pool_scales:
+            self._pool_scales[at] = self._grown(self._pool_scales[at], rows, 1)
         self._free.extend(range(self._RESERVED_ROWS + self.n_slots, rows))
         self.n_slots = new_n
         self.grows += 1
@@ -188,9 +213,10 @@ class PrefixKVCache:
 
     def put_batch(self, keys: list, tokens_list: list, kv_rows,
                   protected: set | None = None) -> dict:
-        """Insert a batch of freshly computed entries with one `index_copy_`.
-        `kv_rows` is (M, *entry_shape) (or a (values, scales) pair in int8
-        mode) whose first len(keys) rows are valid; any further rows go to
+        """Insert a batch of freshly computed entries with one `index_copy_`
+        a pool copy. `kv_rows` is (M, *entry_shape) (or a (values, scales)
+        pair in int8 mode), or with several parts a list of them, part by
+        part; the first len(keys) rows are valid, any further rows go to
         the scratch slot. `protected` holds slots the current batch's gather
         will read (its cache hits). Returns {key: PrefixEntry}."""
         protected = set(protected or ())
@@ -215,27 +241,32 @@ class PrefixKVCache:
             # from the generating thread, so a gather enqueued before this
             # insert reads the old contents. The lock covers the write
             # because growth swaps self._pool.
-            m = (kv_rows[0] if self.int8 else kv_rows).shape[0]
+            by_part = kv_rows if isinstance(kv_rows, list) else [kv_rows]
+            m = (by_part[0][0] if self.int8 else by_part[0]).shape[0]
             slots = slots + [self.scratch_slot] * (m - len(slots))
-            idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
-            if self.int8:
-                vals, scales = kv_rows
-                self._pool.index_copy_(0, idx, vals.to(self._pool.dtype))
-                self._pool_scale.index_copy_(0, idx, scales.to(torch.float32))
-            else:
-                self._pool.index_copy_(0, idx, kv_rows.to(self._pool.dtype))
+            for at, pool in self._pools.items():
+                rows = by_part[at[0]]
+                idx = torch.as_tensor(slots, dtype=torch.long, device=at[1])
+                if self.int8:
+                    vals, scales = rows
+                    pool.index_copy_(0, idx, vals.to(at[1], pool.dtype))
+                    self._pool_scales[at].index_copy_(0, idx, scales.to(at[1], torch.float32))
+                else:
+                    pool.index_copy_(0, idx, rows.to(at[1], pool.dtype))
         return entries
 
-    def gather(self, slots: list):
+    def gather(self, slots: list, part: int = 0, device=None):
         """(B,) slot list → (B, *entry_shape) device gather (values, or a
-        (values, scales) pair in int8 mode). Use `zero_slot` for rows
+        (values, scales) pair in int8 mode) of one part's copy on `device`
+        (the cache's own device by default). Use `zero_slot` for rows
         without a prefix."""
-        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        at = (part, self.device if device is None else torch.device(device))
+        idx = torch.as_tensor(slots, dtype=torch.long, device=at[1])
         with self._lock:   # against the pool swap of a growth
             if self.int8:
-                return (self._pool.index_select(0, idx),
-                        self._pool_scale.index_select(0, idx))
-            return self._pool.index_select(0, idx)
+                return (self._pools[at].index_select(0, idx),
+                        self._pool_scales[at].index_select(0, idx))
+            return self._pools[at].index_select(0, idx)
 
     def note_bypass(self) -> None:
         """Count a row that skipped the prefix path."""

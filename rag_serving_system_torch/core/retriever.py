@@ -10,10 +10,12 @@ Port of `rag_serving_system_tpu/core/retriever.py`, with the same interface:
 - `TorchRetriever`  - one device, f32 / bf16 corpus (kernel B1) or int8,
   chunked past TOPK_CHUNK_ROWS rows (kernel B4); counterpart of TpuRetriever
 - `IvfRetriever`    - approximate IVF for very large corpora
+- `ShardedRetriever` - the corpus sharded on N over a mesh
+  (`parallel/`): B1 on every shard, the candidates merged on the lead device
 
 Requests are clamped to a fixed `max_k` and sliced per query on the host.
 Malformed input (wrong dimension, empty corpus) returns empty results
-rather than raising. The multi-device `ShardedRetriever` is not ported.
+rather than raising.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from rag_serving_system_torch.ops.topk import (
     pad_depth,
     quantize_corpus_int8_chunked,
 )
+from rag_serving_system_torch.parallel.mesh import make_mesh
+from rag_serving_system_torch.parallel.sharded_topk import shard_corpus, sharded_cosine_topk
 
 logger = logging.getLogger(__name__)
 
@@ -163,3 +167,24 @@ class IvfRetriever(_DeviceRetriever):
 
     def topk_indices(self, query_embeddings: torch.Tensor, k: int):
         return ivf_search(self.index, query_embeddings, k, nprobe=self.nprobe)
+
+
+class ShardedRetriever(_DeviceRetriever):
+    """The corpus sharded on N over a mesh (every visible CUDA device on
+    "data" by default): exact top-k, B1 on each shard, the per-shard
+    candidates gathered to the lead device and merged."""
+
+    def __init__(self, embeddings: np.ndarray, documents: Sequence[str],
+                 mesh=None, max_k: int = 16):
+        self.documents = list(documents)
+        self.mesh = mesh if mesh is not None else make_mesh()
+        self.device = self.mesh.lead
+        corpus = _l2n(np.asarray(embeddings, dtype=np.float32))
+        self.n = corpus.shape[0]
+        self._dim = corpus.shape[1] if corpus.ndim == 2 else 0
+        self.max_k = max(1, min(max_k, self.n))
+        self.corpus = shard_corpus(torch.as_tensor(corpus), self.mesh)
+
+    def topk_indices(self, query_embeddings: torch.Tensor, k: int):
+        return sharded_cosine_topk(self.corpus, query_embeddings, k, self.mesh,
+                                   valid_n=self.n)

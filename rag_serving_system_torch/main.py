@@ -27,11 +27,36 @@ def _refuse_native_front() -> None:
             "unset it and serve through aiohttp on PORT")
 
 
-def build_processor(settings=None, documents=None, doc_embeddings=None):
+def _mesh(settings):
+    """The ("data", "model") mesh over every visible CUDA device, shaped by
+    MESH_SHAPE, when MESH_SHAPE is set, the engine runs on CUDA and more
+    than one device is visible; else None (one device). Unlike the root
+    `main.py`, an unset MESH_SHAPE serves on one card: the mesh turns packed
+    prefill, the int8 corpus and IVF off, and one process serves slower over
+    several cards than on one (its host-bound decode takes turns)."""
+    import torch
+
+    from rag_serving_system_torch.device import resolve_device
+    from rag_serving_system_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2 or resolve_device().type != "cuda":
+        return None
+    if not settings.mesh_shape:
+        logger.info("%d CUDA devices visible: serving on one; set MESH_SHAPE=dp,tp "
+                    "to serve over a mesh of them", n)
+        return None
+    mesh = make_mesh(settings.mesh_shape)
+    logger.info("mesh: %s over %d devices", mesh.shape, mesh.size)
+    return mesh
+
+
+def build_processor(settings=None, documents=None, doc_embeddings=None, mesh=None):
     """(processor, engine, request_queue, settings), the processor not yet
     started. Settings come from the environment when not given; the corpus
     from DOCUMENT_TEXT_FILE and DOCUMENT_EMBEDDINGS_FILE unless `documents`
-    and `doc_embeddings` (N, D) are passed."""
+    and `doc_embeddings` (N, D) are passed; the mesh over the visible CUDA
+    devices (`_mesh`) unless `mesh` is passed."""
     import numpy as np
 
     from rag_serving_system_torch.config import get_settings
@@ -46,7 +71,8 @@ def build_processor(settings=None, documents=None, doc_embeddings=None):
             documents = json.load(f)
     if doc_embeddings is None:
         doc_embeddings = np.load(settings.document_embeddings_file)
-    engine = RagEngine(settings, documents, doc_embeddings)
+    engine = RagEngine(settings, documents, doc_embeddings,
+                       mesh=mesh if mesh is not None else _mesh(settings))
     request_queue = make_queue(settings)
     processor = BatchProcessor(request_queue, engine,
                                polling_interval=min(settings.polling_interval, 0.05))

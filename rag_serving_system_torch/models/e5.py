@@ -6,6 +6,11 @@ pools with the reference's unmasked mean over every position, pads included
 trainer pools with the masked mean (`mean_masked`), and `cls` takes the
 first position. Encoder attention stays plain torch: the JAX encoder uses
 einsum attention too, not a Pallas kernel.
+
+Under tensor parallelism (`parallel/tp.py`) each model position runs this
+forward on its slices: its head count is read from its qkv width, and the
+attention output and FF output products are summed over the positions
+(`row_parallel`) before their biases.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from rag_serving_system_torch.models.layers import (
     layer_norm,
     padding_bias,
 )
+from rag_serving_system_torch.parallel.tp import row_parallel
 
 
 def roberta_position_ids(input_ids: torch.Tensor, pad_token_id: int) -> torch.Tensor:
@@ -51,7 +57,7 @@ def encoder_forward(params: dict, cfg: EncoderConfig, input_ids: torch.Tensor,
     x = layer_norm(x, emb["ln_scale"], emb["ln_bias"], cfg.layer_norm_eps)
     bias = padding_bias(attention_mask)
     b, n = input_ids.shape
-    h, d = cfg.num_heads, cfg.head_dim
+    d = cfg.head_dim
     # each stacked weight unbound once: under autograd the backward stacks
     # the L layer gradients in one op, where indexing w[i] a layer would
     # build and add L zero-padded gradients of the whole stack
@@ -59,14 +65,15 @@ def encoder_forward(params: dict, cfg: EncoderConfig, input_ids: torch.Tensor,
     for i in range(cfg.num_layers):
         layer = {name: ws[i] for name, ws in stacked.items()}
         qkv = dense(x, layer["qkv_w"], layer["qkv_b"])
+        h = qkv.shape[-1] // (3 * d)    # this position's heads (all, on one device)
         q, k, v = (qkv[..., j * h * d:(j + 1) * h * d].reshape(b, n, h, d)
                    for j in range(3))
-        a = dense(attention(q, k, v, bias).reshape(b, n, h * d),
-                  layer["o_w"], layer["o_b"])
+        a = row_parallel(dense, attention(q, k, v, bias).reshape(b, n, h * d),
+                         layer["o_w"], layer["o_b"], "attn")
         x = layer_norm(x + a, layer["attn_ln_scale"], layer["attn_ln_bias"],
                        cfg.layer_norm_eps)
-        f = dense(gelu(dense(x, layer["ff_w1"], layer["ff_b1"])),
-                  layer["ff_w2"], layer["ff_b2"])
+        f = row_parallel(dense, gelu(dense(x, layer["ff_w1"], layer["ff_b1"])),
+                         layer["ff_w2"], layer["ff_b2"], "mlp")
         x = layer_norm(x + f, layer["ff_ln_scale"], layer["ff_ln_bias"],
                        cfg.layer_norm_eps)
     return x

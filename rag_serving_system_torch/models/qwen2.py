@@ -24,6 +24,12 @@ iteration yields 1 to gamma + 1 tokens. Its attention is plain torch too.
 `decode_chunk` is the continuous mode's step:
 `chunk` steps over the slot pool of `core/decode_pool.py` with no host read
 between them.
+
+Under tensor parallelism (`parallel/tp.py`) each model position runs these
+functions on its slices with a config of its local head counts; the
+attention output product and the MLP down product of every layer go through
+`row_parallel`, which sums them over the positions (the plain product on
+one device).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from rag_serving_system_torch.ops.attention import (
     flash_attention,
     flash_attention_packed,
 )
+from rag_serving_system_torch.parallel.tp import row_parallel
 
 
 class KVCache(NamedTuple):
@@ -77,7 +84,7 @@ def _mlp(layer, x, act_quant=False):
     mm = dense_w8a8 if act_quant else dense
     gu = mm(x, layer["gu_w"])
     f = gu.shape[-1] // 2
-    return mm(silu(gu[..., :f]) * gu[..., f:], layer["down_w"])
+    return row_parallel(mm, silu(gu[..., :f]) * gu[..., f:], layer["down_w"], None, "mlp")
 
 
 def _layer_forward(layer, cfg, x, positions, inv_freq, b, p, attend,
@@ -90,7 +97,7 @@ def _layer_forward(layer, cfg, x, positions, inv_freq, b, p, attend,
     k = apply_rope(k, positions, inv_freq)
     a = attend(q, k, v).reshape(b, p, cfg.num_heads * cfg.head_dim)
     mm = dense_w8a8 if act_quant else dense
-    x = x + mm(a, layer["o_w"])
+    x = x + row_parallel(mm, a, layer["o_w"], None, "attn")
     h = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
     return x + _mlp(layer, h, act_quant), k, v
 
@@ -281,7 +288,8 @@ def decode_step(params: dict, cfg: DecoderConfig, cache: KVCache,
         cache.k[i, :, write_at] = k[:, 0]
         cache.v[i, :, write_at] = v[:, 0]
         a = attention(q, cache.k[i].to(dtype), cache.v[i].to(dtype), bias)
-        x = x + dense(a.reshape(b, 1, cfg.num_heads * cfg.head_dim), layer["o_w"])
+        x = x + row_parallel(dense, a.reshape(b, 1, cfg.num_heads * cfg.head_dim),
+                             layer["o_w"], None, "attn")
         h = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
         x = x + _mlp(layer, h)
     return logits_from_hidden(params, cfg, x[:, 0, :]), cache
@@ -329,7 +337,8 @@ def decode_step_spec(params: dict, cfg: DecoderConfig, cache: KVCache,
         cache.k[i].index_put_((rows, tidx), k.to(cache.k.dtype))
         cache.v[i].index_put_((rows, tidx), v.to(cache.v.dtype))
         a = attention(q, cache.k[i].to(dtype), cache.v[i].to(dtype), bias)
-        x = x + dense(a.reshape(b, s, cfg.num_heads * cfg.head_dim), layer["o_w"])
+        x = x + row_parallel(dense, a.reshape(b, s, cfg.num_heads * cfg.head_dim),
+                             layer["o_w"], None, "attn")
         h = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
         x = x + _mlp(layer, h)
     return logits_from_hidden(params, cfg, x), cache
@@ -780,8 +789,8 @@ def decode_chunk(params: dict, cfg: DecoderConfig, pool_k: torch.Tensor,
             pool_k[i, :, cursor] = k[:, 0]
             pool_v[i, :, cursor] = v[:, 0]
             a = attention(q, pool_k[i].to(dtype), pool_v[i].to(dtype), bias)
-            x = x + dense(a.reshape(s_slots, 1, cfg.num_heads * cfg.head_dim),
-                          layer["o_w"])
+            x = x + row_parallel(dense, a.reshape(s_slots, 1, cfg.num_heads * cfg.head_dim),
+                                 layer["o_w"], None, "attn")
             h = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
             x = x + _mlp(layer, h)
         logits = logits_from_hidden(params, cfg, x[:, 0, :])

@@ -48,6 +48,7 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # nvcc wall time of this process's build
 
@@ -115,3 +116,10 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what} failed: cudaError_t {err}")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's launch count, under a lock: the model
+    positions of a mesh launch from threads of their own."""
+    with _count_lock:
+        wrapper.launches += 1

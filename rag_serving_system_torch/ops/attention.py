@@ -106,7 +106,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{mask.device}, expected {tuple(q.shape[:2])}")
     out = _launch(q, k, v, mask.to(torch.int32).contiguous(), None,
                   packed=False, causal=causal)
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 
@@ -126,7 +126,7 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(1, T) stream")
     out = _launch(q, k, v, None, seg.to(torch.int32).contiguous(),
                   packed=True, causal=True)
-    flash_attention_packed.launches += 1
+    _build.count_launch(flash_attention_packed)
     return out
 
 

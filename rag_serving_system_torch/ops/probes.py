@@ -84,7 +84,7 @@ def stream_probe(corpus: torch.Tensor, block_n: int = 2048) -> torch.Tensor:
                                    block_n, partial.data_ptr(), out.data_ptr(),
                                    torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rag_stream_probe")
-    stream_probe.launches += 1
+    _build.count_launch(stream_probe)
     return out
 
 
@@ -128,7 +128,7 @@ def dot_probe(corpus: torch.Tensor, queries: torch.Tensor, block_n: int = 2048,
                                 partial.data_ptr(), out.data_ptr(),
                                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rag_dot_probe")
-    dot_probe.launches += 1
+    _build.count_launch(dot_probe)
     return out
 
 

@@ -150,7 +150,7 @@ def cosine_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
                     int(corpus.dtype == torch.bfloat16), b, hi - lo, d, tiles_per_cta,
                     n_ctas, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
             _build.check(err, "rag_score_rows")
-            cosine_topk.launches += 1
+            _build.count_launch(cosine_topk)
             return out
 
         return scan_select(n, k, score_chunk_rows(b, FLOAT_ROWS), scores)
@@ -162,7 +162,7 @@ def cosine_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
             b, n, d, k, tiles_per_cta, n_ctas, *(t.data_ptr() for t in bufs),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rag_cosine_topk")
-    cosine_topk.launches += 1
+    _build.count_launch(cosine_topk)
     return bufs[-2], bufs[-1]
 
 
@@ -231,7 +231,7 @@ def select_topk(scores: torch.Tensor, k: int, indices: torch.Tensor | None = Non
             cand_p.data_ptr(), keys.data_ptr(), pos.data_ptr(), out_s.data_ptr(),
             out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rag_select_topk")
-    select_topk.launches += 1
+    _build.count_launch(select_topk)
     return out_s, out_i
 
 
@@ -478,7 +478,7 @@ def cosine_topk_int8(corpus_q, corpus_scales, queries, k: int,
                     corpus_scales.data_ptr() + lo * 4, b, hi - lo, d, tiles_per_cta,
                     n_ctas, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
             _build.check(err, "rag_score_rows_int8")
-            cosine_topk_int8.launches += 1
+            _build.count_launch(cosine_topk_int8)
             return out
 
         s, i = scan_select(n, k, score_chunk_rows(b, INT8_ROWS), scores)
@@ -491,7 +491,7 @@ def cosine_topk_int8(corpus_q, corpus_scales, queries, k: int,
             b, n, d, k, tiles_per_cta, n_ctas, *(t.data_ptr() for t in bufs),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rag_cosine_topk_int8")
-    cosine_topk_int8.launches += 1
+    _build.count_launch(cosine_topk_int8)
     return _int8_finish(bufs[-2], bufs[-1], qn, qscale, corpus_mean)
 
 

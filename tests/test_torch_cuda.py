@@ -1107,3 +1107,30 @@ def test_training_step_on_the_card_equals_the_cpu(dev):
         assert (g_gpu[name] - g).abs().max() <= 1e-4 * g.abs().max(), name
         allowed = 2e-6 + 2 * lr * (g.abs() <= 1e-7).float()
         assert ((p_gpu[name] - p_cpu[name]).abs() <= allowed).all(), name
+
+
+@pytest.mark.parametrize("k", [16, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_topk_on_four_positions_of_the_card_equals_unsharded(dev, k, dtype):
+    """`sharded_cosine_topk` over a 2 x 2 mesh on [cuda:0] * 4 through B1 on
+    each shard, at k = 16 (the warp lists) and 300 (the score kernel and
+    the select): the ids and scores of unsharded B1. The f32 corpus has
+    5003 rows (a pad row in the last shard: each shard selects k + 1, on the
+    same path as k); the bf16 one 5004, as k = 17 would leave bf16's lists
+    (LIST_K 16) for a path that sums in another order."""
+    from rag_serving_system_torch.parallel.mesh import make_mesh
+    from rag_serving_system_torch.parallel.sharded_topk import (shard_corpus,
+                                                                 sharded_cosine_topk)
+
+    n = 5003 if dtype == torch.float32 else 5004
+    mesh = make_mesh("2,2", devices=[torch.device("cuda", 0)] * 4)
+    corpus = tt.l2_normalize(_randn(dev, (n, 1024), 41)).to(dtype)
+    q = _randn(dev, (32, 1024), 42)
+    shards = shard_corpus(corpus, mesh)
+    assert [s.shape[0] for s in shards] == [1251] * 4
+    before = tt.cosine_topk.launches
+    s, i = sharded_cosine_topk(shards, q, k, mesh, valid_n=n)
+    assert tt.cosine_topk.launches > before
+    rs, ri = tt.cosine_topk(corpus, q, k)
+    assert torch.equal(i, ri)
+    assert torch.equal(s, rs)

@@ -265,10 +265,25 @@ def test_unimplemented_settings_raise(corpus, over, var):
     rows (k = N, past the warp lists' 256) retrieves its ids; a model
     directory with no tokenizer files falls back to hashing; SPEC_DECODE=2
     serves its answers; a WEIGHTS_DIR that does not exist gives random
-    init."""
+    init; MESH_SHAPE=2,1 is accepted, and the engine over that mesh (two
+    CPU positions) gives the JAX engine's answers."""
     docs, emb = corpus
     if var == "MAX_K":
         _assert_max_k_like_jax(over["max_k"], 300)
+        return
+    if var == "MESH_SHAPE":
+        from rag_serving_system_torch.parallel.mesh import make_mesh
+
+        assert not port_engine.unsupported_settings(tiny_settings(**over),
+                                                    torch.device("cpu"))
+        je = jax_engine.RagEngine(jax_settings(**over), docs, emb)
+        je.dec_params = _scaled(je.dec_params, 8.0)
+        te = port_engine.RagEngine(tiny_settings(**over), docs, emb,
+                                   mesh=make_mesh(over["mesh_shape"], devices=["cpu"] * 2))
+        te.enc_params = params_from_jax(jax.device_get(je.enc_params))
+        te.dec_params = params_from_jax(jax.device_get(je.dec_params))
+        assert te.mesh.shape == {"data": 2, "model": 1} and len(te.corpus) == 2
+        assert te.process(QUERIES, [2] * 4) == je.process(QUERIES, [2] * 4)
         return
     if var in ("LLM_MODEL_NAME", "SPEC_DECODE", "WEIGHTS_DIR"):
         assert not port_engine.unsupported_settings(tiny_settings(**over),

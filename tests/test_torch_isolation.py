@@ -5,8 +5,9 @@ RESP client) agree with their originals.
 The isolation check runs in a subprocess whose `sys.meta_path` refuses
 `jax`, `jaxlib`, `rag_serving_system_tpu`, `optax`, `flax`, `safetensors` and
 `transformers`: `build_app(role="api")` must come up there without importing
-`torch`; every module of the port (the trainer's included) and `chip_smoke`
-must import; one query must be served end to end on the CPU
+`torch`; every module of the port (the trainer's and the mesh's included)
+and `chip_smoke` must import; an engine over a 2 x 2 mesh of CPU positions
+must serve; one query must be served end to end on the CPU
 through `main.build_processor` at the tiny presets, with PREFIX_CACHE at its
 default (on); and the same engine's models, written as HF snapshots by
 `chip_smoke`'s writer, must load through WEIGHTS_DIR bit for bit and serve
@@ -124,6 +125,20 @@ with tempfile.TemporaryDirectory() as root:
     assert all(isinstance(r, dict) and isinstance(r.get("result"), str)
                for r in results), results
     assert loaded.loop_stats["calls"] >= 3
+
+# the mesh: its three modules import, and an engine over a (2, 2) mesh of
+# CPU positions serves the first engine's answers from the first engine's
+# weights (the decoder's attention and MLP split over "model")
+assert {"rag_serving_system_torch.parallel.mesh", "rag_serving_system_torch.parallel.tp",
+        "rag_serving_system_torch.parallel.sharded_topk"} <= set(names)
+from rag_serving_system_torch.core.engine import RagEngine
+from rag_serving_system_torch.parallel.mesh import make_mesh
+meshed = RagEngine(s, docs, emb, mesh=make_mesh("2,2", devices=["cpu"] * 4))
+meshed.enc_params, meshed.dec_params = engine.enc_params, engine.dec_params
+assert meshed.dec_params.split == {"attn": True, "mlp": True}
+qs = ["what is w3 w7", "what is w1 w7"]
+assert meshed.embed_and_retrieve(qs, [2, 2]) == engine.embed_and_retrieve(qs, [2, 2])
+assert all(isinstance(r.get("result"), str) for r in meshed.process(qs, [2, 2]))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("MODULES", len(names), "LEAKED", leaked)
 '''
