@@ -131,6 +131,30 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 every leaf bit-equal); one step under `device_trace` (busy
                 share, kernel count, the top five kernels).
 
+19. multihost - the sharded top-k over a (2, 2) mesh that spans two
+                processes (`chip_smoke.py --multihost-worker`, gloo over TCP;
+                both on cuda:0 of one card, a card each where there are
+                more), 1,048,576 x 1024 f32 from a seed, each process holding
+                its half on its card, B = 32, k = 16 and 1024: both ranks' ids
+                and scores equal unsharded B1's on the whole corpus; each
+                rank's launches; the ms of the two-process call beside
+                unsharded B1 and the one-process call over four shards.
+20. serve_native_front - `main.build_app(role="all")` at full width with
+                every default and NATIVE_FRONT_PORT set: 129 squad_real
+                queries (half a sync POST ?wait=, half an async POST and
+                polls) at 32 in flight from a client process, through the
+                C++ front and through aiohttp in turns (front, aiohttp,
+                aiohttp, front; caches emptied before each): req/s, p50 and
+                p99 of each; every answer a 200 with a result, /stats
+                `native_front` counting the front's requests, B1 and B2
+                launched, both hash tokenizers through their C library.
+21. serve_replicas - the port's miniredis, one ROLE=api and two ROLE=engine
+                processes of `python -m rag_serving_system_torch.main` (full
+                width, every default; both engines on one card where there is
+                one): two rounds of 64 requests through the api's HTTP,
+                then one engine stopped and two rounds of 64 others through
+                the other; seconds of each, requests each engine batched.
+
 The parity phase (7) also holds speculative decode (gamma 1 and 3, row
 budgets, an EOS bias) to sequential greedy on the prefix, packed and padded
 routes, and `_spec_decode_loop` under `draft_source` to its iteration counts.
@@ -141,7 +165,8 @@ for an A/B of two checkouts on one card. `python3 chip_smoke.py --crossover`
 runs phases 1, 2 and the kernels phase's crossover alone, on two seeded
 corpora. `python3 chip_smoke.py --phases serve_spec,serve_pipeline` runs phases
 1, 2 and the named ones (of serve, parity, serve_spec, serve_checkpoint,
-serve_pipeline, serve_mesh, serve_mesh_cards, train) alone.
+serve_pipeline, serve_mesh, serve_mesh_cards, train, multihost,
+serve_native_front, serve_replicas) alone.
 `python3 chip_smoke.py --phases serve_mesh_cards` on a machine of several
 cards serves over meshes of them (one card, "N,1", "N/2,2"): the script's
 only multi-card measurement; the default run needs one card and leaves it
@@ -149,10 +174,12 @@ out.
 
 Each path phase (roofline, serve, serve_cold, serve_int8, serve_ivf,
 serve_wide_k, serve_quant, serve_continuous, serve_tiny, serve_spec,
-serve_checkpoint, serve_pipeline, serve_mesh, train) sets every launch
-count to 0 just before it and reads the counts just after; each kernel of
+serve_checkpoint, serve_pipeline, serve_mesh, train, serve_native_front)
+sets every launch count to 0 just before it and reads the counts just
+after, as each multihost worker does before its first call; each kernel of
 the path must have launched, and every request must come back as
-{"result": str}. Then the nvidia-smi name and power limit, the kernels'
+{"result": str}. A phase whose child process fails or does not finish in
+time fails the run. Then the nvidia-smi name and power limit, the kernels'
 summary line, and the last line {"ok": true, "device": {...}}.
 Needs a CUDA device; exits 1 without one, and when run outside a checkout
 of the repository.
@@ -3314,6 +3341,484 @@ def phase_serve_mesh_cards(queries: list) -> dict:
     return layouts
 
 
+# ---------------------------------------------------------------------------
+# the multi-process mesh and the native host path
+# ---------------------------------------------------------------------------
+
+MULTIHOST = {"shape": [1 << 20, 1024, 32],   # corpus rows, depth, queries
+             "ks": [16, 1024],   # the warp lists; the score kernel and the select
+             "reps": 5, "device": "cuda"}
+
+
+def _multihost_data(spec: dict, dev):
+    """The seeded (N, D) f32 corpus, normalized, and (B, D) queries, made on
+    `dev`: the same bits in every process on the same kind of device."""
+    import torch
+    from rag_serving_system_torch.ops import topk
+
+    n, d, b = spec["shape"]
+    g = torch.Generator(device=dev).manual_seed(41)
+    corpus = topk.l2_normalize(torch.randn((n, d), generator=g, device=dev))
+    return corpus, torch.randn((b, d), generator=g, device=dev)
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def multihost_worker(rank: int, coord: str, out_dir: str) -> int:
+    """One of the two processes of the multihost phase (`chip_smoke.py
+    --multihost-worker RANK COORD DIR`; DIR/spec.json holds the shapes): 2
+    positions on its device of a (2, 2) mesh over both processes, its half
+    of the corpus placed, and the sharded top-k at each k. Writes its scores
+    and ids to DIR and prints one JSON line: its launch counts (from 0
+    before each first call), the milliseconds of each call (a barrier, then
+    the host clock to a synced end) and those of the host all-gather alone
+    on tensors of the candidates' shape."""
+    import torch
+    import torch.distributed as dist
+    from rag_serving_system_torch.dryrun_multihost import local_devices
+    from rag_serving_system_torch.parallel import mesh as pmesh
+    from rag_serving_system_torch.parallel.sharded_topk import shard_corpus, sharded_cosine_topk
+
+    with open(os.path.join(out_dir, "spec.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    torch.set_num_threads(2)
+    dev = local_devices(spec["device"], rank, 1)[0]
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    pmesh.initialize(coord, 2, rank, timeout_s=300)
+    try:
+        mesh = pmesh.make_global_mesh("2,2", [dev, dev])
+        corpus, queries = _multihost_data(spec, dev)
+        n = corpus.shape[0]
+        shards = shard_corpus(corpus, mesh)
+        del corpus
+        _release()
+        rec = {"rank": rank, "mesh": mesh.shape, "processes": mesh.process_count,
+               "devices": [str(d) for d in mesh.devices], "owners": mesh.owners,
+               "held_gb": sum(s.numel() * s.element_size() for s in shards if s is not None) / 1e9,
+               "k": {}}
+        for k in spec["ks"]:
+            reset_launches()
+            s, i = sharded_cosine_topk(shards, queries, k, mesh, valid_n=n)
+            _sync(dev)
+            launches = read_launches()
+            torch.save({"scores": s.cpu(), "ids": i.cpu()},
+                       os.path.join(out_dir, f"rank{rank}_k{k}.pt"))
+            times = []
+            for _ in range(spec["reps"]):
+                dist.barrier()
+                _sync(dev)
+                t0 = time.perf_counter()
+                sharded_cosine_topk(shards, queries, k, mesh, valid_n=n)
+                _sync(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+            # the collective alone, on host tensors of the candidates' shape
+            cand = torch.zeros((s.shape[0], 2 * s.shape[1]), dtype=torch.float32)
+            gather_ms = []
+            for _ in range(spec["reps"]):
+                dist.barrier()
+                t0 = time.perf_counter()
+                pmesh.process_allgather(cand.T)
+                pmesh.process_allgather(cand.int().T)
+                gather_ms.append((time.perf_counter() - t0) * 1e3)
+            rec["k"][str(k)] = {"launches": {name: c for name, c in launches.items() if c},
+                                "ms": sorted(times)[len(times) // 2], "ms_all": times,
+                                "allgather_ms": sorted(gather_ms)[len(gather_ms) // 2]}
+        print(json.dumps({"multihost_worker": rec}), flush=True)
+        return 0
+    finally:
+        pmesh.shutdown()
+
+
+def phase_multihost(_queries=None) -> dict:
+    """The sharded top-k over a (2, 2) mesh that spans two processes (both
+    on cuda:0 where one card is visible, a card each where more are), at
+    1,048,576 x 1024 f32 (each process holds its half, 2.1 GB, on its card),
+    B = 32, k = 16 and 1024: the ids and scores of both ranks equal
+    unsharded B1's on the whole corpus; each rank's B1 launches; the ms of
+    the two-process call beside unsharded B1 and the one-process call over
+    four shards of one card (serve_mesh's)."""
+    import tempfile
+
+    import torch
+    from rag_serving_system_torch.dryrun_multihost import free_port, run_workers
+    from rag_serving_system_torch.ops import topk
+    from rag_serving_system_torch.parallel.mesh import make_mesh
+    from rag_serving_system_torch.parallel.sharded_topk import shard_corpus, sharded_cosine_topk
+
+    spec = MULTIHOST
+    dev = torch.device(spec["device"], 0) if spec["device"] == "cuda" else torch.device("cpu")
+    corpus, queries = _multihost_data(spec, dev)
+    n = corpus.shape[0]
+    mesh4 = make_mesh("2,2", devices=[dev] * 4)
+    shards4 = shard_corpus(corpus, mesh4)
+    ref, ref_ms, one_process_ms = {}, {}, {}
+    for k in spec["ks"]:
+        s, i = topk.cosine_topk(corpus, queries, k)
+        ref[k] = (s.cpu(), i.cpu())
+        ref_ms[k] = cuda_ms(lambda: topk.cosine_topk(corpus, queries, k), spec["reps"])
+        one_process_ms[k] = cuda_ms(lambda: sharded_cosine_topk(
+            shards4, queries, k, mesh4, valid_n=n), spec["reps"])
+    del corpus, queries, shards4
+    _release()
+    with tempfile.TemporaryDirectory() as out_dir:
+        with open(os.path.join(out_dir, "spec.json"), "w", encoding="utf-8") as f:
+            json.dump(spec, f)
+        coord = f"127.0.0.1:{free_port()}"
+        t0 = time.perf_counter()
+        results = run_workers(
+            [[sys.executable, os.path.abspath(__file__), "--multihost-worker", str(rank),
+              coord, out_dir] for rank in range(2)], timeout_s=400,
+            env=dict(os.environ, OMP_NUM_THREADS="2"))
+        wall = time.perf_counter() - t0
+        ranks = []
+        for rank, (rc, out) in enumerate(results):
+            lines = [x for x in out.splitlines() if x.startswith('{"multihost_worker"')]
+            require(rc == 0 and len(lines) == 1,
+                    f"multihost: worker {rank} exited {rc}:\n{out[-3000:]}")
+            ranks.append(json.loads(lines[0])["multihost_worker"])
+            for k in spec["ks"]:
+                got = torch.load(os.path.join(out_dir, f"rank{rank}_k{k}.pt"))
+                require(torch.equal(got["ids"], ref[k][1]),
+                        f"multihost: rank {rank} ids differ from unsharded B1 at k={k}: "
+                        f"{(got['ids'] != ref[k][1]).nonzero().tolist()[:8]}")
+                err = (got["scores"] - ref[k][0]).abs().max().item()
+                require(err == 0.0, f"multihost: rank {rank} scores differ by {err} at k={k}")
+    per_k = {}
+    for k in spec["ks"]:
+        kk = str(k)
+        per_k[kk] = {"two_process_ms": [r["k"][kk]["ms"] for r in ranks],
+                     "two_process_ms_all": [r["k"][kk]["ms_all"] for r in ranks],
+                     "unsharded_b1_ms": ref_ms[k], "one_process_four_shards_ms": one_process_ms[k],
+                     "allgather_ms": [r["k"][kk]["allgather_ms"] for r in ranks],
+                     "launches_per_rank": [r["k"][kk]["launches"] for r in ranks],
+                     "ids_equal_unsharded": True, "max_abs_err": 0.0}
+        for r in ranks:
+            require(r["k"][kk]["launches"].get("cosine_topk", 0) > 0,
+                    f"multihost: rank {r['rank']} never launched B1 at k={k}")
+    emit("multihost", n=n, d=spec["shape"][1], b=spec["shape"][2], mesh="2,2", processes=2,
+         devices=ranks[0]["devices"], owners=ranks[0]["owners"],
+         held_gb=[r["held_gb"] for r in ranks], workers_wall_s=wall, k=per_k)
+    return {"cosine_topk": sum(r["k"][str(spec["ks"][0])]["launches"].get("cosine_topk", 0)
+                               for r in ranks)}
+
+
+def http_load(spec: dict) -> dict:
+    """A client of its own process (`chip_smoke.py --http-load SPEC`, no
+    torch): spec["queries"] to spec["url"] with spec["inflight"] requests in
+    flight, each a connection kept alive; request i is a sync POST ?wait=30
+    when i % spec["sync_every"] == 0, else an async POST, and either polls
+    GET /rag/result/<id>?timeout=10 while it reads "processing". Each
+    request's seconds run from its POST to its complete result."""
+    import http.client
+    import threading
+    from urllib.parse import urlparse
+
+    url = urlparse(spec["url"])
+    queries, recs = spec["queries"], [None] * len(spec["queries"])
+    nxt, lock = [0], threading.Lock()
+
+    def one(conn, i: int) -> dict:
+        sync = i % spec["sync_every"] == 0
+        t0 = time.perf_counter()
+        conn.request("POST", "/rag?wait=30" if sync else "/rag",
+                     body=json.dumps({"query": queries[i], "k": 2}),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        status, out = r.status, json.loads(r.read())
+        rid, polls = out.get("request_id"), 0
+        while status == 200 and out.get("status") == "processing":
+            polls += 1
+            conn.request("GET", f"/rag/result/{rid}?timeout=10")
+            r = conn.getresponse()
+            status, out = r.status, json.loads(r.read())
+        result = out.get("result")
+        return {"ok": status == 200 and out.get("status") == "complete"
+                and isinstance(result, dict) and isinstance(result.get("result"), str),
+                "status": status, "s": time.perf_counter() - t0, "sync": sync, "polls": polls,
+                "body": None if status == 200 else out}
+
+    def worker() -> None:
+        conn = http.client.HTTPConnection(url.hostname, url.port, timeout=120)
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= len(queries):
+                conn.close()
+                return
+            try:
+                recs[i] = one(conn, i)
+            except Exception as e:  # noqa: BLE001 - recorded as a failed request
+                recs[i] = {"ok": False, "error": repr(e)}
+                conn.close()
+                conn = http.client.HTTPConnection(url.hostname, url.port, timeout=120)
+
+    threads = [threading.Thread(target=worker, daemon=True) for _ in range(spec["inflight"])]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    done = [r for r in recs if r is not None and r["ok"]]
+    lat = sorted(r["s"] for r in done)
+
+    def pct(p: float):
+        return lat[max(0, -(-len(lat) * p // 100) - 1)] if lat else None
+
+    return {"requests": len(queries), "answered": len(done), "inflight": spec["inflight"],
+            "sync": sum(r["sync"] for r in done), "polls": sum(r["polls"] for r in done),
+            "wall_s": wall, "req_per_s": len(done) / wall, "p50_s": pct(50), "p99_s": pct(99),
+            "failures": [r for r in recs if r is None or not r["ok"]][:3]}
+
+
+def _load_through(url: str, queries: list, inflight: int, sync_every: int) -> dict:
+    """`http_load` in a process of its own (no interpreter lock shared with
+    the server); every request must come back complete with a result."""
+    import subprocess
+    import tempfile
+
+    with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+        json.dump({"url": url, "queries": queries, "inflight": inflight,
+                   "sync_every": sync_every}, f)
+    try:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--http-load", f.name],
+                             capture_output=True, text=True, timeout=700)
+    finally:
+        os.unlink(f.name)
+    require(out.returncode == 0, f"the HTTP client exited {out.returncode}: {out.stderr[-2000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    require(rec["answered"] == rec["requests"],
+            f"{rec['requests'] - rec['answered']} of {rec['requests']} requests to {url} were "
+            f"not answered with a result: {rec['failures']}")
+    return rec
+
+
+class _CountingTokLib:
+    """A tokenizer's C library, counting its calls."""
+
+    def __init__(self, lib):
+        import threading
+
+        self.lib, self.calls, self._lock = lib, 0, threading.Lock()
+
+    def hashtok_encode(self, *args):
+        with self._lock:
+            self.calls += 1
+        return self.lib.hashtok_encode(*args)
+
+
+def _clear_caches(engine) -> None:
+    """Empty the prefix cache and the query cache, so that a round starts
+    from the same state as the one before it."""
+    engine.prefix_cache.clear()
+    with engine._query_cache_lock:
+        engine._query_cache.clear()
+
+
+def phase_serve_native_front(queries: list) -> dict:
+    """The main path at full width with every default, started as `main`
+    starts it (`build_app(role="all")`) with NATIVE_FRONT_PORT set: the C++
+    front on that port, aiohttp on its own. 129 squad_real queries, half as
+    a sync POST ?wait= and half as an async POST then polls, at 32 in flight
+    from a client process, through the native front and through aiohttp in
+    turns (front, aiohttp, aiohttp, front; both caches emptied before each
+    round): req/s and p50 / p99 of each. Every answer is a 200 with a
+    result, /stats `native_front` counts the front's requests, B1 and B2
+    launch, and both hash tokenizers encode through their C library."""
+    import urllib.request
+
+    import torch
+    from rag_serving_system_torch import main as main_mod
+    from rag_serving_system_torch.api.endpoints import ServerThread
+    from rag_serving_system_torch.api.native_front import FrontQueue
+    from rag_serving_system_torch.dryrun_multihost import free_port
+    from rag_serving_system_torch.models.tokenizer import HashTokenizer
+
+    port = free_port()
+    _serve_env(NATIVE_FRONT_PORT=str(port))
+    t0 = time.perf_counter()
+    app, processor, engine, _ = main_mod.build_app(role="all")
+    t_init = time.perf_counter() - t0
+    require(isinstance(processor.request_queue, FrontQueue),
+            "serve_native_front: the processor does not see the front's queue")
+    front = processor.request_queue._front
+    server = ServerThread(app).start()
+    toks = {"encoder": engine.enc_tok, "decoder": engine.dec_tok}
+    counted = {}
+    for name, tok in toks.items():
+        require(isinstance(tok, HashTokenizer) and tok._lib is not None,
+                f"serve_native_front: the {name} tokenizer has no C library: {tok!r}")
+        counted[name] = tok._lib = _CountingTokLib(tok._lib)
+    rounds = []
+    try:
+        reset_launches()
+        for surface in ("native", "aiohttp", "aiohttp", "native"):
+            _clear_caches(engine)
+            url = f"http://127.0.0.1:{port}" if surface == "native" else server.url
+            rec = _load_through(url, queries[:129], inflight=32, sync_every=2)
+            rounds.append({"surface": surface, **rec})
+            emit("serve_native_front_round", **rounds[-1])
+        launches = read_launches()
+        with urllib.request.urlopen(server.url + "/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        for tok in toks.values():
+            if isinstance(tok._lib, _CountingTokLib):
+                tok._lib = tok._lib.lib
+        server.stop()
+        processor.stop(drain_timeout=10.0)
+        processor.join(timeout=30)
+        front.stop()
+    nf = stats.get("native_front", {})
+    by_surface = {s: [r for r in rounds if r["surface"] == s] for s in ("native", "aiohttp")}
+    emit("serve_native_front", init_s=t_init, port=port, native_front=nf,
+         requests_processed=stats.get("requests_processed"),
+         tokenizer_c_calls={k: c.calls for k, c in counted.items()}, launches=launches,
+         **{s: {"req_per_s": [r["req_per_s"] for r in rs], "p50_s": [r["p50_s"] for r in rs],
+                "p99_s": [r["p99_s"] for r in rs]} for s, rs in by_surface.items()},
+         stages=engine.timer.summary())
+    n_front = sum(r["requests"] for r in by_surface["native"])
+    require(nf.get("accepted") == nf.get("completed") == n_front and nf.get("rejected") == 0
+            and nf.get("bad_requests") == 0 and nf.get("inflight") == 0,
+            f"serve_native_front: /stats native_front does not count the {n_front} "
+            f"requests: {nf}")
+    for name in ("cosine_topk", "flash_attention"):
+        require(launches[name] > 0, f"kernel {name} never launched in serve_native_front")
+    require(all(c.calls > 0 for c in counted.values()),
+            f"serve_native_front: a tokenizer never called its C library: "
+            f"{ {k: c.calls for k, c in counted.items()} }")
+    del app, processor, engine
+    _release()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _wait_for(what: str, ready, procs: list, timeout_s: float) -> None:
+    """Poll `ready()` until it holds; fail when a process of `procs` has
+    exited or `timeout_s` passes."""
+    deadline = time.monotonic() + timeout_s
+    while not ready():
+        dead = [p.args for p in procs if p.poll() is not None]
+        require(not dead, f"serve_replicas: {dead} exited while waiting for {what}")
+        require(time.monotonic() < deadline, f"serve_replicas: no {what} in {timeout_s} s")
+        time.sleep(0.2)
+
+
+def phase_serve_replicas(queries: list) -> dict:
+    """The reference's own scaling axis on a Redis the port carries: the
+    port's miniredis on a free port, one ROLE=api process and two ROLE=engine
+    processes (`python -m rag_serving_system_torch.main`, full width, every
+    default; on one card both engines share it, else each has its own). Two
+    rounds of 64 requests at once through the api's HTTP, then one engine
+    stopped (SIGTERM: it drains) and two rounds of 64 other requests through
+    the one left: the seconds of each round, and the rows and seconds of
+    each batch an engine logged. Every request must be answered."""
+    import re
+    import signal
+    import socket
+    import subprocess
+    import tempfile
+
+    import torch
+    from rag_serving_system_torch.dryrun_multihost import free_port
+    from rag_serving_system_torch.native import get_miniredis_path
+
+    cards = torch.cuda.device_count()
+    redis_port, api_port = free_port(), free_port()
+    _serve_env(REDIS_URL=f"redis://127.0.0.1:{redis_port}/0")
+    procs, logs = [], {}
+
+    def can_connect(port: int) -> bool:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=0.2).close()
+            return True
+        except OSError:
+            return False
+
+    with tempfile.TemporaryDirectory() as logdir:
+        def start(name: str, argv: list, **env) -> subprocess.Popen:
+            logs[name] = os.path.join(logdir, f"{name}.log")
+            with open(logs[name], "w") as log:
+                p = subprocess.Popen(argv, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                                     env=dict(os.environ, **env))
+            procs.append(p)
+            return p
+
+        def log_has(name: str, text: str) -> bool:
+            with open(logs[name]) as f:
+                return text in f.read()
+
+        def batches(name: str) -> list:
+            """(rows, seconds) of each batch the engine's processor logged."""
+            with open(logs[name]) as f:
+                return [(int(n), float(t)) for n, t in re.findall(
+                    r"(?:generated|processed) batch of (\d+) in ([\d.]+)s", f.read())]
+
+        def tails() -> str:
+            out = []
+            for name, path in logs.items():
+                with open(path) as f:
+                    out.append(f"--- {name} ---\n" + f.read()[-1500:])
+            return "\n".join(out)
+
+        try:
+            t0 = time.perf_counter()
+            start("miniredis", [get_miniredis_path(), str(redis_port)])
+            _wait_for("miniredis", lambda: can_connect(redis_port), procs, 30)
+            main_argv = [sys.executable, "-m", "rag_serving_system_torch.main"]
+            start("api", main_argv, ROLE="api", HOST="127.0.0.1", PORT=str(api_port))
+            engines = [start(f"engine{i}", main_argv, ROLE="engine",
+                             **({"CUDA_VISIBLE_DEVICES": str(i)} if cards > 1 else {}))
+                       for i in range(2)]
+            _wait_for("api", lambda: can_connect(api_port), procs, 120)
+            for i in range(2):
+                _wait_for(f"engine{i}", lambda i=i: log_has(f"engine{i}", "role=engine: consuming"),
+                          procs, 300)
+            t_up = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{api_port}"
+            two = [_load_through(url, queries[i:i + 64], inflight=64, sync_every=1)
+                   for i in (0, 128)]
+            two_batches = [batches("engine0"), batches("engine1")]
+            engines[1].send_signal(signal.SIGTERM)
+            rc = engines[1].wait(timeout=120)
+            require(rc == 0, f"serve_replicas: the stopped engine exited {rc}")
+            one = [_load_through(url, queries[i:i + 64], inflight=64, sync_every=1)
+                   for i in (64, 192)]
+            one_batches = batches("engine0")[len(two_batches[0]):]
+            split = [sum(n for n, _ in b) for b in two_batches]
+            require(sum(split) == 128 and sum(n for n, _ in one_batches) == 128,
+                    f"serve_replicas: the engines' logs count {split}, then "
+                    f"{one_batches} requests")
+            dead = [p.args for p in procs if p is not engines[1] and p.poll() is not None]
+            require(not dead, f"serve_replicas: {dead} exited while serving")
+        except SmokeFailure as e:
+            raise SmokeFailure(f"{e}\n{tails()}") from None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.send_signal(signal.SIGTERM)
+            for p in procs:
+                try:
+                    p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+    rec = {"cards": cards, "engines_share_a_card": cards < 2, "startup_s": t_up,
+           "two_engines_s": [r["wall_s"] for r in two], "one_engine_s": [r["wall_s"] for r in one],
+           "two_engines_requests_by_engine": split,
+           "two_engines_batches": two_batches, "one_engine_batches": one_batches,
+           "two_engines": two, "one_engine": one}
+    emit("serve_replicas", **rec)
+    return rec
+
+
 def timed(phase: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3322,11 +3827,20 @@ def timed(phase: str, fn, *args):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--http-load"] and len(sys.argv) == 3:
+        # a client process of serve_native_front / serve_replicas: no torch
+        with open(sys.argv[2], encoding="utf-8") as f:
+            print(json.dumps(http_load(json.load(f))), flush=True)
+        return 0
     try:
         import torch
     except ImportError as e:
         print(f"chip_smoke: torch is not importable: {e}", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--multihost-worker"] and len(sys.argv) == 5:
+        # a worker of the multihost phase, on the device its spec names
+        sys.path.insert(0, ROOT)
+        return multihost_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3346,7 +3860,9 @@ def main() -> int:
     only = {"serve": phase_serve, "serve_spec": phase_serve_spec, "serve_checkpoint": phase_serve_checkpoint,
             "serve_pipeline": phase_serve_pipeline, "parity": phase_parity,
             "serve_mesh": phase_serve_mesh, "serve_mesh_cards": phase_serve_mesh_cards,
-            "train": phase_train}
+            "train": phase_train, "multihost": phase_multihost,
+            "serve_native_front": phase_serve_native_front,
+            "serve_replicas": phase_serve_replicas}
     if sys.argv[1:] in (["--stage-split"], ["--crossover"]) or (
             sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3
             and set(sys.argv[2].split(",")) <= set(only)):
@@ -3394,6 +3910,10 @@ def main() -> int:
         launches["serve_pipeline"] = timed("serve_pipeline", phase_serve_pipeline, queries)
         launches["serve_mesh"] = timed("serve_mesh", phase_serve_mesh, queries)
         launches["train"] = timed("train", phase_train, queries)
+        launches["multihost"] = timed("multihost", phase_multihost, queries)
+        launches["serve_native_front"] = timed("serve_native_front", phase_serve_native_front,
+                                               queries)
+        timed("serve_replicas", phase_serve_replicas, queries)
         emit("timing", of="all", seconds=time.perf_counter() - t_start)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

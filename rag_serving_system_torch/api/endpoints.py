@@ -1,7 +1,8 @@
 """HTTP surface on aiohttp.
 
-A copy of `rag_serving_system_tpu/api/endpoints.py` without the native C++
-front's counters (the port has no native front):
+A copy of `rag_serving_system_tpu/api/endpoints.py`. When the native C++
+front (`api/native_front.py`) serves beside it, its counters appear in
+/metrics (`rag_native_front`) and /stats (`native_front`):
 
 - POST /rag                → {"request_id", "status": "processing"}
                              (?wait=SECONDS returns the completed result)
@@ -46,6 +47,11 @@ def create_api(request_queue, processor=None, engine=None,
                                registry=registry)
     stage_g = Gauge("rag_stage_seconds", "Mean seconds per pipeline stage",
                     ["stage"], registry=registry)
+    # the native front counts its accepts and rejects in C (its requests
+    # never touch the counters above): exported at scrape time
+    front_g = Gauge("rag_native_front", "Native front counters",
+                    ["counter"], registry=registry)
+    front = getattr(request_queue, "_front", None)   # FrontQueue proxy
 
     async def rag_endpoint(request: web.Request) -> web.Response:
         try:
@@ -136,6 +142,10 @@ def create_api(request_queue, processor=None, engine=None,
         if engine is not None:
             for stage, s in engine.timer.summary().items():
                 stage_g.labels(stage=stage).set(s["mean_s"])
+        if front is not None:
+            for name, v in front.stats().items():
+                if name != "port":
+                    front_g.labels(counter=name).set(v)
         return web.Response(body=generate_latest(registry),
                             content_type="text/plain")
 
@@ -162,6 +172,8 @@ def create_api(request_queue, processor=None, engine=None,
                 body["prefix_cache"] = engine.prefix_cache.stats()
             if getattr(engine, "decode_pool", None) is not None:
                 body["decode_pool"] = engine.decode_pool.stats()
+        if front is not None:
+            body["native_front"] = front.stats()
         return web.json_response(body)
 
     app.router.add_post("/rag", rag_endpoint)

@@ -41,6 +41,8 @@ class Settings:
         default_factory=lambda: _env("DOCUMENT_TEXT_FILE", "data/short_facts_contexts.json"))
     document_embeddings_file: str = field(
         default_factory=lambda: _env("DOCUMENT_EMBEDDINGS_FILE", "data/short_facts_embeddings.npy"))
+    document_queries_file: str = field(
+        default_factory=lambda: _env("DOCUMENT_QUERIES_FILE", "data/short_facts_queries.json"))
 
     # models (a local directory here asks for a tokenizer loader the port lacks)
     embed_model_name: str = field(

@@ -184,6 +184,9 @@ class RagEngine:
         # one device is a mesh of one position: every route runs through the
         # mesh code, which calls a lone position directly
         self.mesh = mesh if mesh is not None else Mesh([[resolve_device(device)]])
+        if self.mesh.process_count > 1:
+            raise ValueError("the engine serves over a mesh of one process; a mesh "
+                             "across processes runs the sharded top-k only")
         self.device = self.mesh.lead
         # the corpus sharded, and the one-device routes (packed prefill, the
         # int8 corpus, IVF) off, as in the JAX engine

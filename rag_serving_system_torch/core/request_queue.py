@@ -4,6 +4,8 @@ A copy of `rag_serving_system_tpu/core/request_queue.py`, with its
 duck-typed contract:
 
 - `add_request(query, k, max_new_tokens=None) -> request_id`
+- `add_request_with_id(request_id, query, k, max_new_tokens=None)` (the
+  native HTTP front mints its own ids)
 - `get_batch() -> list[{"id", "query", "k", "timestamp"}]` (size-bounded
   by max_batch_size; time-bounded by max_wait_time once one item is held)
 - `store_result(request_id, result)`
@@ -50,7 +52,12 @@ class RequestQueue:
 
     def add_request(self, query: str, k: int = 2,
                     max_new_tokens: int | None = None) -> str:
-        request_id = str(uuid.uuid4())
+        return self.add_request_with_id(str(uuid.uuid4()), query, k, max_new_tokens)
+
+    def add_request_with_id(self, request_id: str, query: str, k: int = 2,
+                            max_new_tokens: int | None = None) -> str:
+        """Enqueue under a caller-assigned id (the native front's, minted on
+        its epoll thread)."""
         ts = time.time()
         # enqueue timestamps, so oldest_wait_time() can peek; appended before
         # put so a racing consumer always finds one to pop
@@ -185,7 +192,10 @@ class RedisRequestQueue:
 
     def add_request(self, query: str, k: int = 2,
                     max_new_tokens: int | None = None) -> str:
-        request_id = str(uuid.uuid4())
+        return self.add_request_with_id(str(uuid.uuid4()), query, k, max_new_tokens)
+
+    def add_request_with_id(self, request_id: str, query: str, k: int = 2,
+                            max_new_tokens: int | None = None) -> str:
         item = {"id": request_id, "query": query, "k": k, "timestamp": time.time()}
         if max_new_tokens is not None:
             item["max_new_tokens"] = max_new_tokens  # absent by default

@@ -4,8 +4,10 @@
 
 Settings → corpus → engine (models and corpus on TORCH_DEVICE, default cuda)
 → queue backend (Redis iff REDIS_URL) → batch processor → the HTTP surface
-of `api/endpoints.py` (aiohttp, imported only here). The counterpart of the
-root `main.py`, with its three roles (ROLE=all|api|engine).
+of `api/endpoints.py` (aiohttp, imported only here), and with
+NATIVE_FRONT_PORT the C++ epoll front of `api/native_front.py` beside it.
+The counterpart of the root `main.py`, with its three roles
+(ROLE=all|api|engine).
 """
 
 from __future__ import annotations
@@ -17,14 +19,37 @@ import os
 logger = logging.getLogger("rag_serving_system_torch.main")
 
 
-def _refuse_native_front() -> None:
-    """NATIVE_FRONT_PORT asks for the JAX package's C++ epoll listener, which
-    the port does not carry: refuse it rather than serve without it."""
-    if int(os.environ.get("NATIVE_FRONT_PORT", "0") or 0):
+def _front_port(settings) -> int:
+    """NATIVE_FRONT_PORT (0: no native front). The front answers its waiters
+    from this process's result store, so a shared Redis queue, whose results
+    another replica may store, is refused."""
+    port = int(os.environ.get("NATIVE_FRONT_PORT", "0") or 0)
+    if port and settings.redis_url:
         raise SystemExit(
-            "NATIVE_FRONT_PORT is set, but rag_serving_system_torch has no native "
-            "HTTP front (the C++ listener of the JAX package is not ported): "
-            "unset it and serve through aiohttp on PORT")
+            "NATIVE_FRONT_PORT requires the in-memory queue (single-replica "
+            "role=all); unset REDIS_URL or the front")
+    return port
+
+
+def _native_front(request_queue, port: int):
+    """The C++ epoll front (`native/httpfront.cc`) listening on `port` over
+    `request_queue`, and the FrontQueue that routes its results back: the
+    queue the processor and the aiohttp app see. Its in-flight cap is
+    NATIVE_FRONT_MAX_INFLIGHT, by default MAX_QUEUE_SIZE (0: none). A front
+    that cannot be built or bound ends the process with the reason."""
+    import atexit
+
+    from rag_serving_system_torch.api.native_front import FrontQueue, NativeFront
+
+    max_inflight = int(os.environ.get("NATIVE_FRONT_MAX_INFLIGHT",
+                                      os.environ.get("MAX_QUEUE_SIZE", "0")))
+    try:
+        front = NativeFront(request_queue, port=port, max_inflight=max_inflight).start()
+    except RuntimeError as e:
+        raise SystemExit(f"NATIVE_FRONT_PORT={port}: the native front did not start: "
+                         f"{e}") from e
+    atexit.register(front.stop)   # joins the epoll thread on shutdown
+    return FrontQueue(request_queue, front)
 
 
 def _mesh(settings):
@@ -96,7 +121,6 @@ def build_app(settings=None, warmup: bool = True, role: str = "all"):
     from rag_serving_system_torch.config import get_settings
 
     settings = settings or get_settings()
-    _refuse_native_front()
     max_queue_size = int(os.environ.get("MAX_QUEUE_SIZE", "0"))
     if role == "api":
         if not settings.redis_url:
@@ -113,11 +137,14 @@ def build_app(settings=None, warmup: bool = True, role: str = "all"):
         raise SystemExit("ROLE=engine requires REDIS_URL (shared queue)")
     if role not in ("all", "engine"):
         raise SystemExit(f"ROLE={role}: all, api or engine")
+    front_port = _front_port(settings)
 
     processor, engine, request_queue, settings = build_processor(settings)
     logger.info("queue backend: %s", type(request_queue).__name__)
     if warmup:
         engine.warmup()
+    if front_port:
+        request_queue = processor.request_queue = _native_front(request_queue, front_port)
     processor.start()
     if role == "engine":
         logger.info("role=engine: consuming the shared queue, no HTTP surface")

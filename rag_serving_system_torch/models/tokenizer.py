@@ -3,19 +3,25 @@
 A copy of `rag_serving_system_tpu/models/tokenizer.py`: an HF tokenizer when
 a local snapshot holds one (`HFTokenizer`, which imports `transformers`
 inside its constructor only), else the deterministic hashing tokenizer, so
-that the whole pipeline runs with no network and no `transformers`. Of the
-hashing tokenizer only the Python blake2b path is kept: the JAX package's C
-fast path for ASCII text (`native/hashtok.c`) gives the same ids, faster,
-and is not carried over, so the port builds no host library.
+that the whole pipeline runs with no network and no `transformers`. The
+hashing tokenizer encodes ASCII text through the C library of
+`native/hashtok.c` (the same ids as the Python blake2b path, faster, and the
+interpreter lock released during the call) and every other text through the
+exact Python path; where no host compiler can build the library, it logs so
+and encodes all text in Python.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
+import logging
 import re
 from typing import List, Tuple
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 
 class HashTokenizer:
@@ -30,13 +36,33 @@ class HashTokenizer:
         self.pad_id = pad_id
         self._reserved = 10  # low ids are kept for specials
         self._word_re = re.compile(r"\w+|[^\w\s]")
+        from rag_serving_system_torch.native import NativeBuildError, get_hashtok_lib
+
+        try:
+            self._lib = get_hashtok_lib()
+        except NativeBuildError as e:
+            logger.warning("tokenizing in Python: the C path did not build: %s", e)
+            self._lib = None
 
     def _tok2id(self, tok: str) -> int:
         h = int.from_bytes(hashlib.blake2b(tok.encode("utf-8"), digest_size=4).digest(), "little")
         return self._reserved + (h % (self.vocab_size - self._reserved))
 
-    def encode(self, text: str) -> List[int]:
+    def _encode_py(self, text: str) -> List[int]:
         return [self.bos_id] + [self._tok2id(t) for t in self._word_re.findall(text)] + [self.eos_id]
+
+    def encode(self, text: str) -> List[int]:
+        if self._lib is None:
+            return self._encode_py(text)
+        try:
+            raw = text.encode("ascii")
+        except UnicodeEncodeError:
+            return self._encode_py(text)  # non-ASCII: the exact Python path
+        cap = len(raw) + 2  # at most one token a byte, and bos and eos
+        out = (ctypes.c_int32 * cap)()
+        n = self._lib.hashtok_encode(raw, len(raw), out, cap, self.vocab_size,
+                                     self._reserved, self.bos_id, self.eos_id)
+        return list(out[:n]) if n >= 0 else self._encode_py(text)
 
     def decode(self, ids) -> str:
         # lossy: hashing is one-way; emit token placeholders

@@ -16,13 +16,26 @@ Unlike a JAX mesh, `devices` may name one device more than once: several
 mesh positions then share that device, each with its own slices. That is how
 the CPU tests stand in for eight devices and how one card stands in for a
 mesh; it proves the mesh's arithmetic and its routes, not a multi-card time.
+
+A mesh may also span processes, as a JAX mesh over `jax.devices()` does after
+`jax.distributed.initialize`: `initialize` joins the processes in a
+`torch.distributed` group (gloo, over TCP), `make_global_mesh` builds the
+grid of every process's positions, each with its owning rank, and
+`process_allgather` is the one collective that crosses the process boundary
+(a host tensor, gathered in rank order). A process addresses only its own
+positions. The engine serves over a one-process mesh only; the sharded
+top-k (`sharded_topk.py`) runs over either.
 """
 
 from __future__ import annotations
 
+import datetime
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
+
+from rag_serving_system_torch import device as _device
 
 
 def _indexed(device) -> torch.device:
@@ -36,15 +49,23 @@ def _indexed(device) -> torch.device:
 
 class Mesh:
     """A (dp, tp) grid of devices with axes ("data", "model"); position
-    (g, m) is data group g, model position m."""
+    (g, m) is data group g, model position m. `owners` (a grid of ranks,
+    default all 0) names the process that holds each position, and `rank`
+    is this process's; a position's device is a device of its owner."""
 
     axis_names = ("data", "model")
 
-    def __init__(self, grid: Sequence[Sequence[torch.device]]):
+    def __init__(self, grid: Sequence[Sequence[torch.device]],
+                 owners: Sequence[Sequence[int]] | None = None, rank: int = 0):
+        if not grid or not grid[0]:
+            raise ValueError("a mesh needs at least one position; the device list is empty")
         self.grid = [[_indexed(d) for d in row] for row in grid]
         self.shape = {"data": len(self.grid), "model": len(self.grid[0])}
         if any(len(row) != self.shape["model"] for row in self.grid):
             raise ValueError("every data group needs the same number of model positions")
+        self.owners = ([[0] * self.shape["model"] for _ in self.grid] if owners is None
+                       else [list(row) for row in owners])
+        self.rank = rank
 
     @property
     def size(self) -> int:
@@ -61,6 +82,21 @@ class Mesh:
         results are gathered."""
         return self.grid[0][0]
 
+    @property
+    def process_count(self) -> int:
+        return len({r for row in self.owners for r in row})
+
+    @property
+    def addressable(self) -> list[bool]:
+        """Whether this process holds each position, data-major."""
+        return [r == self.rank for row in self.owners for r in row]
+
+    @property
+    def local_lead(self) -> torch.device:
+        """The device of this process's first position (`lead` on a mesh of
+        one process): where its results are merged."""
+        return next(d for d, mine in zip(self.devices, self.addressable) if mine)
+
     def device(self, g: int, m: int) -> torch.device:
         return self.grid[g][m]
 
@@ -68,20 +104,78 @@ class Mesh:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"
 
 
-def make_mesh(mesh_shape: str = "", devices=None) -> Mesh:
-    """A ("data", "model") mesh. `mesh_shape` is "dp,tp", e.g. "4,2"; empty
-    puts every device on the data axis. `devices` defaults to every visible
-    CUDA device, and may repeat one device (see the module docstring)."""
-    if devices is None:
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    n = len(devices)
+def _grid_shape(mesh_shape: str, n: int) -> tuple[int, int]:
     if mesh_shape:
         dp, tp = (int(x) for x in mesh_shape.split(","))
     else:
         dp, tp = n, 1
     if dp * tp != n:
         raise ValueError(f"mesh {dp}x{tp} != {n} devices")
+    return dp, tp
+
+
+def make_mesh(mesh_shape: str = "", devices=None) -> Mesh:
+    """A ("data", "model") mesh. `mesh_shape` is "dp,tp", e.g. "4,2"; empty
+    puts every device on the data axis. `devices` defaults to the device
+    that `device.resolve_device()` names (TORCH_DEVICE): on CUDA every
+    visible CUDA device, on the CPU one position. `devices` may repeat one
+    device (see the module docstring)."""
+    if devices is None:
+        dev = _device.resolve_device()
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if dev.type == "cuda" else [dev])
+    dp, tp = _grid_shape(mesh_shape, len(devices))
     return Mesh([devices[g * tp:(g + 1) * tp] for g in range(dp)])
+
+
+# the processes: counterparts of jax.distributed and multihost_utils
+
+def initialize(coordinator_address: str, num_processes: int, process_id: int,
+               timeout_s: float = 120.0) -> None:
+    """Join this process to the others, as `jax.distributed.initialize`
+    does: a gloo group over TCP at `coordinator_address` ("host:port", which
+    process 0 serves). Every wait in the group, this one and each
+    collective, gives up after `timeout_s`. Gloo moves host tensors, so two
+    processes may share one card (NCCL refuses two ranks on one GPU)."""
+    dist.init_process_group("gloo", init_method=f"tcp://{coordinator_address}",
+                            world_size=num_processes, rank=process_id,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def shutdown() -> None:
+    """Leave the group `initialize` joined."""
+    dist.destroy_process_group()
+
+
+def make_global_mesh(mesh_shape: str, local_devices: Sequence) -> Mesh:
+    """The mesh over every process's positions, as a JAX mesh over
+    `jax.devices()` after `jax.distributed.initialize`: each process passes
+    its own devices (the same count in every process), and the grid holds
+    them data-major in rank order, each position owned by the process that
+    passed it. Call it in every process of the group."""
+    names = [None] * dist.get_world_size()
+    dist.all_gather_object(names, [str(_indexed(d)) for d in local_devices])
+    if len({len(n) for n in names}) != 1:
+        raise ValueError(f"every process needs the same number of positions: {names}")
+    devices = [torch.device(d) for per_rank in names for d in per_rank]
+    owners = [r for r, per_rank in enumerate(names) for _ in per_rank]
+    dp, tp = _grid_shape(mesh_shape, len(devices))
+    return Mesh([devices[g * tp:(g + 1) * tp] for g in range(dp)],
+                owners=[owners[g * tp:(g + 1) * tp] for g in range(dp)],
+                rank=dist.get_rank())
+
+
+def process_allgather(tensor: torch.Tensor) -> torch.Tensor:
+    """Every process's `tensor` on the host, concatenated on axis 0 in rank
+    order (`multihost_utils.process_allgather(..., tiled=True)`). Every
+    process passes the same shape and dtype. Outside a group: the tensor
+    alone, on the host."""
+    host = tensor.detach().cpu().contiguous()
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return host
+    parts = [torch.empty_like(host) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, host)
+    return torch.cat(parts)
 
 
 def mesh_axis_sizes(mesh: Mesh) -> tuple[int, int]:

@@ -3,7 +3,9 @@ not installed.
 
 A trimmed copy of `rag_serving_system_tpu/utils/resp.py`: the command
 surface `RedisRequestQueue` speaks (RPUSH, LPOP, BLPOP, LLEN, LINDEX, GET,
-SETEX, DEL, and a pipeline of LPOPs) against any RESP2 server. Each exchange
+SETEX, DEL, and a pipeline of LPOPs) against any RESP2 server, and PING,
+SET, FLUSHALL and INFO for checking a server (the port's miniredis,
+`native/miniredis.cc`, reports its memory count in INFO). Each exchange
 checks a socket out of a pool of idle connections, so a BLPOP blocking one
 connection never delays result stores from another thread. Values come back
 as bytes.
@@ -93,6 +95,13 @@ class RespClient:
             conn.sock.close()
         except OSError:
             pass
+
+    def close(self) -> None:
+        """Close the idle connections (one checked out closes on its own)."""
+        with self._lock:
+            idle, self._idle = self._idle, []
+        for c in idle:
+            self._discard(c)
 
     # -- wire ----------------------------------------------------------------
 
@@ -204,6 +213,32 @@ class RespClient:
 
     def delete(self, *keys) -> int:
         return self._execute("DEL", *keys)
+
+    # -- checking a server ---------------------------------------------------
+
+    def ping(self) -> bool:
+        return self._execute("PING") in (b"PONG", b"OK")
+
+    def set(self, key, value, ex=None):
+        if ex is not None:
+            return self._execute("SET", key, value, "EX", int(ex))
+        return self._execute("SET", key, value)
+
+    def flushall(self):
+        return self._execute("FLUSHALL")
+
+    def info(self) -> dict:
+        """The INFO reply as {field: value}, ints where they parse (the
+        port's miniredis reports `used_memory` and `maxmemory`)."""
+        out = {}
+        for line in (self._execute("INFO") or b"").decode().splitlines():
+            if ":" in line and not line.startswith("#"):
+                k, _, v = line.partition(":")
+                try:
+                    out[k] = int(v)
+                except ValueError:
+                    out[k] = v
+        return out
 
     def pipeline(self) -> _Pipeline:
         return _Pipeline(self)

@@ -1134,3 +1134,80 @@ def test_sharded_topk_on_four_positions_of_the_card_equals_unsharded(dev, k, dty
     rs, ri = tt.cosine_topk(corpus, q, k)
     assert torch.equal(i, ri)
     assert torch.equal(s, rs)
+
+
+# ---------------------------------------------------------------------------
+# the native host path and the multi-process mesh on the card
+# ---------------------------------------------------------------------------
+
+def test_native_front_serves_the_tiny_engine_on_the_card(dev, tmp_path, monkeypatch):
+    """NATIVE_FRONT_PORT: `build_app(role="all")` serves the tiny preset on
+    the card through the port's C++ front; B1 and B2 launch, the hash
+    tokenizers encode through their C library, and the front counts every
+    request."""
+    import json
+    import socket
+    import urllib.request
+
+    from rag_serving_system_torch import main as port_main
+    from rag_serving_system_torch.config import Settings
+
+    docs, emb = _tiny_corpus()
+    (tmp_path / "docs.json").write_text(json.dumps(docs))
+    np.save(tmp_path / "emb.npy", emb)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("NATIVE_FRONT_PORT", str(port))
+    monkeypatch.setenv("TORCH_DEVICE", "cuda")
+    settings = Settings(model_preset="tiny", dtype="float32", batch_buckets=[1, 4],
+                        max_batch_size=4, encode_len_buckets=[16, 32],
+                        prompt_len_buckets=[32, 128], packed_t_step=256, max_new_tokens=6,
+                        max_k=4, prefix_pool_len=48, max_wait_time=0.1, redis_url=None,
+                        document_text_file=str(tmp_path / "docs.json"),
+                        document_embeddings_file=str(tmp_path / "emb.npy"))
+    before = (tt.cosine_topk.launches, ta.flash_attention.launches)
+    app, proc, engine, _ = port_main.build_app(settings=settings, role="all")
+    front = proc.request_queue._front
+    try:
+        assert engine.enc_tok._lib is not None and engine.dec_tok._lib is not None
+        for q in TINY_QUERIES:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/rag?wait=30", method="POST",
+                data=json.dumps({"query": q, "k": 2}).encode(),
+                headers={"content-type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                out = json.loads(r.read())
+            assert out["status"] == "complete" and isinstance(out["result"]["result"], str)
+        assert front.stats()["completed"] == len(TINY_QUERIES)
+        assert tt.cosine_topk.launches > before[0] and ta.flash_attention.launches > before[1]
+    finally:
+        proc.stop(drain_timeout=5.0)
+        front.stop()
+
+
+def test_c_tokenizer_answers_as_the_python_path_on_the_card(dev):
+    """The engine on the card answers alike whether its hash tokenizers
+    encode through C or in Python."""
+    engine = _tiny_engine(dev, prefix_cache=False)
+    toks = (engine.enc_tok, engine.dec_tok)
+    assert all(t._lib is not None for t in toks)
+    with_c = engine.process(TINY_QUERIES, [2] * 4)
+    with mock.patch.object(toks[0], "_lib", None), mock.patch.object(toks[1], "_lib", None):
+        assert engine.process(TINY_QUERIES, [2] * 4) == with_c
+    assert all(r["result"] for r in with_c)
+
+
+def test_two_process_topk_on_the_card():
+    """`dryrun_multihost` on the card (both workers on cuda:0 of one card, a
+    card each where there are more): MULTIHOST PASS."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-m", "rag_serving_system_torch.dryrun_multihost"],
+                         cwd=root, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "MULTIHOST PASS"
+    assert out.stdout.count('"parity": "ok"') == 2

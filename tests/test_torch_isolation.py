@@ -4,14 +4,17 @@ RESP client) agree with their originals.
 
 The isolation check runs in a subprocess whose `sys.meta_path` refuses
 `jax`, `jaxlib`, `rag_serving_system_tpu`, `optax`, `flax`, `safetensors` and
-`transformers`: `build_app(role="api")` must come up there without importing
-`torch`; every module of the port (the trainer's and the mesh's included)
-and `chip_smoke` must import; an engine over a 2 x 2 mesh of CPU positions
+`transformers`: `build_app(role="api")` must come up there, and the native
+host path (`native/`, `api/native_front.py`) import, without importing
+`torch`; every module of the port (the trainer's, the mesh's and
+`dryrun_multihost` included) and `chip_smoke` must import; the hash
+tokenizer must load its C path where there is a C compiler; an engine over a 2 x 2 mesh of CPU positions
 must serve; one query must be served end to end on the CPU
 through `main.build_processor` at the tiny presets, with PREFIX_CACHE at its
 default (on); and the same engine's models, written as HF snapshots by
 `chip_smoke`'s writer, must load through WEIGHTS_DIR bit for bit and serve
-under SPEC_DECODE=2 through two stage-1 workers as the first engine did."""
+under SPEC_DECODE=2 through two stage-1 workers as the first engine did.
+The port's native sources are byte-for-byte the JAX package's."""
 
 import dataclasses
 import os
@@ -59,7 +62,10 @@ request_queue.make_queue = lambda settings: shared
 app, no_processor, no_engine, _ = build_app(
     Settings(model_preset="tiny", redis_url="redis://stand-in:6379"), role="api")
 assert app is not None and no_processor is None and no_engine is None
-assert "torch" not in sys.modules, "ROLE=api imported torch"
+# the native host path imports no torch either
+from rag_serving_system_torch.api import native_front
+from rag_serving_system_torch import native
+assert "torch" not in sys.modules, "ROLE=api or the native host path imported torch"
 
 import rag_serving_system_torch
 names = [m.name for m in pkgutil.walk_packages(rag_serving_system_torch.__path__,
@@ -94,6 +100,9 @@ finally:
     processor.join(timeout=10)
 assert isinstance(result, dict) and isinstance(result.get("result"), str), result
 assert s.prefix_cache and engine.prefix_cache.stats()["entries"] == 1
+import shutil
+if shutil.which("cc"):
+    assert engine.dec_tok._lib is not None, "the tokenizer's C path did not load"
 
 # the new paths: checkpoints through the port's own reader, the hash
 # tokenizer where `transformers` cannot be imported, greedy speculative
@@ -200,7 +209,7 @@ def test_model_presets_equal_jax():
 
 _ENV = {"PORT": "8123", "MAX_BATCH_SIZE": "16", "MAX_WAIT_TIME": "0.25",
         "POLLING_INTERVAL": "0.01", "DOCUMENT_TEXT_FILE": "d.json",
-        "DOCUMENT_EMBEDDINGS_FILE": "e.npy", "EMBED_MODEL_NAME": "e5",
+        "DOCUMENT_EMBEDDINGS_FILE": "e.npy", "DOCUMENT_QUERIES_FILE": "q.json", "EMBED_MODEL_NAME": "e5",
         "LLM_MODEL_NAME": "qwen", "REDIS_URL": "redis://localhost:1/0",
         "COMPUTE_DTYPE": "float32", "BATCH_BUCKETS": "1,8", "ENCODE_LEN_BUCKETS": "16",
         "PROMPT_LEN_BUCKETS": "64,256", "PACKED_PREFILL": "false",
@@ -240,3 +249,13 @@ def test_resp_wire_encoding_equals_jax():
         assert port_resp.RespClient._encode(cmd) == jax_resp.RespClient._encode(cmd)
     c = port_resp.RespClient.from_url("redis://example:7000/3")
     assert c._addr == ("example", 7000) and c._db == 3
+
+
+@pytest.mark.parametrize("source", ["hashtok.c", "httpfront.cc", "miniredis.cc"])
+def test_native_sources_are_copies_of_the_jax_package_s(source):
+    """The port builds its own copies of the native sources, byte for byte
+    the JAX package's."""
+    with open(os.path.join(ROOT, "rag_serving_system_torch", "native", source), "rb") as f:
+        ours = f.read()
+    with open(os.path.join(ROOT, "rag_serving_system_tpu", "native", source), "rb") as f:
+        assert ours == f.read()

@@ -108,6 +108,36 @@ def test_sharded_retriever_equals_one_device_and_numpy(shape):
     assert sharded.batch_retrieve(q[:, :10], [2]) == [[]]
 
 
+def test_default_mesh_and_sharded_retriever_on_the_cpu(monkeypatch):
+    """C4: under TORCH_DEVICE=cpu, `make_mesh()` is one CPU position and
+    `ShardedRetriever` without a mesh answers as `TorchRetriever` does; an
+    empty device list is refused by name, and CUDA asked for where there is
+    none raises the device's own message."""
+    from rag_serving_system_torch.parallel.mesh import Mesh
+
+    monkeypatch.setenv("TORCH_DEVICE", "cpu")
+    m = make_mesh()
+    assert mesh_axis_sizes(m) == (1, 1) and m.devices == [CPU]
+    assert mesh_axis_sizes(make_mesh("1,1")) == (1, 1)
+    rng = np.random.default_rng(12)
+    emb = rng.standard_normal((30, 64)).astype(np.float32)
+    docs = [f"d{i}" for i in range(30)]
+    q = rng.standard_normal((4, 64)).astype(np.float32)
+    ks = [3, 1, 8, 5]
+    sharded = ShardedRetriever(emb, docs, max_k=8)
+    assert sharded.device == CPU
+    assert sharded.batch_retrieve(q, ks) == TorchRetriever(
+        emb, docs, max_k=8, device="cpu").batch_retrieve(q, ks)
+    with pytest.raises(ValueError, match="at least one position"):
+        Mesh([])
+    with pytest.raises(ValueError, match="at least one position"):
+        make_mesh("", devices=[])
+    if not torch.cuda.is_available():
+        monkeypatch.setenv("TORCH_DEVICE", "cuda")
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            make_mesh()
+
+
 # ---------------------------------------------------------------------------
 # the tensor-parallel rules, leaf by leaf
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ thread fails that test and not the run."""
 
 import json
 import os
+import re
 import signal
 import threading
 import time
@@ -512,22 +513,86 @@ def test_role_split_api_and_engine_over_one_queue(corpus, tmp_path, monkeypatch)
         proc2.stop(drain_timeout=2.0)
 
 
+_FRONT_WITH_REDIS = {"NATIVE_FRONT_PORT": "9001", "REDIS_URL": "redis://stub:6379"}
+_FRONT_REFUSED = ("NATIVE_FRONT_PORT requires the in-memory queue (single-replica "
+                  "role=all); unset REDIS_URL or the front")
+
+
 @pytest.mark.parametrize("role,env,match", [
     ("api", {}, "ROLE=api requires REDIS_URL"),
     ("engine", {}, "ROLE=engine requires REDIS_URL"),
     ("worker", {}, "ROLE=worker"),
-    ("all", {"NATIVE_FRONT_PORT": "9001"}, "no native HTTP front"),
-    ("api", {"NATIVE_FRONT_PORT": "9001"}, "no native HTTP front"),
+    ("all", _FRONT_WITH_REDIS, re.escape(_FRONT_REFUSED)),
+    ("engine", _FRONT_WITH_REDIS, re.escape(_FRONT_REFUSED)),
 ])
 def test_build_app_refusals(monkeypatch, role, env, match):
-    """api and engine without REDIS_URL exit as the root `main.py` does; an
-    unknown role and the unported native front are named."""
+    """api and engine without REDIS_URL exit as the root `main.py` does, an
+    unknown role is named, and the native front beside a shared Redis queue
+    is refused with the root `main.py`'s message, before any model is
+    built."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     s = tiny_settings()
-    assert s.redis_url is None
+    assert s.redis_url == env.get("REDIS_URL")
     with pytest.raises(SystemExit, match=match):
         port_main.build_app(settings=s, role=role)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def test_native_front_serves_beside_aiohttp(corpus, tmp_path, monkeypatch):
+    """NATIVE_FRONT_PORT: `build_app` starts the port's C++ front over the
+    in-memory queue, its in-flight cap from MAX_QUEUE_SIZE; the processor
+    stores the front's results through FrontQueue, and aiohttp's /stats and
+    /metrics carry the front's counters."""
+    pytest.importorskip("aiohttp")
+    from rag_serving_system_torch.api.endpoints import ServerThread
+    from rag_serving_system_torch.api.native_front import FrontQueue
+
+    port = _free_port()
+    monkeypatch.setenv("NATIVE_FRONT_PORT", str(port))
+    monkeypatch.setenv("MAX_QUEUE_SIZE", "50")
+    monkeypatch.setenv("TORCH_DEVICE", "cpu")
+    s = tiny_settings(redis_url=None, **_corpus_files(tmp_path, corpus))
+    app, proc, eng, _ = port_main.build_app(settings=s, warmup=False, role="all")
+    front = proc.request_queue._front
+    srv = ServerThread(app).start()
+    try:
+        assert isinstance(proc.request_queue, FrontQueue) and front.port == port
+        assert front._max_inflight == 50
+        body = json.dumps({"query": "what is w3?", "k": 2}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/rag?wait=60", data=body,
+                                     method="POST",
+                                     headers={"content-type": "application/json"})
+        with urllib.request.urlopen(req, timeout=90) as r:
+            out = json.loads(r.read())
+        assert out["status"] == "complete" and out["request_id"].startswith(front.id_prefix)
+        assert isinstance(out["result"]["result"], str)
+        stats = _get(srv.url + "/stats")["native_front"]
+        assert stats["accepted"] == stats["completed"] == 1 and stats["port"] == port
+        with urllib.request.urlopen(srv.url + "/metrics", timeout=30) as r:
+            assert 'rag_native_front{counter="completed"} 1.0' in r.read().decode()
+    finally:
+        srv.stop()
+        proc.stop(drain_timeout=2.0)
+        front.stop()
+
+
+def test_native_front_that_does_not_build_ends_the_process(monkeypatch):
+    """No compiler for the front: the process exits with the reason (the
+    root `main.py` would serve aiohttp only, behind a warning)."""
+    from rag_serving_system_torch import native
+
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setenv("CXX", "/nonexistent/c++")
+    with pytest.raises(SystemExit, match="native front did not start.*nonexistent"):
+        port_main._native_front(_queue(), _free_port())
 
 
 def test_main_as_engine_blocks_until_sigterm_then_drains(monkeypatch):
