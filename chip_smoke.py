@@ -13,7 +13,10 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 and where one exists the time of one PyTorch call computing
                 the same function (library_ms): B1 at 1M rows (f32 and bf16
                 corpus, k = 16, 64, 256, 1024) and 1000 rows, B2 and B3 in
-                bf16 and f32, B2 again under RIGHT padding at (32, 512) and
+                bf16 and f32 (B2 also at a mesh position's 6 query heads and
+                1 KV head; B3 with n_real = T and with the stream's real
+                count, the served contract, its rows past n_real exactly 0),
+                B2 again under RIGHT padding at (32, 512) and
                 (8, 768) (the prefix-KV compute's shapes), B2 and B3 at the
                 narrow head sizes 16 and 32 (the tiny preset's), B1 and B4 at
                 depths 50 and 100 (padded by the wrappers), B4 at 1M rows
@@ -39,8 +42,9 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 device-busy share, the kernel count, the top kernels and the
                 share of launches in decode; and the peak device memory.
 6. serve_cold - the same engine with PREFIX_CACHE=0: one lone request
-                (padded prefill, B2), then 64 at once (packed prefill, B3),
-                and the stage split of a lone request and a batch of 32.
+                (padded prefill, B2), then 64 at once (packed prefill, B3,
+                each call given the stream's real count n_real < T), and
+                the stage split of a lone request and a batch of 32.
 7. parity     - a full-width f32 greedy engine at PREFIX_CACHE=1 answers a
                 lone request and a batch of 8 identically through the
                 kernels and through their plain versions, on the prefix
@@ -72,7 +76,8 @@ Phases, one JSON line each (with its seconds); any failure exits non-zero:
                 bf16 one of phase 5.
 12. serve_continuous - DECODE_MODE=continuous: the same three steps through
                 the processor and the decode pool, the pool's stats; then
-                PREFIX_CACHE=0, 32 at once (the packed pool prefill, B3).
+                PREFIX_CACHE=0, 32 at once (the packed pool prefill, B3,
+                with n_real < T).
 13. serve_tiny - MODEL_PRESET=tiny on the card (head size 16, and the same
                 preset widened to head size 32), f32, greedy: through the
                 kernels exactly as through their plain versions, on the
@@ -166,7 +171,9 @@ runs phases 1, 2 and the kernels phase's crossover alone, on two seeded
 corpora. `python3 chip_smoke.py --phases serve_spec,serve_pipeline` runs phases
 1, 2 and the named ones (of serve, parity, serve_spec, serve_checkpoint,
 serve_pipeline, serve_mesh, serve_mesh_cards, train, multihost,
-serve_native_front, serve_replicas) alone.
+serve_native_front, serve_replicas, attention) alone; `attention` is the
+kernels phase's B2 and B3 checks (copied into an older checkout, it times
+that checkout's kernels: an A/B in one call).
 `python3 chip_smoke.py --phases serve_mesh_cards` on a machine of several
 cards serves over meshes of them (one card, "N,1", "N/2,2"): the script's
 only multi-card measurement; the default run needs one card and leaves it
@@ -486,6 +493,27 @@ def _sdpa_ms(q, k, v, valid):
                                                               enable_gqa=True))
 
 
+def _kernel_device_ms(call, reps: int = 10):
+    """Mean device time a call spends in the flash kernels it launches
+    (torch.profiler's CUDA events of kernels named flash*, over reps calls
+    after a warm-up), apart from its other kernels and the host; None where
+    the profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "flash" in e.name
+             and not getattr(e, "is_user_annotation", False))
+    return us / reps / 1e3 if us > 0 else None
+
+
 def _attention_record(out, ref, real, tol, name) -> dict:
     diff = (out.float() - ref.float())[real].abs()
     err = diff.max().item()
@@ -529,6 +557,7 @@ def _check_flash(dev, dtype, tol, seed, b=32, s=512, padding="left", heads=(12, 
     require(not out[~real].any().item(), "flash_attention: fully masked rows are not 0")
     rec = _attention_record(out, ref, real, tol, f"flash_attention {dtype} {padding}-padded")
     ms = cuda_ms(lambda: att.flash_attention(q, k, v, mask), 10)
+    device_ms = _kernel_device_ms(lambda: att.flash_attention(q, k, v, mask))
     plain_ms = cuda_ms(lambda: att.flash_attention_plain(q, k, v, mask), 3)
     valid = mask.bool()[:, None, None, :] & torch.tril(torch.ones((s, s), dtype=torch.bool,
                                                                   device=dev))
@@ -537,7 +566,7 @@ def _check_flash(dev, dtype, tol, seed, b=32, s=512, padding="left", heads=(12, 
               + b * s * 4)
     return {"shape": [b, s, hq, hk, d], "dtype": str(dtype), "padding": padding,
             "real_keys": int(real_len.sum()), **rec,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention(bool mask, enable_gqa=True)",
             "library_error": library_error,
             **bound(nbytes, 4 * d * hq * pairs, "bf16" if dtype == torch.bfloat16 else "f32")}
@@ -590,8 +619,44 @@ def packed_lengths(seed: int, n_seg: int = 32, t: int = 8192) -> list:
             return lens.tolist()
 
 
+def _varlen_ms(q, k, v, lens: list):
+    """(library, ms, error) of one varlen_attn call over the segments of
+    `lens`, back to back from token 0 of the (1, T, H, D) q/k/v; (..., None,
+    error) where this PyTorch lacks it or its causal option."""
+    import numpy as np
+    import torch
+
+    library = "torch.nn.attention.varlen.varlen_attn"
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+    except ImportError as e:
+        return library, None, f"ImportError: {e}"
+    n = sum(lens)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32,
+                      device=q.device)
+    mx = max(lens)
+    sig = inspect.signature(varlen_attn)
+    causal = ({"is_causal": True} if "is_causal" in sig.parameters
+              else {"window_size": (-1, 0)} if "window_size" in sig.parameters else None)
+    if causal is None:
+        return library, None, f"varlen_attn{sig} takes no causal mask"
+    qs, ks, vs = q[0, :n], k[0, :n], v[0, :n]
+    ms, err = _timed_call(lambda: varlen_attn(qs, ks, vs, cu, cu, mx, mx, **causal))
+    return library, ms, err and f"varlen_attn{sig}: {err}"
+
+
 def _check_flash_packed(dev, dtype, tol, seed, t=8192, heads=(12, 2, 128), n_seg=32,
                         lens=None):
+    """B3 on a seeded (1, t) stream of segments and a pad tail, against its
+    plain version at the real tokens, under both contracts: n_real = T (every
+    row computed, the pad tail as a segment of its own) and the served one,
+    n_real = the real tokens (rows past it exactly 0). The record's ms,
+    plain_ms, library_ms and bound are the served contract's: the library
+    call runs varlen_attn over the real segments only (the same work), the
+    bound counts q, k, v and o of the real tokens plus the zero rows written;
+    the *_all_rows fields are the n_real = T contract's, its library call
+    over every segment, the pad tail's included. A checkout whose wrapper
+    takes no n_real gets the n_real = T contract's record alone."""
     import numpy as np
     import torch
     from rag_serving_system_torch.ops import attention as att
@@ -606,47 +671,51 @@ def _check_flash_packed(dev, dtype, tol, seed, t=8192, heads=(12, 2, 128), n_seg
     ref = att.flash_attention_packed_plain(q, k, v, seg)
     real = torch.zeros((1, t), dtype=torch.bool, device=dev)
     real[0, :n_real] = True
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    es = q.element_size()
+    pairs = sum(x * x + x for x in lens) // 2
 
     rec = _attention_record(att.flash_attention_packed(q, k, v, seg), ref, real, tol,
                             f"flash_attention_packed {dtype}")
     ms = cuda_ms(lambda: att.flash_attention_packed(q, k, v, seg), 10)
+    device_ms = _kernel_device_ms(lambda: att.flash_attention_packed(q, k, v, seg))
     plain_ms = cuda_ms(lambda: att.flash_attention_packed_plain(q, k, v, seg), 3)
-    # library_ms: varlen_attn where this PyTorch has it, else one SDPA call
-    # with the block-diagonal causal mask
-    library, library_ms, library_error = "torch.nn.attention.varlen.varlen_attn", None, None
-    try:
-        from torch.nn.attention.varlen import varlen_attn
-    except ImportError as e:
-        library_error = f"ImportError: {e}"
-    else:
-        all_lens = lens + ([t - n_real] if t > n_real else [])
-        cu = torch.tensor(np.concatenate([[0], np.cumsum(all_lens)]), dtype=torch.int32,
-                          device=dev)
-        mx = max(all_lens)
-        sig = inspect.signature(varlen_attn)
-        causal = ({"is_causal": True} if "is_causal" in sig.parameters
-                  else {"window_size": (-1, 0)} if "window_size" in sig.parameters else None)
-        if causal is None:
-            library_error = f"varlen_attn{sig} takes no causal mask"
-        else:
-            library_ms, library_error = _timed_call(
-                lambda: varlen_attn(q[0], k[0], v[0], cu, cu, mx, mx, **causal))
-            if library_error:
-                library_error = f"varlen_attn{sig}: {library_error}"
-    if library_ms is None:
+    all_lens = lens + ([t - n_real] if t > n_real else [])
+    library, library_ms, library_error = _varlen_ms(q, k, v, all_lens)
+    if library_ms is None:   # one SDPA call with the block-diagonal causal mask
         sg = seg[0]
         valid = ((sg[:, None] == sg[None, :])
                  & torch.tril(torch.ones((t, t), dtype=torch.bool, device=dev)))[None, None]
         library = "F.scaled_dot_product_attention(block-diagonal bool mask, enable_gqa=True)"
         library_ms, err2 = _sdpa_ms(q, k, v, valid)
         library_error = f"{library_error}; {err2}" if err2 else library_error
-    pairs = sum(x * (x + 1) // 2 for x in lens)
-    nbytes = t * (2 * hq + 2 * hk) * d * q.element_size() + t * 4
-    return {"t": t, "segments": len(lens), "real_tokens": n_real,
-            "sum_len_sq": int(sum(x * x for x in lens)), "dtype": str(dtype), **rec,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library": library,
-            "library_error": library_error,
-            **bound(nbytes, 4 * d * hq * pairs, "bf16" if dtype == torch.bfloat16 else "f32")}
+    whole = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+             "library_ms": library_ms, "library": library,
+             "library_error": library_error,
+             **bound(t * (2 * hq + 2 * hk) * d * es + t * 4, 4 * d * hq * pairs, kind)}
+    out = {"t": t, "segments": len(lens), "real_tokens": n_real,
+           "sum_len_sq": int(sum(x * x for x in lens)), "dtype": str(dtype), "heads": [hq, hk, d]}
+    if "n_real" not in inspect.signature(att.flash_attention_packed).parameters:
+        return {**out, "contract": "n_real = T", **rec, **whole}
+
+    served = att.flash_attention_packed(q, k, v, seg, n_real=n_real)
+    require(not served[:, n_real:].any().item(),
+            f"flash_attention_packed {dtype}: rows past n_real are not 0")
+    srec = _attention_record(served, ref, real, tol, f"flash_attention_packed {dtype} n_real")
+    s_ms = cuda_ms(lambda: att.flash_attention_packed(q, k, v, seg, n_real=n_real), 10)
+    s_device = _kernel_device_ms(lambda: att.flash_attention_packed(q, k, v, seg, n_real=n_real))
+    s_plain = cuda_ms(lambda: att.flash_attention_packed_plain(q, k, v, seg, n_real=n_real), 3)
+    s_library, s_library_ms, s_error = _varlen_ms(q, k, v, lens)
+    nbytes = n_real * (2 * hq + 2 * hk) * d * es + (t - n_real) * hq * d * es + n_real * 4
+    return {**out, "contract": "n_real", **srec, "ms": s_ms, "device_ms": s_device,
+            "plain_ms": s_plain,
+            "library_ms": s_library_ms, "library": f"{s_library} (real segments)",
+            "library_error": s_error, **bound(nbytes, 4 * d * hq * pairs, kind),
+            **{f"{key}_all_rows": val for key, val in rec.items()},
+            **{f"{key}_all_rows": val for key, val in whole.items()
+               if key not in ("library", "library_ms", "library_error")},
+            "library_all_segments_ms": library_ms, "library_all_segments": library,
+            "library_all_segments_error": library_error}
 
 
 def _int8_bound(n, d, b, k) -> dict:
@@ -782,32 +851,19 @@ def _check_probes(dev, seed):
     return records
 
 
-def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version. Returns the main-path record of
-    each (f32 retrieval at 1M docs; bf16 attention; int8 retrieval at 1M
-    docs; the probes on the f32 corpus)."""
+def check_attention(dev) -> dict:
+    """B2 and B3 against their plain versions at the kernels phase's shapes
+    (bf16 and f32); returns the main-path record of each name."""
     import torch
 
-    from rag_serving_system_torch.ops.topk import l2_normalize
-
     out = {}
-    for n in (1_000_000, 1000):  # the exact regime's scale; the served corpus
-        g = torch.Generator(device=dev).manual_seed(0)
-        corpus = l2_normalize(torch.randn((n, 1024), generator=g, device=dev))
-        queries = torch.randn((32, 1024), generator=g, device=dev)
-        for dtype in ((torch.float32, torch.bfloat16) if n > 1000 else (torch.float32,)):
-            c = corpus.to(dtype)
-            for k in ((16, 64, 256, 1024) if n > 1000 else (16,)):
-                r = _check_topk(c, queries, k, reps=20 if k == 16 else 5)
-                emit("kernel", name="cosine_topk", **r)
-                out.setdefault("cosine_topk", r)
-            del c
-        del corpus
-        torch.cuda.empty_cache()
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-4)):
         r = _check_flash(dev, dtype, tol, seed=1)
         emit("kernel", name="flash_attention", **r)
         out.setdefault("flash_attention", r)
+        # a mesh position's heads (serve_mesh: 6 query heads, 1 KV head)
+        emit("kernel", name="flash_attention",
+             **_check_flash(dev, dtype, tol, seed=17, heads=(6, 1, 128)))
         r = _check_flash_packed(dev, dtype, tol, seed=2)
         emit("kernel", name="flash_attention_packed", **r)
         out.setdefault("flash_attention_packed", r)
@@ -831,6 +887,32 @@ def phase_kernels(dev) -> dict:
             emit("kernel", name=f"flash_attention_packed[D={d}]", **r)
             out.setdefault(f"flash_attention_packed[D={d}]", r)
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernels(dev) -> dict:
+    """Each kernel against its plain version. Returns the main-path record of
+    each (f32 retrieval at 1M docs; bf16 attention; int8 retrieval at 1M
+    docs; the probes on the f32 corpus)."""
+    import torch
+
+    from rag_serving_system_torch.ops.topk import l2_normalize
+
+    out = {}
+    for n in (1_000_000, 1000):  # the exact regime's scale; the served corpus
+        g = torch.Generator(device=dev).manual_seed(0)
+        corpus = l2_normalize(torch.randn((n, 1024), generator=g, device=dev))
+        queries = torch.randn((32, 1024), generator=g, device=dev)
+        for dtype in ((torch.float32, torch.bfloat16) if n > 1000 else (torch.float32,)):
+            c = corpus.to(dtype)
+            for k in ((16, 64, 256, 1024) if n > 1000 else (16,)):
+                r = _check_topk(c, queries, k, reps=20 if k == 16 else 5)
+                emit("kernel", name="cosine_topk", **r)
+                out.setdefault("cosine_topk", r)
+            del c
+        del corpus
+        torch.cuda.empty_cache()
+    out.update(check_attention(dev))
     for r in _check_ragged_depths(dev, seed=12):
         emit("kernel", **r)
     one, wide, ten = _check_topk_int8(dev, seed=3)
@@ -1028,6 +1110,32 @@ def phase_serve(queries: list) -> tuple:
     return total, splits
 
 
+def b3_recorder():
+    """(a patch of qwen2's B3 that records each call's (n_real, T), the list
+    it fills): the packed steps must pass the stream's real count, below T
+    where the stream ends in a pad tail."""
+    from unittest import mock
+
+    from rag_serving_system_torch.models import qwen2
+
+    calls, b3 = [], qwen2.flash_attention_packed
+
+    def call(q, k, v, seg, n_real=None):
+        calls.append((n_real, q.shape[1]))
+        return b3(q, k, v, seg, n_real)
+    return mock.patch.object(qwen2, "flash_attention_packed", call), calls
+
+
+def require_b3_rows(phase: str, calls: list) -> list:
+    """Each B3 call of a packed step got n_real <= T, some below T; returns
+    the distinct (n_real, T) pairs."""
+    pairs = sorted(set(calls))
+    require(calls and all(n is not None and 0 < n <= t for n, t in calls)
+            and any(n < t for n, t in calls),
+            f"{phase}: B3 called with (n_real, T) {pairs}")
+    return [list(x) for x in pairs]
+
+
 def phase_serve_cold(queries: list) -> dict:
     """The full-width engine with PREFIX_CACHE=0 behind the queue and the
     batch processor: a lone request (padded prefill), 64 at once (packed).
@@ -1041,11 +1149,14 @@ def phase_serve_cold(queries: list) -> dict:
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     require(engine.prefix_cache is None, "PREFIX_CACHE=0 left the prefix cache on")
+    patch, b3_calls = b3_recorder()
     reset_launches()
-    r = _drive(processor, request_queue, queries[:65], 64)
+    with patch:
+        r = _drive(processor, request_queue, queries[:65], 64)
     launches = read_launches()
     emit("serve_cold", init_s=t_init, prefix_cache=False, **r, launches=launches,
-         batches=processor.batches_processed, stages=engine.timer.summary())
+         batches=processor.batches_processed, stages=engine.timer.summary(),
+         b3_n_real_and_t=require_b3_rows("serve_cold", b3_calls))
     require_launched("serve_cold", launches)
     for name in ("cosine_topk", "flash_attention"):   # B3 is this phase's own
         require(launches[name] > 0, f"kernel {name} never launched in serve_cold")
@@ -1683,10 +1794,12 @@ def phase_serve_continuous(queries: list) -> tuple:
     pool = engine.decode_pool
     require(engine.prefix_cache is None and pool is not None,
             "serve_continuous: PREFIX_CACHE=0 left the prefix cache on, or no pool")
+    patch, b3_calls = b3_recorder()
     reset_launches()
     processor.start()
     try:
-        _, seconds = _answered(request_queue, queries[65:97])
+        with patch:
+            _, seconds = _answered(request_queue, queries[65:97])
     finally:
         processor.stop(drain_timeout=10.0)
         processor.join(timeout=30)
@@ -1695,7 +1808,8 @@ def phase_serve_continuous(queries: list) -> tuple:
     layout = engine.stage_prompts(engine.prepare(queries[65:97], [2] * 32))[0]
     require(layout == "packed", f"serve_continuous: 32 cold prompts staged {layout}")
     emit("serve_continuous_packed", prefix_cache=False, requests=32, seconds=seconds,
-         launches=packed, pool=stats, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+         launches=packed, pool=stats, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         b3_n_real_and_t=require_b3_rows("serve_continuous", b3_calls))
     require(packed["flash_attention_packed"] > 0 and packed["cosine_topk"] > 0,
             f"serve_continuous: the packed pool prefill did not launch B3: {packed}")
     require(stats["inserted"] == stats["completed"] == 32,
@@ -3862,7 +3976,8 @@ def main() -> int:
             "serve_mesh": phase_serve_mesh, "serve_mesh_cards": phase_serve_mesh_cards,
             "train": phase_train, "multihost": phase_multihost,
             "serve_native_front": phase_serve_native_front,
-            "serve_replicas": phase_serve_replicas}
+            "serve_replicas": phase_serve_replicas,
+            "attention": lambda _queries: check_attention(resolve_device("cuda"))}
     if sys.argv[1:] in (["--stage-split"], ["--crossover"]) or (
             sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3
             and set(sys.argv[2].split(",")) <= set(only)):

@@ -746,8 +746,11 @@ class RagEngine:
     def _stage_packed(self, rows: list, n: int, t: int, budgets: np.ndarray):
         """The packed layout: rows back to back in one (1, T) stream. Stages
         a (3, T) [ids | seg | pos] stream, the (cap, P) gather map (-1 =
-        empty slot), (cap,) last-token indices (-1 = pad row) and the (cap,)
-        per-row budgets, on the device and on the host."""
+        empty slot), (cap,) last-token indices (-1 = pad row), the count of
+        real rows, the count of real tokens at the head of the stream (a
+        host int: B3 computes no pad-tail row, and nothing reads one back
+        from the device) and the (cap,) per-row budgets, on the device and
+        on the host."""
         cap = self.batch_buckets[-1]
         p = self.packed_p
         rows = [r[-p:] for r in rows[:n]]          # left-truncate over-long
@@ -766,7 +769,7 @@ class RagEngine:
             last[b] = off + ln - 1
             off += ln
         return ("packed", self._put_batch(stream), self._put_batch(gather),
-                self._put_batch(last), n,
+                self._put_batch(last), n, off,
                 (self._put_batch(budgets), tuple(int(x) for x in budgets)))
 
     def _prefix_tokens(self, key, prefix_text: str) -> list:
@@ -878,11 +881,11 @@ class RagEngine:
                       dtype=self.dtype, eos_bias=s.eos_bias, act_quant=self.act_quant,
                       spec_gamma=self.spec_gamma)
         if staged[0] == "packed":
-            _, stream, gather, last, n, bud = staged
+            _, stream, gather, last, n, n_real, bud = staged
             toks = generate_packed(
                 self.dec_params, self.dec_cfg, *self._packed_args(stream, gather, last),
                 row_valid=last >= 0, row_budget=bud[0], generator=self._generators[(0, 0)],
-                loop_stats=self.loop_stats, **common)
+                loop_stats=self.loop_stats, n_real=n_real, **common)
             return toks, n
         _, ids, mask, row_valid, n, metas, bud = staged
         prefix_slots, prefix_len = self._staged_prefixes(metas)
@@ -932,10 +935,10 @@ class RagEngine:
         common = dict(do_sample=s.do_sample, dtype=self.dtype,
                       act_quant=self.act_quant, eos_bias=s.eos_bias)
         if staged[0] == "packed":
-            _, stream, gather, last, n, _bud = staged
+            _, stream, gather, last, n, n_real, _bud = staged
             tok0, k, v, cmask = prefill_packed_for_pool(
                 self.dec_params, self.dec_cfg, *self._packed_args(stream, gather, last),
-                row_valid=last >= 0, generator=generator[(0, 0)], **common)
+                row_valid=last >= 0, generator=generator[(0, 0)], n_real=n_real, **common)
             return tok0, [k], [v], cmask, n
         _, ids, mask, row_valid, n, metas, _bud = staged
         prefix_slots, prefix_len = self._staged_prefixes(metas)

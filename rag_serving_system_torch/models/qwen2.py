@@ -625,14 +625,17 @@ def prefill_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
                    last_idx: torch.Tensor, gather_idx: torch.Tensor,
                    prompt_mask: torch.Tensor, max_new_tokens: int,
                    dtype=torch.bfloat16,
-                   act_quant: bool = False) -> tuple[torch.Tensor, KVCache]:
+                   act_quant: bool = False,
+                   n_real: int | None = None) -> tuple[torch.Tensor, KVCache]:
     """Packed prefill: the batch's real tokens back to back in one (1, T)
     stream (`seg` ascending row ids, the pad tail last), attention through
     kernel B3. The per-token K/V is then unpacked into the usual left-padded
     (L, B, P + max_new_tokens, Hk, D) cache, slot [b, p] reading stream
     position gather_idx[b, p] and zeroed where prompt_mask is 0, so decode is
-    the padded path's. Returns (each row's last-token logits (B, V) f32,
-    cache)."""
+    the padded path's. n_real: the count of real tokens at the head of the
+    stream, a host int (None: all T); B3 computes no pad-tail row (its
+    attention output is 0), which no real row, gathered slot or last-token
+    logit reads. Returns (each row's last-token logits (B, V) f32, cache)."""
     b, p = gather_idx.shape
     t = input_ids.shape[1]
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=input_ids.device)
@@ -642,7 +645,7 @@ def prefill_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
     keep = prompt_mask.reshape(b, p, 1, 1).to(dtype)
 
     def attend(q, k, v):
-        return flash_attention_packed(q, k, v, seg)
+        return flash_attention_packed(q, k, v, seg, n_real)
 
     for i in range(cfg.num_layers):
         x, k, v = _layer_forward(_layer(params, i), cfg, x, positions, inv_freq,
@@ -664,15 +667,18 @@ def generate_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
                     row_budget: torch.Tensor | None = None,
                     eos_bias: float = 0.0, act_quant: bool = False,
                     spec_gamma: int = 0,
-                    loop_stats: dict | None = None) -> torch.Tensor:
+                    loop_stats: dict | None = None,
+                    n_real: int | None = None) -> torch.Tensor:
     """Packed prefill (B3) + the padded path's decode; same contract as
     `generate`. The speculative loop's history is each row's ids, rebuilt
-    from the packed stream through `gather_idx`."""
+    from the packed stream through `gather_idx`. n_real: as in
+    `prefill_packed`."""
     use_spec = spec_gamma > 0 and not do_sample and max_new_tokens > 1
     alloc = max_new_tokens + (spec_gamma if use_spec else 0)
     logits0, cache = prefill_packed(params, cfg, input_ids, seg, positions,
                                     last_idx, gather_idx, prompt_mask,
-                                    alloc, dtype=dtype, act_quant=act_quant)
+                                    alloc, dtype=dtype, act_quant=act_quant,
+                                    n_real=n_real)
     p = gather_idx.shape[1]
     if use_spec:
         row_ids = torch.where(prompt_mask > 0, input_ids[0][gather_idx.long()],
@@ -732,12 +738,13 @@ def prefill_packed_for_pool(params: dict, cfg: DecoderConfig, input_ids: torch.T
                             temperature: float = 0.7, top_k: int = 20,
                             top_p: float = 0.8, do_sample: bool = True,
                             dtype=torch.bfloat16, row_valid: torch.Tensor | None = None,
-                            act_quant: bool = False, eos_bias: float = 0.0):
+                            act_quant: bool = False, eos_bias: float = 0.0,
+                            n_real: int | None = None):
     """Packed-prefill variant of `prefill_for_pool`: returns (tok0 (B,), k
-    (L, B, P, Hk, D), v, prompt_mask)."""
+    (L, B, P, Hk, D), v, prompt_mask). n_real: as in `prefill_packed`."""
     logits0, cache = prefill_packed(params, cfg, input_ids, seg, positions, last_idx,
                                     gather_idx, prompt_mask, 0, dtype=dtype,
-                                    act_quant=act_quant)
+                                    act_quant=act_quant, n_real=n_real)
     tok0 = _first_token(cfg, logits0, generator, do_sample, temperature, top_k,
                         top_p, eos_bias, row_valid)
     return tok0, cache.k, cache.v, prompt_mask

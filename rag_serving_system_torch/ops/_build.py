@@ -44,7 +44,7 @@ _SIGNATURES = {
     "rag_dot_probe": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "rag_dot_probe_int8_info": [_I, _P],
     "rag_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, ctypes.c_float, _P],
+                            _I, _I, _I, ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()

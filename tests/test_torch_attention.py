@@ -93,6 +93,45 @@ def test_packed_matches_pallas_and_reference(lens, t, max_seg):
     np.testing.assert_allclose(ours[0, :n_real], np.asarray(ref)[0, :n_real], **TOL)
 
 
+@pytest.mark.parametrize("lens,t,max_seg", [
+    ([300, 150, 260, 200], 1024, 512),   # pad tail of 114
+    ([37, 1, 90, 64, 5], 256, 128),      # pad tail of 59
+])
+def test_packed_n_real_zeroes_the_pad_tail(lens, t, max_seg):
+    """With n_real (the real tokens at the head of the stream) the plain
+    version is 0 past it; before it, it equals the Pallas kernel and the
+    einsum reference to TOL, and the call without n_real bit for bit."""
+    q, k, v, seg, n_real = _packed(4, lens, t)
+    args = [torch.tensor(x) for x in (q, k, v, seg)]
+    ours = ta.flash_attention_packed_plain(*args, n_real=n_real).numpy()
+    assert not ours[0, n_real:].any()
+    pallas = ja.flash_attention_packed(*map(jnp.asarray, (q, k, v, seg)),
+                                       max_seg_len=max_seg, blk_q=128, blk_k=128,
+                                       interpret=True)
+    ref = ja.packed_attention_reference(*map(jnp.asarray, (q, k, v, seg)))
+    np.testing.assert_allclose(ours[0, :n_real], np.asarray(pallas)[0, :n_real], **TOL)
+    np.testing.assert_allclose(ours[0, :n_real], np.asarray(ref)[0, :n_real], **TOL)
+    whole = ta.flash_attention_packed_plain(*args).numpy()
+    np.testing.assert_array_equal(ours[0, :n_real], whole[0, :n_real])
+    assert whole[0, n_real:].any()                 # the pad tail, computed without it
+    # the wrapper takes the plain version on the CPU, n_real and all
+    np.testing.assert_array_equal(ta.flash_attention_packed(*args, n_real=n_real).numpy(),
+                                  ours)
+
+
+def test_packed_n_real_bounds():
+    """n_real = T is the call without it, n_real = 0 gives zeros, and a count
+    outside [0, T] is refused."""
+    q, k, v, seg, _ = _packed(5, [20, 30], 64)
+    args = [torch.tensor(x) for x in (q, k, v, seg)]
+    np.testing.assert_array_equal(ta.flash_attention_packed(*args, n_real=64).numpy(),
+                                  ta.flash_attention_packed(*args).numpy())
+    assert not ta.flash_attention_packed(*args, n_real=0).any()
+    for bad in (-1, 65):
+        with pytest.raises(ValueError):
+            ta.flash_attention_packed(*args, n_real=bad)
+
+
 def test_packed_equals_padded_per_row():
     """Each packed row attends exactly as the same row alone, causally."""
     lens = [20, 33, 7]

@@ -601,6 +601,80 @@ def test_flash_kernel_matches_plain_under_right_padding(dev, dtype, tol, b, s):
     assert out[:, 0].float().abs().sum().item() > 0      # query 0 sees key 0
 
 
+# the bf16 wgmma body at every group size G = Hq / Hk the wrapper meets: 1
+# (the tests' (4, 4)), 2 (the tiny preset's (4, 2)), 4 ((8, 2) at D = 64), 6
+# (the served (12, 2) and a mesh position's (6, 1))
+WG_HEADS = [(4, 4), (4, 2), (8, 2), (12, 2), (6, 1)]
+
+
+@pytest.mark.parametrize("padding", ["left", "right"])
+@pytest.mark.parametrize("s", [77, 300])
+@pytest.mark.parametrize("hq,hk", WG_HEADS)
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_wgmma_body_matches_plain(dev, d, hq, hk, s, padding):
+    """B2's bf16 body (a CTA serves every query head of its KV head) within
+    2e-2 of the plain version at real positions, with S not a multiple of
+    the 64-key tile, under left and right padding; a batch row with every
+    key masked and the left-padded rows with no visible key come out
+    exactly 0."""
+    b = 3
+    q = _randn(dev, (b, s, hq, d), 41, torch.bfloat16)
+    k = _randn(dev, (b, s, hk, d), 42, torch.bfloat16)
+    v = _randn(dev, (b, s, hk, d), 43, torch.bfloat16)
+    mask = (_left_padded_mask(dev, b, s, s + hq) if padding == "left"
+            else _right_padded_mask(dev, b, s, s + hq))
+    mask[-1] = 0                                      # a row with every key masked
+    before = ta.flash_attention.launches
+    out = ta.flash_attention(q, k, v, mask)
+    assert ta.flash_attention.launches == before + 1
+    ref = ta.flash_attention_plain(q, k, v, mask)
+    visible = mask.bool()[:, None, :] & torch.tril(
+        torch.ones((s, s), dtype=torch.bool, device=dev))
+    live = visible.any(-1)                            # (B, S): some key visible
+    assert (out.float() - ref.float())[live].abs().max().item() <= 2e-2
+    assert not out[~live].any()
+    assert not out[-1].any() and out[0][live[0]].float().abs().sum().item() > 0
+
+
+def _packed_stream(dev, lens, t):
+    seg = torch.full((1, t), len(lens), dtype=torch.int32, device=dev)
+    seg[0, :sum(lens)] = torch.repeat_interleave(
+        torch.arange(len(lens), device=dev), torch.tensor(lens, device=dev)).int()
+    return seg
+
+
+@pytest.mark.parametrize("dtype,d,hq,hk", [
+    *[(torch.bfloat16, d, hq, hk) for d in (64, 128) for hq, hk in WG_HEADS],
+    (torch.float32, 128, 12, 2), (torch.float32, 64, 4, 4),      # the f32 body
+    (torch.bfloat16, 16, 4, 2), (torch.float32, 32, 8, 2),       # the narrow heads
+])
+def test_flash_packed_n_real_matches_plain(dev, dtype, d, hq, hk):
+    """B3 with n_real < T, the pad tail (700 tokens) spanning several query
+    blocks of every body: the real rows within the tolerance of the plain
+    version (2e-2 bf16, 2e-4 f32), every row past n_real exactly 0; with
+    n_real = T (None) every row, the pad tail's too, against the plain
+    version; n_real = 0 launches nothing and gives zeros."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    lens = [300, 1, 150, 64, 260, 77]
+    n, t = sum(lens), sum(lens) + 700
+    seg = _packed_stream(dev, lens, t)
+    q = _randn(dev, (1, t, hq, d), 44, dtype)
+    k = _randn(dev, (1, t, hk, d), 45, dtype)
+    v = _randn(dev, (1, t, hk, d), 46, dtype)
+    before = ta.flash_attention_packed.launches
+    out = ta.flash_attention_packed(q, k, v, seg, n_real=n)
+    assert ta.flash_attention_packed.launches == before + 1
+    ref = ta.flash_attention_packed_plain(q, k, v, seg, n_real=n)
+    assert not out[:, n:].any() and not ref[:, n:].any()
+    assert (out[:, :n].float() - ref[:, :n].float()).abs().max().item() <= tol
+    whole = ta.flash_attention_packed(q, k, v, seg)
+    ref_whole = ta.flash_attention_packed_plain(q, k, v, seg)
+    assert (whole.float() - ref_whole.float()).abs().max().item() <= tol
+    assert torch.equal(whole[:, :n], out[:, :n])
+    assert not ta.flash_attention_packed(q, k, v, seg, n_real=0).any()
+    assert ta.flash_attention_packed.launches == before + 2
+
+
 @pytest.mark.parametrize("int8", [False, True], ids=["compute", "int8"])
 def test_prefix_pool_gather_returns_inserted_bits_across_growth(dev, int8):
     """The pool on the card at the served entry shape (28 layers, 2 kv heads

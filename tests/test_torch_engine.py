@@ -29,6 +29,7 @@ from rag_serving_system_torch import config as port_config  # noqa: E402
 from rag_serving_system_torch.core import engine as port_engine  # noqa: E402
 from rag_serving_system_torch.core.batch_processor import BatchProcessor  # noqa: E402
 from rag_serving_system_torch.core.request_queue import make_queue  # noqa: E402
+from rag_serving_system_torch.models import qwen2 as port_qwen2  # noqa: E402
 from rag_serving_system_torch.models.weights import (  # noqa: E402
     ivf_index_from_jax,
     params_from_jax,
@@ -101,6 +102,31 @@ def test_engine_matches_jax(engines, n):
     ours = te.process(qs, ks)
     assert ours == je.process(qs, ks)
     assert all(r["result"] for r in ours)
+
+
+def test_packed_batch_passes_its_real_count_to_b3(engines, monkeypatch):
+    """A cold packed batch stages the count of its real tokens, a host int
+    below T, and every B3 call of its prefill gets it; greedy f32 answers
+    are the JAX engine's, as with every row computed. The padded-only
+    engine stages the batch padded and calls no B3."""
+    je, te = engines
+    qs, ks = QUERIES, [2] * 4
+    staged = te.stage_prompts(te.prepare(qs, ks))
+    calls, b3 = [], port_qwen2.flash_attention_packed
+
+    def recorded(q, k, v, seg, n_real=None):
+        calls.append(n_real)
+        return b3(q, k, v, seg, n_real)
+    monkeypatch.setattr(port_qwen2, "flash_attention_packed", recorded)
+    ours = te.finalize_tokens(te.generate_tokens(staged=staged))
+    assert ours == je.finalize_tokens(je.generate_tokens(je.prepare(qs, ks)))
+    if not te.packed:
+        assert staged[0] == "padded" and not calls
+        return
+    assert staged[0] == "packed"
+    n_real, t = staged[5], staged[1].shape[1]
+    assert isinstance(n_real, int) and 0 < n_real < t
+    assert calls == [n_real] * te.dec_cfg.num_layers
 
 
 def test_request_budgets_match_jax(engines):

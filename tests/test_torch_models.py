@@ -117,6 +117,32 @@ def test_prefill_packed_logits_match_jax(dec):
     np.testing.assert_allclose(ours[:3].numpy(), padded.numpy(), atol=1e-4, rtol=1e-4)
 
 
+def test_prefill_packed_n_real_leaves_real_tokens_bit_identical(dec):
+    """prefill_packed told the stream's real count (B3 computes no pad-tail
+    row) gives the same last-token logits and the same gathered cache as
+    without it, bit for bit in f32, and the JAX package's logits within the
+    existing tolerance: no real token reads a pad row."""
+    jp, tp = dec
+    ids, mask = _left_padded(2, 3, 24, [24, 5, 17])
+    args = _pack(ids, mask, 64, cap=4)
+    n_real = int(mask.sum())
+    targs = [torch.tensor(x) for x in args[:6]]
+    ours, cache = tq.prefill_packed(tp, QWEN2_TINY, *targs, 4, n_real=n_real, **T32)
+    whole, cache_whole = tq.prefill_packed(tp, QWEN2_TINY, *targs, 4, **T32)
+    assert n_real < 64
+    assert torch.equal(ours, whole)
+    assert torch.equal(cache.k, cache_whole.k) and torch.equal(cache.v, cache_whole.v)
+    ref, _ = jq.prefill_packed(jp, QWEN2_TINY, *map(jnp.asarray, args[:6]), 4,
+                               max_seg_len=24, **F32)
+    np.testing.assert_allclose(ours[:3].numpy(), np.asarray(ref)[:3], atol=1e-4, rtol=1e-4)
+    toks = tq.generate_packed(tp, QWEN2_TINY, *targs, None, max_new_tokens=8,
+                              do_sample=False, row_valid=torch.tensor(args[6]),
+                              n_real=n_real, **T32)
+    assert torch.equal(toks, tq.generate_packed(tp, QWEN2_TINY, *targs, None,
+                                                max_new_tokens=8, do_sample=False,
+                                                row_valid=torch.tensor(args[6]), **T32))
+
+
 @pytest.mark.parametrize("int8", [False, True], ids=["compute", "int8"])
 def test_prefill_over_a_cached_prefix_fills_the_jax_cache(dec, int8):
     """Prefill of a suffix over a cached prefix (the JAX package's entry,
