@@ -1,0 +1,12 @@
+"""Rows a batch over the window: the change in requests_processed over the change in batches_processed."""
+
+from perfbench import readers
+
+LAYER = "batch processor (core/batch_processor.py, core/request_queue.py)"
+SOURCE = "program_counter"
+MOVES = "latency_p95_s"
+UNIT = "rows"
+
+
+def read(run):
+    return readers.rows_per_batch(run)
