@@ -1991,9 +1991,9 @@ def _count_loops(engine) -> list:
     real = engine.generate_tokens
 
     def call(prompts=None, staged=None):
-        before = engine.loop_stats["iters"]
+        before = engine.timer.counts["decode"]
         handle = real(prompts, staged=staged)
-        log.append((engine.loop_stats["iters"] - before, handle))
+        log.append((engine.timer.counts["decode"] - before, handle))
         return handle
 
     engine.generate_tokens = call
@@ -2205,7 +2205,6 @@ def _spec_loop_times(engine, queries: list, mnts=(10, 32), reps: int = 3) -> dic
             for _ in range(reps + 1):
                 for name, (gamma, src) in cases.items():
                     logits0, kv = qwen2.prefill(params, cfg, ids, mask, mnt + gamma, dtype=dtype)
-                    stats = {}
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     if gamma:
@@ -2213,9 +2212,8 @@ def _spec_loop_times(engine, queries: list, mnts=(10, 32), reps: int = 3) -> dic
                                                            gamma, dtype, None, p, ids,
                                                            draft_source=src)
                     else:
-                        qwen2._decode_loop(params, cfg, logits0, kv, mask, None, mnt, 0.7, 20,
-                                           0.8, False, dtype, None, p, loop_stats=stats)
-                        iters = stats["iters"]
+                        _, iters = qwen2._decode_loop(params, cfg, logits0, kv, mask, None,
+                                                      mnt, 0.7, 20, 0.8, False, dtype, None, p)
                     torch.cuda.synchronize()
                     seen[name].append(((time.perf_counter() - t0) * 1e3, iters))
                     del kv
@@ -2323,11 +2321,11 @@ def _parity_spec(engine, cases: dict) -> None:
         seq, gaps = _top2_gaps(engine, prompts)
         if cache is not None and engine.prefix_cache is not None and "miss" in name:
             cache.clear()
-        before = dict(engine.loop_stats)
+        before = engine.timer.counts["decode"]
         with mock.patch.object(engine, "spec_gamma", gamma):
             toks, n = engine.generate_tokens(prompts)
         spec = toks[:n].cpu()
-        iters = engine.loop_stats["iters"] - before["iters"]
+        iters = engine.timer.counts["decode"] - before
         differ = (spec != seq)
         first = [int(row.nonzero()[0]) if row.any() else None for row in differ]
         excused = all(f is None or gaps[r, :f + 1].min() < GAP_THRESHOLD

@@ -11,7 +11,10 @@ front (`api/native_front.py`) serves beside it, its counters appear in
 - GET  /metrics            → Prometheus text
 - GET  /stats              → queue, batch and stage counters as JSON
 
-Malformed bodies get HTTP 422 with the validation errors.
+Malformed bodies get HTTP 422 with the validation errors. With an engine,
+each accepted POST /rag records its `http` span in the engine's stage timer:
+the handler's own time, from accept to enqueued, plus from the result stored
+(or the wait's end) to the response handed back.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import asyncio
 import os
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 from aiohttp import web
@@ -52,8 +56,10 @@ def create_api(request_queue, processor=None, engine=None,
     front_g = Gauge("rag_native_front", "Native front counters",
                     ["counter"], registry=registry)
     front = getattr(request_queue, "_front", None)   # FrontQueue proxy
+    timer = getattr(engine, "timer", None)
 
     async def rag_endpoint(request: web.Request) -> web.Response:
+        t_accept = time.time_ns()
         try:
             payload = QueryRequest.model_validate(await request.json())
         except (ValidationError, ValueError) as e:
@@ -66,6 +72,7 @@ def create_api(request_queue, processor=None, engine=None,
         request_id = request_queue.add_request(payload.query, payload.k,
                                                payload.max_new_tokens)
         requests_total_c.inc()
+        t_queued = t_back = time.time_ns()
         # POST /rag?wait=SECONDS holds the connection and returns the
         # completed result in the same exchange; wait=0 (the default) keeps
         # the submit-then-poll protocol
@@ -73,13 +80,20 @@ def create_api(request_queue, processor=None, engine=None,
             wait = min(float(request.query.get("wait", 0)), 30.0)
         except ValueError:
             wait = 0.0
+        result = None
         if wait > 0:
-            result = await _await_result(request_id, wait)
-            if result is not None:
-                return web.json_response(
-                    {"request_id": request_id, "status": "complete",
-                     "result": result})
-        return web.json_response({"request_id": request_id, "status": "processing"})
+            result, t_back = await _await_result(request_id, wait)
+        if result is not None:
+            resp = web.json_response({"request_id": request_id, "status": "complete",
+                                      "result": result})
+        else:
+            resp = web.json_response({"request_id": request_id, "status": "processing"})
+        if timer is not None:
+            # two logged pieces, one request
+            timer.add("http", (t_queued - t_accept) * 1e-9, n=0, start_ns=t_accept,
+                      id=request_id)
+            timer.add("http", (time.time_ns() - t_back) * 1e-9, start_ns=t_back, id=request_id)
+        return resp
 
     # in-memory backend: push notification, no thread held per waiter
     supports_push = hasattr(request_queue, "add_result_callback")
@@ -91,12 +105,18 @@ def create_api(request_queue, processor=None, engine=None,
     long_wait_gate = None if supports_push else asyncio.Semaphore(192)
 
     async def _await_result(request_id: str, timeout: float):
+        """(the result or None, time.time_ns() when it was stored, or when
+        the wait ended without it or learned of it by a poll)."""
         if supports_push:
             loop = asyncio.get_running_loop()
             fut: asyncio.Future = loop.create_future()
-            # runs on the processor thread: hop back to the event loop
-            cb = lambda: loop.call_soon_threadsafe(  # noqa: E731
-                lambda: fut.done() or fut.set_result(True))
+            stored = []
+
+            def cb():
+                # runs on the storing thread: hop back to the event loop
+                stored.append(time.time_ns())
+                loop.call_soon_threadsafe(lambda: fut.done() or fut.set_result(True))
+
             result = request_queue.add_result_callback(request_id, cb)
             if result is None:
                 try:
@@ -107,17 +127,19 @@ def create_api(request_queue, processor=None, engine=None,
                     # needed on timeout and on client-disconnect cancellation
                     request_queue.cancel_result_callback(request_id, cb)
                 result = request_queue.get_result(request_id, timeout=0)
-            return result
+            return result, stored[0] if stored else time.time_ns()
         if timeout > 0.5:
             if long_wait_gate.locked():
                 timeout = 0.1
             else:
                 async with long_wait_gate:
-                    return await asyncio.get_event_loop().run_in_executor(
+                    result = await asyncio.get_event_loop().run_in_executor(
                         poll_pool,
                         lambda: request_queue.get_result(request_id, timeout))
-        return await asyncio.get_event_loop().run_in_executor(
+                return result, time.time_ns()
+        result = await asyncio.get_event_loop().run_in_executor(
             poll_pool, lambda: request_queue.get_result(request_id, timeout))
+        return result, time.time_ns()
 
     async def get_result(request: web.Request) -> web.Response:
         request_id = request.match_info["request_id"]
@@ -126,7 +148,7 @@ def create_api(request_queue, processor=None, engine=None,
             timeout = min(float(request.query.get("timeout", 0.1)), 30.0)
         except ValueError:
             timeout = 0.1
-        result = await _await_result(request_id, timeout)
+        result, _ = await _await_result(request_id, timeout)
         if result is None:
             return web.json_response({"status": "processing"})
         return web.json_response({"status": "complete", "result": result})
@@ -204,7 +226,7 @@ class ServerThread:
         self.port = port
         self._loop = asyncio.new_event_loop()
         self._started = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread = threading.Thread(target=self._run, daemon=True, name="http")
 
     def _run(self) -> None:
         asyncio.set_event_loop(self._loop)

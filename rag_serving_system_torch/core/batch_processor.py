@@ -26,6 +26,14 @@ host every step), so the finalize worker hides the token copy, detokenizing
 and the store, not device time. The stage-1 workers send their encoder and
 top-k launches onto the same stream from their own threads and take the
 interpreter lock from the decode loop while they do.
+
+The engine's stage timer (`utils/timing.py`) gets each dequeued request's
+`queue_wait` (its enqueue timestamp to the dequeue; an item without one is
+not timed) and the `generate` and `finalize` spans. A batch is numbered
+once (`StageTimer.number`), where stage 1 dequeues it, and the number goes
+with it to staging, generation and finalize, so that its spans on every
+thread carry it; a stage-1 batch that is split into several stage-2 groups
+gives each group a number of its own.
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ DEFAULT_PREFETCH_WORKERS = 1
 class BatchProcessor(threading.Thread):
     def __init__(self, request_queue, engine, polling_interval: float = 0.3,
                  prefetch: bool = True, length_aware: bool = True):
-        super().__init__(daemon=True)
+        super().__init__(daemon=True, name="stage-2")
         self.request_queue = request_queue
         self.engine = engine
         self.polling_interval = polling_interval
@@ -72,7 +80,7 @@ class BatchProcessor(threading.Thread):
         depth = int(os.environ.get("READY_DEPTH", "1"))
         self._ready: "queue.Queue[tuple]" = queue.Queue(
             maxsize=0 if depth == 0 else max(depth, self.prefetch_workers))
-        self._pending = None          # deferred (batch, token handle)
+        self._pending = None          # deferred (batch, token handle, batch number)
         # the bounded queue is the pipeline's backpressure: at most
         # FINALIZE_DEPTH generated batches await their delivery
         self.finalize_async = os.environ.get("FINALIZE_ASYNC", "1") == "1"
@@ -110,6 +118,31 @@ class BatchProcessor(threading.Thread):
         timer = getattr(self.engine, "timer", None)
         return timer.stage(stage) if timer is not None else contextlib.nullcontext()
 
+    def _number(self, batch: list) -> int | None:
+        """A new batch number for `batch` (None without a timer)."""
+        timer = getattr(self.engine, "timer", None)
+        return timer.number([req["id"] for req in batch]) if timer is not None else None
+
+    def _numbered(self, number: int | None):
+        """Tag the spans this thread records in the block with `number`."""
+        timer = getattr(self.engine, "timer", None)
+        if timer is None or number is None:
+            return contextlib.nullcontext()
+        return timer.batch(number)
+
+    def _dequeued(self, batch: list) -> list:
+        """Time each request's wait in the queue (`queue_wait`), now that it
+        is dequeued."""
+        timer = getattr(self.engine, "timer", None)
+        if timer is not None:
+            now = time.time_ns()
+            for req in batch:
+                ts = req.get("timestamp")
+                if ts:
+                    start = int(ts * 1e9)
+                    timer.add("queue_wait", (now - start) * 1e-9, start_ns=start, id=req["id"])
+        return batch
+
     def _store(self, batch: list, results: list) -> None:
         for req, res in zip(batch, results):
             try:
@@ -141,7 +174,7 @@ class BatchProcessor(threading.Thread):
         so no request starves."""
         while self.running:
             try:
-                batch = self.request_queue.get_batch()
+                batch = self._dequeued(self.request_queue.get_batch())
             except Exception:  # e.g. Redis down: keep polling
                 logger.exception("get_batch failed")
                 batch = []
@@ -154,11 +187,13 @@ class BatchProcessor(threading.Thread):
                 cap = getattr(self.request_queue, "max_batch_size", len(batch))
                 if (self.length_aware and len(batch) == cap
                         and self.request_queue.queue_size() >= cap):
-                    batch += self.request_queue.get_batch()
-                prompts = self.engine.prepare(
-                    [req["query"] for req in batch],
-                    [req.get("k", 2) for req in batch],
-                    [req.get("max_new_tokens") for req in batch])
+                    batch += self._dequeued(self.request_queue.get_batch())
+                number = self._number(batch)
+                with self._numbered(number):
+                    prompts = self.engine.prepare(
+                        [req["query"] for req in batch],
+                        [req.get("k", 2) for req in batch],
+                        [req.get("max_new_tokens") for req in batch])
                 stage = (getattr(self.engine, "stage_prompts", None)
                          if self.stage_on_prefetch else None)
                 if len(batch) > cap:
@@ -181,7 +216,10 @@ class BatchProcessor(threading.Thread):
                 for n_done, grp in enumerate(groups):
                     gb, gp = [batch[i] for i in grp], [prompts[i] for i in grp]
                     try:
-                        self._put_ready((gb, gp, stage(gp) if stage else None))
+                        num = number if len(groups) == 1 else self._number(gb)
+                        with self._numbered(num):
+                            staged = stage(gp) if stage else None
+                        self._put_ready((gb, gp, staged, num))
                     except Exception:
                         # the groups already handed on are stage 2's: fail
                         # only this one and those after it
@@ -207,8 +245,8 @@ class BatchProcessor(threading.Thread):
             try:
                 if item is None:
                     return
-                batch, handle, t0 = item
-                self._finalize_and_store(batch, handle)
+                batch, handle, t0, number = item
+                self._finalize_and_store(batch, handle, number)
                 # generation start → delivered, of this batch (the /stats gauge)
                 self.last_batch_seconds = time.time() - t0
                 self.batches_processed += 1
@@ -228,20 +266,21 @@ class BatchProcessor(threading.Thread):
                     self.prefetch_workers, self.finalize_async,
                     "continuous" if pool is not None else "fixed")
         if self.prefetch:
-            for _ in range(self.prefetch_workers):
-                t = threading.Thread(target=self._prefetch_loop, daemon=True)
+            for i in range(self.prefetch_workers):
+                t = threading.Thread(target=self._prefetch_loop, daemon=True,
+                                     name=f"stage-1-{i}")
                 t.start()
                 self._prefetchers.append(t)
             if self.finalize_async:
                 self._finalizer = threading.Thread(target=self._finalize_loop,
-                                                   daemon=True)
+                                                   daemon=True, name="finalize")
                 self._finalizer.start()
         while self.running:
             try:
                 t0 = time.time()
                 if self.prefetch:
                     try:
-                        batch, prompts, staged = self._ready.get(
+                        batch, prompts, staged, number = self._ready.get(
                             timeout=self.polling_interval)
                     except queue.Empty:
                         # idle: deliver a deferred batch now, so that latency
@@ -250,11 +289,11 @@ class BatchProcessor(threading.Thread):
                         continue
                     self._busy = True
                     try:
-                        self._generate_and_store(batch, prompts, staged)
+                        self._generate_and_store(batch, prompts, staged, number)
                     finally:
                         self._ready.task_done()   # pairs with put(): drain accounting
                 else:
-                    batch = self.request_queue.get_batch()
+                    batch = self._dequeued(self.request_queue.get_batch())
                     if not batch:
                         time.sleep(self.polling_interval)
                         continue
@@ -311,7 +350,8 @@ class BatchProcessor(threading.Thread):
                 return
         pool.submit([req["id"] for req in batch], prompts, deliver, staged=staged)
 
-    def _generate_and_store(self, batch: list, prompts: list, staged=None) -> None:
+    def _generate_and_store(self, batch: list, prompts: list, staged=None,
+                            number: int | None = None) -> None:
         """Stage 2: generate this batch, then hand its tokens to the finalize
         worker (async mode), or deliver the PREVIOUS batch's results and keep
         this one's deferred (sync mode)."""
@@ -321,13 +361,13 @@ class BatchProcessor(threading.Thread):
             return
         try:
             t0 = time.time()
-            with self._timed("generate"):
+            with self._numbered(number), self._timed("generate"):
                 handle = self.engine.generate_tokens(prompts, staged=staged)
             if self.finalize_async:
                 # waits only while FINALIZE_DEPTH batches are undelivered
-                self._finalize_q.put((batch, handle, t0))
+                self._finalize_q.put((batch, handle, t0, number))
                 return
-            pending, self._pending = self._pending, (batch, handle)
+            pending, self._pending = self._pending, (batch, handle, number)
             if pending is not None:
                 self._finalize_and_store(*pending)
         except Exception as e:
@@ -339,9 +379,9 @@ class BatchProcessor(threading.Thread):
                 self.batches_processed += 1
                 self.requests_processed += len(batch)
 
-    def _finalize_and_store(self, batch: list, handle) -> None:
+    def _finalize_and_store(self, batch: list, handle, number: int | None = None) -> None:
         try:
-            with self._timed("finalize"):
+            with self._numbered(number), self._timed("finalize"):
                 answers = self.engine.finalize_tokens(handle)
         except Exception as e:
             logger.exception("finalize error for batch of %d", len(batch))
@@ -357,10 +397,11 @@ class BatchProcessor(threading.Thread):
     def _process_batch(self, batch: list) -> None:
         """The serial mode's whole pipeline for one batch."""
         try:
-            results = self.engine.process(
-                [req["query"] for req in batch],
-                [req.get("k", 2) for req in batch],
-                [req.get("max_new_tokens") for req in batch])
+            with self._numbered(self._number(batch)):
+                results = self.engine.process(
+                    [req["query"] for req in batch],
+                    [req.get("k", 2) for req in batch],
+                    [req.get("max_new_tokens") for req in batch])
         except Exception as e:
             logger.exception("error processing batch of %d", len(batch))
             self._fail(batch, e)

@@ -336,8 +336,6 @@ class RagEngine:
         if self.spec_gamma:
             logger.info("speculative decode on: gamma=%d (greedy verify; a "
                         "feature for trained checkpoints)", self.spec_gamma)
-        # decode loops and their forwards after the prefill, fixed path only
-        self.loop_stats = {"calls": 0, "iters": 0}
         if self.packed:
             self.packed_p, mean_len = self._auto_packed_p(documents)
             cap = self.batch_buckets[-1]
@@ -796,7 +794,8 @@ class RagEngine:
         return out
 
     def stage_prompts(self, prompts: List[str]):
-        """Tokenize, pad and place a prompt batch on the device. Returns a
+        """Tokenize, pad and place a prompt batch on the device (the
+        `stage_prompts` span). Returns a
         tuple whose first item names the layout and whose last is the rows'
         generation budgets as a (device tensor, host tuple) pair.
 
@@ -808,6 +807,10 @@ class RagEngine:
         adaptive gate closed) are staged as a packed stream when that
         undercuts the padded token count by PACKED_MARGIN (and no row is
         longer than packed_p), else as a left-padded batch."""
+        with self.timer.stage("stage_prompts"):
+            return self._stage_prompts(prompts)
+
+    def _stage_prompts(self, prompts: List[str]):
         bsz = pick_bucket(self.batch_buckets, len(prompts))
         n = len(prompts)
         padded = list(prompts) + [""] * (bsz - n)
@@ -885,7 +888,7 @@ class RagEngine:
             toks = generate_packed(
                 self.dec_params, self.dec_cfg, *self._packed_args(stream, gather, last),
                 row_valid=last >= 0, row_budget=bud[0], generator=self._generators[(0, 0)],
-                loop_stats=self.loop_stats, n_real=n_real, **common)
+                timer=self.timer, n_real=n_real, **common)
             return toks, n
         _, ids, mask, row_valid, n, metas, bud = staged
         prefix_slots, prefix_len = self._staged_prefixes(metas)
@@ -897,7 +900,7 @@ class RagEngine:
                             row_valid=at(row_valid), row_budget=at(bud[0]),
                             prefix_kv=self._prefix_rows(prefix_slots, rows, m, dev),
                             prefix_len=at(prefix_len), generator=self._generators[(g, m)],
-                            loop_stats=self.loop_stats if (g, m) == (0, 0) else None,
+                            timer=self.timer if (g, m) == (0, 0) else None,
                             **common)
 
         groups, res = self._mesh_run(self._dec, ids.shape[0], fn)

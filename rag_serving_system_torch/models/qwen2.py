@@ -34,6 +34,7 @@ one device).
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
@@ -396,23 +397,44 @@ def pick_token(logits, generator, do_sample, temperature=0.7, top_k=20,
     return torch.argmax(logits, dim=-1)
 
 
-def _note_loop(loop_stats: dict | None, iters: int) -> None:
-    """Add one decode loop and its forwards after the prefill to a caller's
-    counters ({"calls", "iters"}); both are host integers already."""
-    if loop_stats is not None:
-        loop_stats["calls"] = loop_stats.get("calls", 0) + 1
-        loop_stats["iters"] = loop_stats.get("iters", 0) + iters
+class _LoopSpans:
+    """The `prefill` and `decode` spans of one generate call, into a
+    `utils.timing.StageTimer` (None: nothing is recorded). The prefill runs
+    from its first launch (this object's creation) to the decode loop's
+    first host read of `done`, which waits for the prefill's device work;
+    the decode from there to the loop's end, counted in its steps. Neither
+    adds a sync: a loop's last step is read back by the caller."""
+
+    __slots__ = ("timer", "t0", "t_sync")
+
+    def __init__(self, timer):
+        self.timer = timer
+        self.t0 = time.time_ns()
+        self.t_sync = None
+
+    def synced(self) -> None:
+        """After a host read of `done`: the first ends the prefill."""
+        if self.t_sync is None and self.timer is not None:
+            self.t_sync = time.time_ns()
+            self.timer.add("prefill", (self.t_sync - self.t0) * 1e-9, start_ns=self.t0)
+
+    def end(self, steps: int) -> None:
+        if self.timer is None:
+            return
+        self.synced()       # a loop that never read `done` (one new token)
+        if steps:
+            self.timer.add("decode", (time.time_ns() - self.t_sync) * 1e-9, n=steps,
+                           start_ns=self.t_sync)
 
 
 def _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
                  max_new_tokens, temperature, top_k, top_p, do_sample, dtype,
-                 row_valid, p, row_budget=None, eos_bias=0.0,
-                 loop_stats=None) -> torch.Tensor:
+                 row_valid, p, row_budget=None, eos_bias=0.0, spans=None):
     """Sample, then decode until every row is done or max_new_tokens are out.
     Pad rows (row_valid False) are born done; a row is done at any stop id
-    or once it holds row_budget[b] tokens. Returns (B, max_new_tokens) int32,
-    pad_token_id past each row's end. `loop_stats`, when given, counts the
-    call and its decode steps (see `_note_loop`)."""
+    or once it holds row_budget[b] tokens. Returns (out (B, max_new_tokens)
+    int32, pad_token_id past each row's end; the number of decode steps).
+    `spans`, a `_LoopSpans`, is told of the first host read and the end."""
     b = attention_mask.shape[0]
     eos_ids = eos_id_set(cfg)
     pad = cfg.pad_token_id
@@ -434,7 +456,10 @@ def _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
     out[:, 0] = tok
     steps = 0
     for step in range(max_new_tokens - 1):
-        if bool(done.all()):
+        finished = bool(done.all())
+        if spans is not None and not steps:
+            spans.synced()
+        if finished:
             break
         steps += 1
         logits, cache = decode_step(params, cfg, cache, tok, step, p,
@@ -446,8 +471,9 @@ def _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
             done = done | (step + 2 >= row_budget)
         out[:, step + 1] = nxt
         tok = nxt
-    _note_loop(loop_stats, steps)
-    return out
+    if spans is not None:
+        spans.end(steps)
+    return out, steps
 
 
 def draft_ngram(hist: torch.Tensor, cur: torch.Tensor, gamma: int) -> torch.Tensor:
@@ -487,7 +513,7 @@ def draft_ngram(hist: torch.Tensor, cur: torch.Tensor, gamma: int) -> torch.Tens
 
 def _spec_decode_loop(params, cfg, logits0, cache, attention_mask, max_new_tokens,
                       gamma, dtype, row_valid, p, input_ids, row_budget=None,
-                      eos_bias=0.0, draft_source=None):
+                      eos_bias=0.0, draft_source=None, spans=None):
     """Greedy speculative decode over a prefilled cache (of max_new_tokens +
     gamma generation slots): an iteration drafts `gamma` tokens a row
     (`draft_ngram`), verifies them in one forward (`decode_step_spec`) and
@@ -507,7 +533,8 @@ def _spec_decode_loop(params, cfg, logits0, cache, attention_mask, max_new_token
 
     The exit test reads `done.all()` on the host once an iteration, as
     `_decode_loop` does; nothing else is read back. Returns (out (B,
-    max_new_tokens) int32, the number of iterations)."""
+    max_new_tokens) int32, the number of iterations). `spans`: as in
+    `_decode_loop`, the steps being iterations."""
     b = attention_mask.shape[0]
     dev = logits0.device
     s = gamma + 1
@@ -530,6 +557,8 @@ def _spec_decode_loop(params, cfg, logits0, cache, attention_mask, max_new_token
     out = torch.full((b, mnt + 1), pad, dtype=torch.int32, device=dev)
     out[:, 0] = tok0
     if mnt == 1:
+        if spans is not None:
+            spans.end(0)
         return out[:, :mnt], 0
     p_in = input_ids.shape[1]
     hlen = p_in + mnt + 1
@@ -544,7 +573,12 @@ def _spec_decode_loop(params, cfg, logits0, cache, attention_mask, max_new_token
     gc = torch.ones((b,), dtype=torch.int32, device=dev)   # tokens a row holds
 
     n_iters = 0
-    while n_iters < mnt and not bool(done.all()):
+    while n_iters < mnt:
+        finished = bool(done.all())
+        if spans is not None and not n_iters:
+            spans.synced()
+        if finished:
+            break
         if draft_source is not None:
             didx = (gc[:, None] + jar[:, :gamma]).clamp(0, draft_source.shape[1] - 1)
             drafts = torch.gather(draft_source, 1, didx.long()).to(torch.int32)
@@ -575,6 +609,8 @@ def _spec_decode_loop(params, cfg, logits0, cache, attention_mask, max_new_token
         last = torch.where(n_emit > 0, last_new, last)
         cur = cur + n_emit
         n_iters += 1
+    if spans is not None:
+        spans.end(n_iters)
     return out[:, :mnt], n_iters
 
 
@@ -588,7 +624,7 @@ def generate(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
              eos_bias: float = 0.0, prefix_kv=None,
              prefix_len: torch.Tensor | None = None,
              act_quant: bool = False, spec_gamma: int = 0,
-             loop_stats: dict | None = None) -> torch.Tensor:
+             timer=None) -> torch.Tensor:
     """Padded prefill + decode. Returns (B, max_new_tokens) int32 ids.
 
     With `prefix_kv` / `prefix_len` (see `prefill`), `input_ids` holds each
@@ -596,7 +632,10 @@ def generate(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
     generated] cache.
 
     `spec_gamma` > 0 makes the decode loop speculative (`_spec_decode_loop`)
-    under greedy decoding; sampling ignores it and keeps the one-token loop."""
+    under greedy decoding; sampling ignores it and keeps the one-token loop.
+    `timer`, a `StageTimer`, gets the `prefill` and `decode` spans
+    (`_LoopSpans`)."""
+    spans = _LoopSpans(timer)
     use_spec = spec_gamma > 0 and not do_sample and max_new_tokens > 1
     # a verify step writes up to gamma slots past a row's last token
     alloc = max_new_tokens + (spec_gamma if use_spec else 0)
@@ -608,16 +647,14 @@ def generate(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
     attention_mask = _combined_mask(attention_mask, prefix_kv, prefix_len)
     p = attention_mask.shape[1]
     if use_spec:
-        out, n_iters = _spec_decode_loop(
+        return _spec_decode_loop(
             params, cfg, logits0, cache, attention_mask, max_new_tokens,
             spec_gamma, dtype, row_valid, p, input_ids, row_budget=row_budget,
-            eos_bias=eos_bias)
-        _note_loop(loop_stats, n_iters)
-        return out
+            eos_bias=eos_bias, spans=spans)[0]
     return _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
                         max_new_tokens, temperature, top_k, top_p, do_sample,
                         dtype, row_valid, p, row_budget=row_budget,
-                        eos_bias=eos_bias, loop_stats=loop_stats)
+                        eos_bias=eos_bias, spans=spans)[0]
 
 
 def prefill_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
@@ -666,13 +703,13 @@ def generate_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
                     dtype=torch.bfloat16, row_valid: torch.Tensor | None = None,
                     row_budget: torch.Tensor | None = None,
                     eos_bias: float = 0.0, act_quant: bool = False,
-                    spec_gamma: int = 0,
-                    loop_stats: dict | None = None,
+                    spec_gamma: int = 0, timer=None,
                     n_real: int | None = None) -> torch.Tensor:
     """Packed prefill (B3) + the padded path's decode; same contract as
     `generate`. The speculative loop's history is each row's ids, rebuilt
     from the packed stream through `gather_idx`. n_real: as in
     `prefill_packed`."""
+    spans = _LoopSpans(timer)
     use_spec = spec_gamma > 0 and not do_sample and max_new_tokens > 1
     alloc = max_new_tokens + (spec_gamma if use_spec else 0)
     logits0, cache = prefill_packed(params, cfg, input_ids, seg, positions,
@@ -683,15 +720,14 @@ def generate_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
     if use_spec:
         row_ids = torch.where(prompt_mask > 0, input_ids[0][gather_idx.long()],
                               cfg.pad_token_id)
-        out, n_iters = _spec_decode_loop(
+        return _spec_decode_loop(
             params, cfg, logits0, cache, prompt_mask, max_new_tokens, spec_gamma,
-            dtype, row_valid, p, row_ids, row_budget=row_budget, eos_bias=eos_bias)
-        _note_loop(loop_stats, n_iters)
-        return out
+            dtype, row_valid, p, row_ids, row_budget=row_budget, eos_bias=eos_bias,
+            spans=spans)[0]
     return _decode_loop(params, cfg, logits0, cache, prompt_mask, generator,
                         max_new_tokens, temperature, top_k, top_p, do_sample,
                         dtype, row_valid, p, row_budget=row_budget,
-                        eos_bias=eos_bias, loop_stats=loop_stats)
+                        eos_bias=eos_bias, spans=spans)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1043,9 +1043,9 @@ def test_engine_spec_decode_equals_sequential_on_the_card(dev, over, gamma):
         engine.spec_gamma = g
         if engine.prefix_cache is not None:
             engine.prefix_cache.clear()
-        before = engine.loop_stats["iters"]
+        before = engine.timer.counts["decode"]
         answers = [engine.process(TINY_QUERIES, [2] * 4, budgets) for _ in range(2)]
-        runs.append((answers, engine.loop_stats["iters"] - before))
+        runs.append((answers, engine.timer.counts["decode"] - before))
     (spec, spec_iters), (seq, seq_iters) = runs
     assert spec == seq
     assert 0 < spec_iters <= seq_iters <= 2 * 5
@@ -1285,3 +1285,69 @@ def test_two_process_topk_on_the_card():
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "MULTIHOST PASS"
     assert out.stdout.count('"parity": "ok"') == 2
+
+
+@pytest.mark.parametrize("over", [dict(prefix_cache=False),
+                                  dict(prefix_cache=False, packed_prefill=False)],
+                         ids=["packed_b3", "padded_b2"])
+def test_spans_and_kernels_share_one_clock_on_the_card(dev, tmp_path, over):
+    """Under `device_trace`, every B2/B3 launch call of the tiny engine's
+    prefills (stamped by the profiler on the host) lies inside a `prefill`
+    span, and no device event carries a span's name. A trace whose kernels
+    all follow their launch calls passes `clock_ok` and has its B2/B3
+    kernels (stamped by CUPTI on the card) inside the span within 0.2 ms;
+    one with a kernel stamped before its launch call is flagged. On either,
+    the kernels moved onto the host's clock by their launch calls
+    (`host_shifts`, by which `idle_by_span` moves the gaps) lie inside the span
+    within 0.2 ms. CUPTI stamps some sessions' kernels 0.08-5 ms early,
+    drifting within the session: three traces are taken."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    from rag_serving_system_torch.utils import timing
+
+    engine = _tiny_engine(dev, **over)
+    engine.process(TINY_QUERIES, [2] * 4)          # builds the kernels
+    torch.cuda.synchronize()
+    slack = 200_000
+    for attempt in range(3):
+        engine.timer.reset()
+        with timing.device_trace(str(tmp_path / str(attempt)), device=dev,
+                                 spans=engine.timer) as prof:
+            for _ in range(3):
+                engine.process(TINY_QUERIES, [2] * 4)
+            torch.cuda.synchronize()
+        evs = prof.profiler.kineto_results.events()
+        cuda = [e for e in evs if e.device_type() == DeviceType.CUDA]
+        is_flash = [bool(re.search(r"flash_(wg_)?kernel", e.name())) for e in cuda]
+        flash = [e for e, f in zip(cuda, is_flash) if f]
+        launch = {e.correlation_id(): e for e in evs
+                  if e.device_type() == DeviceType.CPU and "LaunchKernel" in e.name()}
+        prefills = [(s[2], s[3]) for s in engine.timer.spans if s[0] == "prefill"]
+        assert len(prefills) == 3 and len(flash) >= 3 * engine.dec_cfg.num_layers, \
+            (len(prefills), len(flash), len(cuda))
+        assert all(e.correlation_id() in launch for e in flash)
+
+        def outside(intervals, slack):
+            return [(a, b) for a, b in intervals
+                    if not any(p0 - slack <= a and b <= p1 + slack for p0, p1 in prefills)]
+
+        calls = [launch[e.correlation_id()] for e in flash]
+        assert not outside([(c.start_ns(), c.start_ns() + c.duration_ns()) for c in calls], 0), \
+            prefills
+        span_names = {s[0] for s in engine.timer.spans}
+        assert span_names >= {"generate", "stage_prompts", "prefill", "decode", "embed_retrieve"}
+        assert not span_names & {e.name() for e in cuda}
+        early = [e for e in flash if e.start_ns() < launch[e.correlation_id()].start_ns()]
+        assert prof.clock_ok is not None and not (early and prof.clock_ok), \
+            (len(early), prof.clock_ok)
+        if prof.clock_ok:
+            kernels = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in flash]
+            assert not outside(kernels, slack), (outside(kernels, slack)[:3], prefills)
+        shifts = timing.host_shifts(timing.read_trace(prof))
+        moved = [(e.start_ns() - sh, e.start_ns() - sh + e.duration_ns())
+                 for e, sh, f in zip(cuda, shifts, is_flash) if f]
+        assert not outside(moved, slack), (prof.clock_ok, outside(moved, slack)[:3], prefills)
+        assert prof.idle_by_span["gaps"] > 0 and "decode" in prof.idle_by_span["by_span"], \
+            prof.idle_by_span

@@ -133,7 +133,9 @@ with tempfile.TemporaryDirectory() as root:
         processor2.join(timeout=10)
     assert all(isinstance(r, dict) and isinstance(r.get("result"), str)
                for r in results), results
-    assert loaded.loop_stats["calls"] >= 3
+    # five requests at max_batch_size 2: at least three generate calls
+    assert loaded.timer.counts["prefill"] == loaded.timer.counts["generate"] >= 3
+    assert loaded.timer.counts["decode"] >= 1
 
 # the mesh: its three modules import, and an engine over a (2, 2) mesh of
 # CPU positions serves the first engine's answers from the first engine's

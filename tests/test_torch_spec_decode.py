@@ -29,6 +29,7 @@ from rag_serving_system_torch.models.weights import (  # noqa: E402
     params_from_jax,
     prefix_kv_from_jax,
 )
+from rag_serving_system_torch.utils.timing import StageTimer  # noqa: E402
 
 from test_torch_engine import (  # noqa: E402
     QUERIES, jax_engine, jax_settings, port_engine, tiny_settings)
@@ -278,15 +279,15 @@ def test_generate_spec_matches_jax_and_sequential(dec, gamma):
     ref = jq.generate(jp, CFG, jnp.asarray(ids), jnp.asarray(mask), jax.random.PRNGKey(0),
                       max_new_tokens=10, do_sample=False, row_valid=jnp.asarray(rv),
                       row_budget=jnp.asarray(bud), spec_gamma=gamma, **F32)
-    stats = {}
+    timer = StageTimer()
     ours = tq.generate(tp, CFG, torch.tensor(ids), torch.tensor(mask), max_new_tokens=10,
                        do_sample=False, row_valid=torch.tensor(rv),
-                       row_budget=torch.tensor(bud), spec_gamma=gamma, loop_stats=stats,
+                       row_budget=torch.tensor(bud), spec_gamma=gamma, timer=timer,
                        **T32)
     np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(
         ours.numpy(), _seq(dec, ids, mask, 10, row_valid=rv, row_budget=bud))
-    assert stats["calls"] == 1 and 1 <= stats["iters"] <= 9
+    assert timer.counts["prefill"] == 1 and 1 <= timer.counts["decode"] <= 9
 
 
 @pytest.mark.parametrize("gamma", [1, 4])
@@ -380,11 +381,11 @@ def test_engine_spec_parity(corpus, packed):
                                                             else "padded")
     spec = te.process(QUERIES, ks)
     assert spec == je.process(QUERIES, ks)
-    iters = te.loop_stats["iters"]
-    assert te.loop_stats["calls"] == 1 and 1 <= iters <= 5
+    iters = te.timer.counts["decode"]
+    assert te.timer.counts["prefill"] == 1 and 1 <= iters <= 5
     te.spec_gamma = 0
     assert te.process(QUERIES, ks) == spec
-    assert te.loop_stats["iters"] - iters == 5     # the sequential loop's steps
+    assert te.timer.counts["decode"] - iters == 5     # the sequential loop's steps
 
 
 def test_engine_spec_parity_with_budgets_and_prefix_cache(corpus):
