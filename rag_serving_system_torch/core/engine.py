@@ -64,6 +64,7 @@ from rag_serving_system_torch.models.configs import (
 )
 from rag_serving_system_torch.models.e5 import encode
 from rag_serving_system_torch.models.qwen2 import (
+    DecodeGraphs,
     compute_prefix_kv,
     generate,
     generate_packed,
@@ -325,6 +326,9 @@ class RagEngine:
         # group: its positions sample the same tokens from the same logits
         self._generators = self._position_generators(0)
         self.timer = StageTimer()
+        # the fixed decode loop's steps as CUDA graphs (they engage on a
+        # CUDA device); a mesh of several positions decodes eager
+        self.decode_graphs = DecodeGraphs() if self.mesh.size == 1 else None
 
         # packed prefill for no-prefix batches: B is pinned to the largest
         # batch bucket, T to a ladder of multiples of PACKED_T_STEP. One
@@ -448,6 +452,9 @@ class RagEngine:
     @dec_params.setter
     def dec_params(self, params) -> None:
         self._dec = shard_params(params, self.mesh, self.dec_cfg)
+        # a captured decode step reads the replaced tensors
+        if getattr(self, "decode_graphs", None) is not None:
+            self.decode_graphs.clear()
 
     @property
     def position_weight_bytes(self) -> list:
@@ -882,7 +889,7 @@ class RagEngine:
         s = self.settings
         common = dict(max_new_tokens=s.max_new_tokens, do_sample=s.do_sample,
                       dtype=self.dtype, eos_bias=s.eos_bias, act_quant=self.act_quant,
-                      spec_gamma=self.spec_gamma)
+                      spec_gamma=self.spec_gamma, graphs=self.decode_graphs)
         if staged[0] == "packed":
             _, stream, gather, last, n, n_real, bud = staged
             toks = generate_packed(
@@ -1060,11 +1067,37 @@ class RagEngine:
                     len(queries), t1 - t0, time.time() - t1)
         return [{"result": a} for a in answers]
 
+    def _capture_full_batch_steps(self) -> None:
+        """Capture the fixed decode loop's step at every key a full batch
+        can form (a prompt bucket; the prefix pool plus a suffix bucket), so
+        that under load no 0.2-0.4 s capture falls among served batches.
+        Partial batches capture on their key's first use. Nothing where the
+        decode graphs do not engage or the fixed loop is not the path (the
+        speculative loop, the continuous pool)."""
+        s = self.settings
+        if (self.decode_graphs is None or self.decode_pool is not None or self.spec_gamma
+                or s.max_new_tokens < 2 or not DecodeGraphs.engages(self.device)):
+            return
+        slots = set(s.prompt_len_buckets)
+        if self.prefix_cache is not None:
+            slots |= {self.prefix_cache.pool_len + b
+                      for b in list(SUFFIX_LEN_BUCKETS) + list(s.prompt_len_buckets)}
+        if self.packed:
+            slots.add(self.packed_p)
+        rows, t0 = self.batch_buckets[-1], time.perf_counter()
+        for p in sorted(slots):
+            self.decode_graphs.prepare(self.dec_params, self.dec_cfg, rows, p,
+                                       p + s.max_new_tokens, self.dtype, self.device)
+        logger.info("decode step captured at %d keys of %d rows in %.2f s",
+                    len(slots), rows, time.perf_counter() - t0)
+
     def warmup(self) -> None:
-        """Build the kernels and run every stage once before serving; its
-        timings, the cache counts and the prefix entry it made are dropped
-        (the pool keeps the size it grew to)."""
+        """Build the kernels, run every stage once and capture the decode
+        step's full-batch keys before serving; its timings, the cache
+        counts and the prefix entry it made are dropped (the pool keeps the
+        size it grew to)."""
         self.process(["warmup query"], [1])
+        self._capture_full_batch_steps()
         if self.decode_pool is not None:
             # one batch THROUGH the pool: stage, prefill, insert, chunks,
             # delivery

@@ -16,11 +16,13 @@ suffix prefill over cached prefix K/V (queries shorter than keys) and the
 single-token decode attention are plain torch, as both are einsum in the
 JAX package.
 The fixed decode loop runs on the host, one step per iteration, and stops
-as soon as every row is done. With `spec_gamma` > 0 (greedy only) the loop
-is speculative: `draft_ngram` proposes gamma tokens a row from the row's own
-history, `decode_step_spec` verifies them in one forward over gamma + 1
-positions, and the longest matching prefix plus one token is emitted, so an
-iteration yields 1 to gamma + 1 tokens. Its attention is plain torch too.
+as soon as every row is done; on CUDA, given a `DecodeGraphs`, each step is
+one replay of a captured `decode_step` instead of ~35 launches a layer.
+With `spec_gamma` > 0 (greedy only) the loop is speculative: `draft_ngram`
+proposes gamma tokens a row from the row's own history, `decode_step_spec`
+verifies them in one forward over gamma + 1 positions, and the longest
+matching prefix plus one token is emitted, so an iteration yields 1 to
+gamma + 1 tokens. Its attention is plain torch too.
 `decode_chunk` is the continuous mode's step:
 `chunk` steps over the slot pool of `core/decode_pool.py` with no host read
 between them.
@@ -35,6 +37,7 @@ one device).
 from __future__ import annotations
 
 import time
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -56,6 +59,7 @@ from rag_serving_system_torch.ops.attention import (
     flash_attention_packed,
 )
 from rag_serving_system_torch.parallel.tp import row_parallel
+from rag_serving_system_torch.utils.timing import GRAPH_LAUNCH_LOCK, guard_profiler
 
 
 class KVCache(NamedTuple):
@@ -140,12 +144,19 @@ def _prefix_mask(prefix_len: torch.Tensor, pool_len: int) -> torch.Tensor:
     return torch.arange(pool_len, device=prefix_len.device)[None, :] < prefix_len[:, None]
 
 
+def _prefix_pool_len(prefix_kv) -> int:
+    """PL, the prefix slots of `prefix_kv` (0 without one)."""
+    if prefix_kv is None:
+        return 0
+    return (prefix_kv[0] if isinstance(prefix_kv, (tuple, list)) else prefix_kv).shape[3]
+
+
 def _combined_mask(attention_mask, prefix_kv, prefix_len) -> torch.Tensor:
     """[prefix mask | suffix mask] (B, PL + P); the mask itself without a
     prefix."""
     if prefix_kv is None:
         return attention_mask
-    pl = (prefix_kv[0] if isinstance(prefix_kv, (tuple, list)) else prefix_kv).shape[3]
+    pl = _prefix_pool_len(prefix_kv)
     return torch.cat([_prefix_mask(prefix_len, pl).to(attention_mask.dtype),
                       attention_mask], dim=1)
 
@@ -154,10 +165,14 @@ def prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
             attention_mask: torch.Tensor, max_new_tokens: int,
             dtype=torch.bfloat16, prefix_kv=None,
             prefix_len: torch.Tensor | None = None,
-            act_quant: bool = False) -> tuple[torch.Tensor, KVCache]:
+            act_quant: bool = False,
+            cache: KVCache | None = None) -> tuple[torch.Tensor, KVCache]:
     """Forward over a LEFT-padded (B, P) prompt batch. Returns (last-position
     logits (B, V) f32, cache of [PL +] P + max_new_tokens slots).
-    `act_quant`: the W8A8 products (quantized weights only).
+    `act_quant`: the W8A8 products (quantized weights only). `cache`, of
+    that shape, is filled in place of a new zeroed one: its prompt slots
+    are all written, and its decode slots are masked until a decode step
+    writes them, so whatever an earlier batch left there is never read.
 
     Without `prefix_kv` the attention is kernel B2.
 
@@ -175,12 +190,13 @@ def prefill(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
     dev = input_ids.device
     px_q, px_s = (prefix_kv if isinstance(prefix_kv, (tuple, list))
                   else (prefix_kv, None))
-    pl = 0 if prefix_kv is None else px_q.shape[3]
+    pl = _prefix_pool_len(prefix_kv)
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=dev)
     # left padding: positions count real tokens from the left edge of content
     positions = torch.clamp(torch.cumsum(attention_mask, dim=-1) - 1, min=0)
     x = embed_lookup(params, input_ids, dtype)
-    cache = _new_cache(cfg, b, pl + p + max_new_tokens, dtype, dev)
+    if cache is None:
+        cache = _new_cache(cfg, b, pl + p + max_new_tokens, dtype, dev)
 
     if prefix_kv is None:
         def attend(q, k, v):
@@ -264,19 +280,26 @@ def quantize_prefix_kv(kv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def decode_step(params: dict, cfg: DecoderConfig, cache: KVCache,
-                token: torch.Tensor, step: int, prompt_len: int,
+                token: torch.Tensor, step, prompt_len: int,
                 prompt_mask: torch.Tensor, dtype=torch.bfloat16):
     """One token for every row: writes its K/V at slot prompt_len + step of
-    `cache` (in place) and returns ((B, V) f32 logits, cache)."""
+    `cache` (in place) and returns ((B, V) f32 logits, cache). `step` is a
+    0-d int64 device tensor or a host int, which is wrapped into one: the
+    positions, the valid mask and the cache slot are all built from it on
+    the device, so the one body runs eager and as a captured graph whose
+    replays advance `step` (`DecodeGraphs`)."""
     b = token.shape[0]
+    dev = token.device
     t_max = cache.k.shape[2]
-    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=token.device)
+    if not torch.is_tensor(step):
+        step = torch.full((), step, dtype=torch.int64, device=dev)
+    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=dev)
     positions = (prompt_mask.sum(dim=-1) + step)[:, None]
-    write_at = prompt_len + step
+    write_at = (step + prompt_len).reshape(1)
     # prompt pads masked; generated slots valid up to the current step
-    gen_valid = torch.arange(t_max - prompt_len, device=token.device) <= step
+    gen_valid = torch.arange(t_max - prompt_len, device=dev) <= step
     valid = torch.cat([prompt_mask > 0, gen_valid.expand(b, -1)], dim=1)
-    zero = torch.zeros((), dtype=torch.float32, device=token.device)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     bias = torch.where(valid, zero, NEG_INF)[:, None, None, :]
 
     x = embed_lookup(params, token[:, None], dtype)
@@ -286,8 +309,8 @@ def decode_step(params: dict, cfg: DecoderConfig, cache: KVCache,
         q, k, v = _qkv(layer, cfg, h, b, 1)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
-        cache.k[i, :, write_at] = k[:, 0]
-        cache.v[i, :, write_at] = v[:, 0]
+        cache.k[i].index_copy_(1, write_at, k.to(cache.k.dtype))
+        cache.v[i].index_copy_(1, write_at, v.to(cache.v.dtype))
         a = attention(q, cache.k[i].to(dtype), cache.v[i].to(dtype), bias)
         x = x + row_parallel(dense, a.reshape(b, 1, cfg.num_heads * cfg.head_dim),
                              layer["o_w"], None, "attn")
@@ -403,7 +426,9 @@ class _LoopSpans:
     from its first launch (this object's creation) to the decode loop's
     first host read of `done`, which waits for the prefill's device work;
     the decode from there to the loop's end, counted in its steps. Neither
-    adds a sync: a loop's last step is read back by the caller."""
+    adds a sync: a loop's last step is read back by the caller. A loop whose
+    steps were graph replays also records them as `decode_replay`, the same
+    interval and count; a graph capture is one `decode_capture`."""
 
     __slots__ = ("timer", "t0", "t_sync")
 
@@ -418,23 +443,172 @@ class _LoopSpans:
             self.t_sync = time.time_ns()
             self.timer.add("prefill", (self.t_sync - self.t0) * 1e-9, start_ns=self.t0)
 
-    def end(self, steps: int) -> None:
+    def captured(self, start_ns: int) -> None:
+        if self.timer is not None:
+            self.timer.add("decode_capture", (time.time_ns() - start_ns) * 1e-9,
+                           start_ns=start_ns)
+
+    def end(self, steps: int, replayed: bool = False) -> None:
         if self.timer is None:
             return
         self.synced()       # a loop that never read `done` (one new token)
         if steps:
-            self.timer.add("decode", (time.time_ns() - self.t_sync) * 1e-9, n=steps,
-                           start_ns=self.t_sync)
+            seconds = (time.time_ns() - self.t_sync) * 1e-9
+            # `decode` first: of two equal spans the idle attribution names
+            # the one logged first
+            self.timer.add("decode", seconds, n=steps, start_ns=self.t_sync)
+            if replayed:
+                self.timer.add("decode_replay", seconds, n=steps, start_ns=self.t_sync)
+
+
+# at most this many captured decode steps (and their caches) are kept. The
+# engine's keys are its batch buckets times its prompt-slot counts (the
+# prompt buckets and the prefix pool plus each suffix bucket; the packed P
+# is a prompt bucket): at most 60 with the default buckets, 54 beside a
+# 512-slot prefix pool, whose caches and logits all fit in ~10.5 GiB for
+# Qwen2.5-1.5B in bf16. The cap bounds only larger bucket sets.
+DECODE_GRAPHS_CAP = 64
+
+
+class _StepGraph:
+    """One key's captured decode step and the buffers its replays read and
+    write: the K/V cache the prefill fills, the step's input token, the step
+    index (0-d; each replay advances it), the prompt mask, and the f32
+    logits a replay leaves. `owner` is the parameter tree it was captured
+    over: the graph reads those tensors' memory."""
+
+    __slots__ = ("cache", "tok", "step", "mask", "logits", "graph", "owner")
+
+    def __init__(self, cache: KVCache, p: int):
+        rows, dev = cache.k.shape[1], cache.k.device
+        self.cache = cache
+        self.tok = torch.zeros((rows,), dtype=torch.int32, device=dev)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self.mask = torch.zeros((rows, p), dtype=torch.int32, device=dev)
+        self.logits = None
+        self.graph = None
+        self.owner = None
+
+
+def _graph_step(ent: _StepGraph, params: dict, cfg: DecoderConfig, p: int, dtype):
+    """The body a key's graph holds: `decode_step` over the entry's buffers,
+    then the step index advanced; returns the step's logits."""
+    def body():
+        logits, _ = decode_step(params, cfg, ent.cache, ent.tok, ent.step, p, ent.mask,
+                                dtype=dtype)
+        ent.step.add_(1)
+        return logits
+    return body
+
+
+class DecodeGraphs:
+    """The fixed decode loop's step as CUDA graphs, one a (rows, prompt
+    slots p, cache slots t_max) key: what the step's shapes depend on, a
+    finite set because the engine pads batches and prompts to buckets. One
+    pool serves one model (an engine's decoder), from one thread at a time
+    (stage 2): two batches of one key in flight would share its cache.
+
+    `cache_for` hands the prefill the key's cache; `_decode_loop` then
+    copies each step's token into the entry and replays it, capturing on
+    the key's first use (a warm-up run on a side stream, then
+    `torch.cuda.graph`) unless `prepare` captured it before serving. Every
+    capture draws on one memory pool: replays are serial on one stream, and
+    a replay's logits are read before another graph runs. Past
+    DECODE_GRAPHS_CAP keys the least recently used entry is dropped with
+    its cache and graph. On any device but CUDA nothing engages:
+    `cache_for` gives None and the loop runs eager."""
+
+    def __init__(self):
+        self.entries: OrderedDict = OrderedDict()
+        self._pool = None
+        self._side = None
+
+    @staticmethod
+    def engages(device) -> bool:
+        """Whether steps on `device` are captured: on CUDA only."""
+        return torch.device(device).type == "cuda"
+
+    def cache_for(self, cfg: DecoderConfig, rows: int, p: int, t_max: int, dtype,
+                  device) -> KVCache | None:
+        """The cache of key (rows, p, t_max), made zeroed on its first use,
+        for `prefill` / `prefill_packed` to fill; None where nothing
+        engages."""
+        if not self.engages(device):
+            return None
+        key = (rows, p, t_max)
+        if key not in self.entries:
+            self.entries[key] = _StepGraph(_new_cache(cfg, rows, t_max, dtype, device), p)
+            while len(self.entries) > DECODE_GRAPHS_CAP:
+                self.entries.popitem(last=False)
+        self.entries.move_to_end(key)
+        return self.entries[key].cache
+
+    def entry(self, cache: KVCache, p: int) -> _StepGraph | None:
+        """The entry whose cache `cache` is, else None."""
+        ent = self.entries.get((cache.k.shape[1], p, cache.k.shape[2]))
+        return ent if ent is not None and ent.cache.k is cache.k else None
+
+    def clear(self) -> None:
+        self.entries.clear()
+
+    def prepare(self, params: dict, cfg: DecoderConfig, rows: int, p: int, t_max: int,
+                dtype, device) -> None:
+        """Capture key (rows, p, t_max) ahead of its first batch (an
+        engine's warm-up), so that no capture falls among served batches.
+        Its cache is written only at a decode slot, which the first batch's
+        own step writes again. Nothing where nothing engages."""
+        cache = self.cache_for(cfg, rows, p, t_max, dtype, device)
+        if cache is None:
+            return
+        ent = self.entry(cache, p)
+        if ent.graph is None or ent.owner is not params:
+            self.capture(ent, _graph_step(ent, params, cfg, p, dtype), params)
+
+    def capture(self, ent: _StepGraph, body, owner) -> None:
+        """Capture `body` (one step over the entry's buffers that advances
+        its step) into `ent`, leaving the step index as it found it. The
+        warm-up run writes the same cache slot the first replay writes."""
+        if self._pool is None:
+            guard_profiler()
+            self._pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(ent.step.device)
+        ent.graph = ent.logits = None
+        main = torch.cuda.current_stream(ent.step.device)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            body()
+        main.wait_stream(self._side)
+        ent.step.sub_(1)
+        graph = torch.cuda.CUDAGraph()
+        # other threads (stage 1) launch and allocate while this one captures
+        with GRAPH_LAUNCH_LOCK, torch.cuda.graph(graph, pool=self._pool,
+                                                 capture_error_mode="thread_local"):
+            ent.logits = body()
+        ent.graph, ent.owner = graph, owner
+
+    @staticmethod
+    def replay(ent: _StepGraph) -> torch.Tensor:
+        """One replay of the entry's step, apart from any profiler's start
+        or stop (`utils.timing.GRAPH_LAUNCH_LOCK`); its logits."""
+        with GRAPH_LAUNCH_LOCK:
+            ent.graph.replay()
+        return ent.logits
 
 
 def _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
                  max_new_tokens, temperature, top_k, top_p, do_sample, dtype,
-                 row_valid, p, row_budget=None, eos_bias=0.0, spans=None):
+                 row_valid, p, row_budget=None, eos_bias=0.0, spans=None,
+                 graphs=None):
     """Sample, then decode until every row is done or max_new_tokens are out.
     Pad rows (row_valid False) are born done; a row is done at any stop id
     or once it holds row_budget[b] tokens. Returns (out (B, max_new_tokens)
     int32, pad_token_id past each row's end; the number of decode steps).
-    `spans`, a `_LoopSpans`, is told of the first host read and the end."""
+    `spans`, a `_LoopSpans`, is told of the first host read and the end.
+
+    With `graphs` (a `DecodeGraphs`) holding `cache` as an entry's, each
+    step is that entry's captured `decode_step`, replayed: the host copies
+    the token in, replays, and picks from the entry's logits as below. Any
+    other cache decodes eager."""
     b = attention_mask.shape[0]
     eos_ids = eos_id_set(cfg)
     pad = cfg.pad_token_id
@@ -454,6 +628,10 @@ def _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
     out = torch.full((b, max_new_tokens), pad, dtype=torch.int32,
                      device=tok.device)
     out[:, 0] = tok
+    ent = graphs.entry(cache, p) if graphs is not None else None
+    if ent is not None:
+        ent.mask.copy_(attention_mask)
+        ent.step.zero_()
     steps = 0
     for step in range(max_new_tokens - 1):
         finished = bool(done.all())
@@ -462,8 +640,17 @@ def _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
         if finished:
             break
         steps += 1
-        logits, cache = decode_step(params, cfg, cache, tok, step, p,
-                                    attention_mask, dtype=dtype)
+        if ent is not None:
+            ent.tok.copy_(tok)
+            if ent.graph is None or ent.owner is not params:
+                t0 = time.time_ns()
+                graphs.capture(ent, _graph_step(ent, params, cfg, p, dtype), params)
+                if spans is not None:
+                    spans.captured(t0)
+            logits = graphs.replay(ent)
+        else:
+            logits, cache = decode_step(params, cfg, cache, tok, step, p,
+                                        attention_mask, dtype=dtype)
         nxt = torch.where(done, pad, pick(logits))
         done = done | token_is_eos(nxt, eos_ids)
         if row_budget is not None:
@@ -472,7 +659,7 @@ def _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
         out[:, step + 1] = nxt
         tok = nxt
     if spans is not None:
-        spans.end(steps)
+        spans.end(steps, replayed=ent is not None)
     return out, steps
 
 
@@ -624,7 +811,7 @@ def generate(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
              eos_bias: float = 0.0, prefix_kv=None,
              prefix_len: torch.Tensor | None = None,
              act_quant: bool = False, spec_gamma: int = 0,
-             timer=None) -> torch.Tensor:
+             timer=None, graphs: DecodeGraphs | None = None) -> torch.Tensor:
     """Padded prefill + decode. Returns (B, max_new_tokens) int32 ids.
 
     With `prefix_kv` / `prefix_len` (see `prefill`), `input_ids` holds each
@@ -634,14 +821,19 @@ def generate(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
     `spec_gamma` > 0 makes the decode loop speculative (`_spec_decode_loop`)
     under greedy decoding; sampling ignores it and keeps the one-token loop.
     `timer`, a `StageTimer`, gets the `prefill` and `decode` spans
-    (`_LoopSpans`)."""
-    spans = _LoopSpans(timer)
+    (`_LoopSpans`). `graphs`, a `DecodeGraphs`: the one-token loop's steps
+    are replayed from its captured graphs (on CUDA)."""
     use_spec = spec_gamma > 0 and not do_sample and max_new_tokens > 1
     # a verify step writes up to gamma slots past a row's last token
     alloc = max_new_tokens + (spec_gamma if use_spec else 0)
+    cache = None
+    if graphs is not None and not use_spec and max_new_tokens > 1:
+        b, pp = input_ids.shape[0], _prefix_pool_len(prefix_kv) + input_ids.shape[1]
+        cache = graphs.cache_for(cfg, b, pp, pp + alloc, dtype, input_ids.device)
+    spans = _LoopSpans(timer)
     logits0, cache = prefill(params, cfg, input_ids, attention_mask,
                              alloc, dtype=dtype, prefix_kv=prefix_kv,
-                             prefix_len=prefix_len, act_quant=act_quant)
+                             prefix_len=prefix_len, act_quant=act_quant, cache=cache)
     # decode sees one combined prompt of PL + P slots: the prefix part
     # left-aligned and valid for prefix_len, the suffix part left-padded
     attention_mask = _combined_mask(attention_mask, prefix_kv, prefix_len)
@@ -654,7 +846,7 @@ def generate(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
     return _decode_loop(params, cfg, logits0, cache, attention_mask, generator,
                         max_new_tokens, temperature, top_k, top_p, do_sample,
                         dtype, row_valid, p, row_budget=row_budget,
-                        eos_bias=eos_bias, spans=spans)[0]
+                        eos_bias=eos_bias, spans=spans, graphs=graphs)[0]
 
 
 def prefill_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
@@ -663,7 +855,8 @@ def prefill_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
                    prompt_mask: torch.Tensor, max_new_tokens: int,
                    dtype=torch.bfloat16,
                    act_quant: bool = False,
-                   n_real: int | None = None) -> tuple[torch.Tensor, KVCache]:
+                   n_real: int | None = None,
+                   cache: KVCache | None = None) -> tuple[torch.Tensor, KVCache]:
     """Packed prefill: the batch's real tokens back to back in one (1, T)
     stream (`seg` ascending row ids, the pad tail last), attention through
     kernel B3. The per-token K/V is then unpacked into the usual left-padded
@@ -672,12 +865,14 @@ def prefill_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
     the padded path's. n_real: the count of real tokens at the head of the
     stream, a host int (None: all T); B3 computes no pad-tail row (its
     attention output is 0), which no real row, gathered slot or last-token
-    logit reads. Returns (each row's last-token logits (B, V) f32, cache)."""
+    logit reads. `cache`: as in `prefill`. Returns (each row's last-token
+    logits (B, V) f32, cache)."""
     b, p = gather_idx.shape
     t = input_ids.shape[1]
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=input_ids.device)
     x = embed_lookup(params, input_ids, dtype)
-    cache = _new_cache(cfg, b, p + max_new_tokens, dtype, input_ids.device)
+    if cache is None:
+        cache = _new_cache(cfg, b, p + max_new_tokens, dtype, input_ids.device)
     flat = gather_idx.reshape(-1)
     keep = prompt_mask.reshape(b, p, 1, 1).to(dtype)
 
@@ -704,19 +899,23 @@ def generate_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
                     row_budget: torch.Tensor | None = None,
                     eos_bias: float = 0.0, act_quant: bool = False,
                     spec_gamma: int = 0, timer=None,
-                    n_real: int | None = None) -> torch.Tensor:
+                    n_real: int | None = None,
+                    graphs: DecodeGraphs | None = None) -> torch.Tensor:
     """Packed prefill (B3) + the padded path's decode; same contract as
     `generate`. The speculative loop's history is each row's ids, rebuilt
     from the packed stream through `gather_idx`. n_real: as in
-    `prefill_packed`."""
-    spans = _LoopSpans(timer)
+    `prefill_packed`; `graphs`: as in `generate`."""
     use_spec = spec_gamma > 0 and not do_sample and max_new_tokens > 1
     alloc = max_new_tokens + (spec_gamma if use_spec else 0)
+    b, p = gather_idx.shape
+    cache = None
+    if graphs is not None and not use_spec and max_new_tokens > 1:
+        cache = graphs.cache_for(cfg, b, p, p + alloc, dtype, input_ids.device)
+    spans = _LoopSpans(timer)
     logits0, cache = prefill_packed(params, cfg, input_ids, seg, positions,
                                     last_idx, gather_idx, prompt_mask,
                                     alloc, dtype=dtype, act_quant=act_quant,
-                                    n_real=n_real)
-    p = gather_idx.shape[1]
+                                    n_real=n_real, cache=cache)
     if use_spec:
         row_ids = torch.where(prompt_mask > 0, input_ids[0][gather_idx.long()],
                               cfg.pad_token_id)
@@ -727,7 +926,7 @@ def generate_packed(params: dict, cfg: DecoderConfig, input_ids: torch.Tensor,
     return _decode_loop(params, cfg, logits0, cache, prompt_mask, generator,
                         max_new_tokens, temperature, top_k, top_p, do_sample,
                         dtype, row_valid, p, row_budget=row_budget,
-                        eos_bias=eos_bias, spans=spans)[0]
+                        eos_bias=eos_bias, spans=spans, graphs=graphs)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -44,12 +44,15 @@ The spans the port records, and where (the innermost first):
 | `prefix_resolve` | stage 2 | a batch | cache lookups, B2 on the misses (host time: ends unsynced) |
 | `prefill` | stage 2 | a batch | first prefill launch to the decode loop's first host read of `done` |
 | `decode` | stage 2 | a step | from there to the loop's end |
+| `decode_replay` | stage 2 | a step | the `decode` span again where its steps were CUDA graph replays |
+| `decode_capture` | stage 2 | a capture | a decode step's warm-up run and graph capture, inside `decode` |
 | `finalize` | stage 3 | a batch | the token copy to the host, detokenizing |
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import logging
@@ -73,6 +76,41 @@ def profiler_active() -> bool:
     thread). Reads torch's module flag; never imports torch."""
     prof = sys.modules.get("torch.autograd.profiler")
     return bool(prof is not None and getattr(prof, "_is_profiler_enabled", False))
+
+
+# A CUDA graph launch and a `torch.profiler` session's set-up, start or
+# stop exclude each other (`guard_profiler`). On an H100 (torch 2.11, CUDA
+# 12.8) a graph launched on one thread while another stopped a profiler
+# deadlocked, the stopping thread holding the interpreter lock: at the first
+# or second stop of 80, replays on the default stream or on a stream of
+# their own alike; serialized, 80 of 80 stops ran through.
+GRAPH_LAUNCH_LOCK = threading.Lock()
+_GUARD_ONCE = threading.Lock()
+
+
+def guard_profiler() -> None:
+    """Make the three calls into the profiler's core that set a session up,
+    start and stop it (`torch.autograd.profiler._prepare_profiler`,
+    `_enable_profiler`, `_disable_profiler`, which every `torch.profiler`
+    session makes, whoever runs it) hold GRAPH_LAUNCH_LOCK; once a
+    process. Code that launches CUDA graphs calls it, and holds the lock
+    across each launch and capture."""
+    with _GUARD_ONCE:
+        import torch.autograd.profiler as ap
+
+        if getattr(ap, "_graph_launch_guarded", False):
+            return
+
+        def guarded(fn):
+            @functools.wraps(fn)
+            def call(*args, **kwargs):
+                with GRAPH_LAUNCH_LOCK:
+                    return fn(*args, **kwargs)
+            return call
+
+        for name in ("_prepare_profiler", "_enable_profiler", "_disable_profiler"):
+            setattr(ap, name, guarded(getattr(ap, name)))
+        ap._graph_launch_guarded = True
 
 
 class StageTimer:

@@ -1351,3 +1351,209 @@ def test_spans_and_kernels_share_one_clock_on_the_card(dev, tmp_path, over):
         assert not outside(moved, slack), (prof.clock_ok, outside(moved, slack)[:3], prefills)
         assert prof.idle_by_span["gaps"] > 0 and "decode" in prof.idle_by_span["by_span"], \
             prof.idle_by_span
+
+
+# ---------------------------------------------------------------------------
+# the decode step replayed from a CUDA graph (models/qwen2.py DecodeGraphs)
+# ---------------------------------------------------------------------------
+
+GRAPH_MNT = 6
+
+
+def _graph_params(dev, dtype):
+    """The tiny decoder with its matrices scaled by 8 (varied greedy
+    answers), in `dtype`."""
+    from rag_serving_system_torch.models.configs import QWEN2_TINY
+    from rag_serving_system_torch.models.weights import init_decoder_params
+
+    fp = init_decoder_params(QWEN2_TINY, seed=1, dtype=torch.float32, device=dev)
+    for key in ("qkv_w", "o_w", "gu_w", "down_w"):
+        fp["layers"][key] *= 8.0
+    fp["embed"] *= 8.0
+
+    def cast(tree):
+        return {k: cast(v) if isinstance(v, dict) else v.to(dtype) for k, v in tree.items()}
+    return cast(fp)
+
+
+def _graph_batch(dev, route, seed):
+    """(generate function, its positional inputs, its keywords): a packed
+    batch of 32 rows, or 3 rows over cached prefixes at a bucket of 4."""
+    from test_torch_decode_graphs import _left_padded, _pack
+
+    from rag_serving_system_torch.models import qwen2 as tq
+    from rag_serving_system_torch.models.configs import QWEN2_TINY
+
+    rng = np.random.default_rng(seed)
+    if route == "packed32":
+        lens = rng.integers(3, 25, 32).tolist()
+        ids, mask = _left_padded(seed, 32, 24, lens)
+        *packed, valid = _pack(ids, mask, 1024, cap=32)
+        return tq.generate_packed, [t.to(dev) for t in packed], dict(row_valid=valid.to(dev))
+    ids, mask = _left_padded(seed, 4, 8, [8, 5, 2, 1])
+    pl = 16
+    pids = torch.tensor(rng.integers(3, QWEN2_TINY.vocab_size, (4, pl)), dtype=torch.int32)
+    plen = torch.tensor([16, 9, 4, 0], dtype=torch.int32)
+    pmask = (torch.arange(pl)[None, :] < plen[:, None]).to(torch.int32)
+    return tq.generate, [ids.to(dev), mask.to(dev)], dict(
+        row_valid=torch.tensor([True, True, True, False], device=dev),
+        prefix_len=plen.to(dev), prefix_ids=(pids.to(dev), pmask.to(dev)))
+
+
+def _run_graph_batch(params, cfg, dtype, fn, args, kw, graphs=None, timer=None,
+                     eos_bias=0.0, budget=None):
+    """The tokens of one generate call and every logits tensor its loop
+    picked from (the prefill's first), through `pick_token`."""
+    from rag_serving_system_torch.models import qwen2 as tq
+
+    kw = dict(kw)
+    if "prefix_ids" in kw:
+        pids, pmask = kw.pop("prefix_ids")
+        kw["prefix_kv"] = tq.compute_prefix_kv(params, cfg, pids, pmask, dtype=dtype)
+    seen = []
+    real = tq.pick_token
+
+    def recorded(logits, *a, **k):
+        seen.append(logits.clone())
+        return real(logits, *a, **k)
+
+    with mock.patch.object(tq, "pick_token", recorded):
+        out = fn(params, cfg, *args, max_new_tokens=GRAPH_MNT, do_sample=False, dtype=dtype,
+                 row_budget=budget, eos_bias=eos_bias, timer=timer, graphs=graphs, **kw)
+    torch.cuda.synchronize()
+    return out, seen
+
+
+@pytest.mark.parametrize("route", ["packed32", "prefix_partial"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_replayed_decode_equals_the_eager_loop_on_the_card(dev, monkeypatch, dtype, route):
+    """Every step replayed from the captured graph: the greedy tokens and
+    every picked logit bit-equal to the eager loop's, in f32 (TF32 off) and
+    bf16, with a row stopped early through `eos_bias` (the stop id made the
+    runner-up of row 1's third pick, the bias its gap) and a row budget of 3."""
+    import dataclasses
+
+    from rag_serving_system_torch.models import qwen2 as tq
+    from rag_serving_system_torch.models.configs import QWEN2_TINY
+    from rag_serving_system_torch.utils.timing import StageTimer
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    params = _graph_params(dev, dtype)
+    fn, args, kw = _graph_batch(dev, route, 11)
+    _, seen = _run_graph_batch(params, QWEN2_TINY, dtype, fn, args, kw)
+    top = torch.topk(seen[2][1], 2)
+    stop = int(top.indices[1])
+    cfg = dataclasses.replace(QWEN2_TINY, eos_token_id=stop, eos_token_ids=(stop,))
+    bias = float(top.values[0] - top.values[1]) * 1.01 + 1e-4
+    rows = args[-1].shape[0]
+    budget = torch.full((rows,), GRAPH_MNT, dtype=torch.int32, device=dev)
+    budget[0] = 3
+    want, want_logits = _run_graph_batch(params, cfg, dtype, fn, args, kw, eos_bias=bias,
+                                         budget=budget)
+    timer, graphs = StageTimer(), tq.DecodeGraphs()
+    got, got_logits = _run_graph_batch(params, cfg, dtype, fn, args, kw, graphs=graphs,
+                                       timer=timer, eos_bias=bias, budget=budget)
+    assert torch.equal(got, want)
+    assert len(got_logits) == len(want_logits) > 2
+    for g, w in zip(got_logits, want_logits):
+        assert torch.equal(g, w)
+    assert timer.counts["decode_capture"] == 1
+    assert timer.counts["decode_replay"] == timer.counts["decode"] == len(got_logits) - 1
+    hit = (got == stop)
+    assert hit[1, :3].any()                           # row 1 stopped through the bias
+    assert (got[0, 3:] == cfg.pad_token_id).all()     # row 0 at its budget
+
+
+def test_second_batch_on_a_key_replays_the_same_graph_on_the_card(dev):
+    """A second packed batch of the key reuses the captured graph (one
+    capture) and the cache whose decode slots hold the first batch's K/V,
+    and its tokens equal its own eager run: stale slots stay masked."""
+    from rag_serving_system_torch.models import qwen2 as tq
+    from rag_serving_system_torch.models.configs import QWEN2_TINY
+    from rag_serving_system_torch.utils.timing import StageTimer
+
+    params = _graph_params(dev, torch.bfloat16)
+    timer, graphs = StageTimer(), tq.DecodeGraphs()
+    for seed in (21, 22):
+        fn, args, kw = _graph_batch(dev, "packed32", seed)
+        want, _ = _run_graph_batch(params, QWEN2_TINY, torch.bfloat16, fn, args, kw)
+        got, _ = _run_graph_batch(params, QWEN2_TINY, torch.bfloat16, fn, args, kw,
+                                  graphs=graphs, timer=timer)
+        assert torch.equal(got, want)
+    assert len(graphs.entries) == 1
+    assert timer.counts["decode_capture"] == 1
+    assert timer.counts["decode_replay"] == timer.counts["decode"] > 0
+
+
+def test_a_trace_around_replayed_loops_holds_their_kernels_on_the_card(dev, tmp_path):
+    """A `device_trace` around loops that replay their captured step holds
+    the graphs' kernels, a SiLU a layer a step besides the prefills', so a
+    trace reads graph work as busy; the tokens are the replayed loop's."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    from rag_serving_system_torch.models import qwen2 as tq
+    from rag_serving_system_torch.models.configs import QWEN2_TINY
+    from rag_serving_system_torch.utils import timing
+
+    params = _graph_params(dev, torch.bfloat16)
+    graphs = tq.DecodeGraphs()
+    fn, args, kw = _graph_batch(dev, "packed32", 31)
+    want, _ = _run_graph_batch(params, QWEN2_TINY, torch.bfloat16, fn, args, kw, graphs=graphs)
+    timer = timing.StageTimer()
+    with timing.device_trace(str(tmp_path), device=dev) as prof:
+        for _ in range(2):
+            got, _ = _run_graph_batch(params, QWEN2_TINY, torch.bfloat16, fn, args, kw,
+                                      graphs=graphs, timer=timer)
+            assert torch.equal(got, want)
+    steps = timer.counts["decode"]
+    assert steps > 0 and timer.counts["decode_replay"] == steps
+    assert "decode_capture" not in timer.counts
+    cuda = [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+    silu = sum(bool(re.search("silu", e.name(), re.I)) for e in cuda)
+    assert silu >= QWEN2_TINY.num_layers * (steps + 2), (silu, steps)
+
+
+def test_replays_beside_profiler_starts_and_stops_on_the_card(dev):
+    """Loops replaying on one thread while another starts and stops a
+    profiler, as the benchmark's trace does (its own synchronize, then
+    stop): every stop returns and every loop's tokens are the eager ones.
+    Unguarded, such a stop deadlocked against a graph launch on an H100."""
+    import threading
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_serving_system_torch.models import qwen2 as tq
+    from rag_serving_system_torch.models.configs import QWEN2_TINY
+    from rag_serving_system_torch.utils.timing import StageTimer
+
+    params = _graph_params(dev, torch.bfloat16)
+    fn, args, kw = _graph_batch(dev, "packed32", 41)
+    want, _ = _run_graph_batch(params, QWEN2_TINY, torch.bfloat16, fn, args, kw)
+    graphs, timer = tq.DecodeGraphs(), StageTimer()
+    stop, bad = threading.Event(), []
+
+    def serve():
+        while not stop.is_set():
+            got, _ = _run_graph_batch(params, QWEN2_TINY, torch.bfloat16, fn, args, kw,
+                                      graphs=graphs, timer=timer)
+            if not torch.equal(got, want):
+                bad.append(got)
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    try:
+        for _ in range(20):
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+            time.sleep(0.05)
+            torch.cuda.synchronize()
+            prof.stop()
+    finally:
+        stop.set()
+        th.join(timeout=60)
+    assert not th.is_alive() and not bad
+    assert timer.counts["decode_replay"] == timer.counts["decode"] > 20
