@@ -26,7 +26,9 @@ configuration's file are compared:
 A request that failed or never came back fails the check on its own, as
 does an answer that is not a sequence of token ids or is longer than its
 budget (the request's own `max_new_tokens`, or the service's). The weights
-and the corpus are made again from `weights.MODEL_SEED`. With `control`, the served tokens come from the program's own
+and the corpus are made again from `weights.MODEL_SEED`; the decoder's
+logits come from its architecture's module (`decoders/<model_type>.py`
+`reference`). With `control`, the served tokens come from the program's own
 lower-precision path (the configuration's `control.env`), and the encoder
 and the corpus are taken one step down in the reference itself.
 """
@@ -71,8 +73,10 @@ def pick_bucket(buckets: list, n: int) -> int:
 
 
 class Judge:
-    def __init__(self, cfg: dict, facts: dict, seed: int, device, away=None):
-        self.cfg, self.facts, self.away = cfg, facts, away
+    def __init__(self, cfg: dict, facts: dict, seed: int, device, decoder, away=None):
+        """`decoder`: the module of the configuration's decoder architecture
+        (`spec.Cell.decoder`)."""
+        self.cfg, self.facts, self.away, self.decoder = cfg, facts, away, decoder
         self.seed, self.device = seed, torch.device(device)
         enc, dec = cfg["encoder"], cfg["decoder"]
         tok = cfg["tokenizer"]
@@ -118,7 +122,7 @@ class Judge:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         enc_w = _float(weights.encoder(cfg["encoder"], weights.MODEL_SEED, dev))
-        dec_w = _float(weights.decoder(cfg["decoder"], weights.MODEL_SEED, dev))
+        dec_logits = self.decoder.reference(cfg["decoder"], weights.MODEL_SEED, dev)
         corp = cfg["corpus"]
         corpus = weights.corpus(int(corp["rows"]), int(corp["dim"]), weights.MODEL_SEED, dev,
                                  away=self.away)
@@ -173,7 +177,7 @@ class Judge:
             prompt = self.dec_tok.encode(ref.prompt_text(q, [docs[j % len(docs)] for j in ids[:k]]))
             seq = prompt + served
             at = list(range(len(prompt) - 1, len(seq) - (0 if len(served) < budget else 1)))
-            logits = ref.qwen_logits(dec_w, cfg["decoder"], seq, at, device=dev)
+            logits = dec_logits(seq, at)
             top = logits.max(dim=-1).values
             self.per_request["served"].append(len(served))
             worst = 0.0

@@ -9,7 +9,7 @@ from __future__ import annotations
 import math
 import re
 
-from perfbench import flops
+from perfbench import flops, spec
 from perfbench import reference as ref
 
 # B1 over a float32 corpus, B4 over an int8 one; each call is a partial
@@ -114,14 +114,17 @@ def packed_attn_roofline_pct(run):
 def model_flops_pct(run):
     """Model FLOPs of the requests answered in the window (untraced) over
     the window and the bf16 peak: e5 over the query's real tokens where the
-    query was new to the run (a query-cache miss), Qwen2.5 over the prompt
-    tokens the prefix cache did not serve (the window's hit share of each
-    prompt's cached prefix) and the generated tokens, with attention."""
+    query was new to the run (a query-cache miss), the decoder (its
+    architecture module's `flops`) over the prompt tokens the prefix cache
+    did not serve (the window's hit share of each prompt's cached prefix) and
+    the generated tokens, with attention."""
     lo, hi = run.t0, run.t1
     done = run.answered_in(lo, hi)
     if not done:
         return None
     cfg = run.config
+    cell = getattr(run, "cell", None)
+    dec = cell.decoder if cell is not None else spec.decoder_of(cfg["decoder"])
     tok = cfg["tokenizer"]
     enc_tok = ref.HashTokenizer(int(cfg["encoder"]["vocab_size"]), tok["bos_id"],
                                 tok["encoder_eos_id"], int(cfg["encoder"]["pad_token_id"]))
@@ -156,8 +159,7 @@ def model_flops_pct(run):
         start = int(round(hit_share * max(0, n_prefix)))
         n_tok += n_prompt - start
         n_served += served
-        total += flops.decoder_flops(cfg["decoder"], start, n_prompt + max(0, served - 1),
-                                     max(1, served))
+        total += dec.flops(cfg["decoder"], start, n_prompt + max(0, served - 1), max(1, served))
     run.diag["mfu"] = {"requests": n_req, "encoded": n_enc, "prompt_tokens": n_tok,
                        "served_tokens": n_served, "hit_share": hit_share, "flop": total,
                        "window_s": hi - lo, "answered_in_window": len(done)}

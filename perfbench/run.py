@@ -100,20 +100,26 @@ def _read_lines(proc, lines: list, ev: threading.Event) -> None:
     ev.set()
 
 
-def launch_counts(cfg: dict, snap_a: dict, snap_b: dict) -> dict:
+def launch_counts(cfg: dict, snap_a: dict, snap_b: dict, decoder=None) -> dict:
     """{kernel-name pattern: launches at least} that the program made between
     two snapshots: its own counts of B1/B4 and B2/B3 launches, and one
-    decoder pass (a SiLU a layer) for each generated batch but the first,
-    which may have begun before the earlier snapshot."""
+    decoder pass (the `pass_launches` of `decoder`, the module of the
+    configuration's decoder architecture: a SiLU a layer for Qwen2) for each
+    generated batch but the first, which may have begun before the earlier
+    snapshot."""
+    from perfbench import spec
+
+    decoder = decoder or spec.decoder_of(cfg["decoder"])
     la, lb = snap_a["launches"], snap_b["launches"]
     want = {pattern: lb[key] - la[key] for key, pattern in TRACED_KERNELS.items()}
     gen_a = snap_a["stages"].get("generate", (0.0, 0))[1]
     gen_b = snap_b["stages"].get("generate", (0.0, 0))[1]
-    want["silu"] = int(cfg["decoder"]["num_hidden_layers"]) * max(0, gen_b - gen_a - 1)
+    for pattern, n in decoder.pass_launches(cfg["decoder"]).items():
+        want[pattern] = want.get(pattern, 0) + n * max(0, gen_b - gen_a - 1)
     return want
 
 
-def trace_segment(sysm, cfg: dict, diag: dict):
+def trace_segment(sysm, cfg: dict, diag: dict, decoder=None):
     """A device trace of TRACE_SECONDS of the running load that holds every
     launch the program counted in it, on the first of TRACE_TRIES tries.
     Raises where none does: a trace that lost a thread's kernels would read
@@ -129,7 +135,7 @@ def trace_segment(sysm, cfg: dict, diag: dict):
         snap_b = sysm.snapshot()
         tracer.stop()
         tr = tracer.read()
-        lost = tr.lost(launch_counts(cfg, snap_a, snap_b))
+        lost = tr.lost(launch_counts(cfg, snap_a, snap_b, decoder))
         tries.append({"busy_s": tr.busy_s, "ops": tr.n_ops, "lost": lost})
         if not lost:
             diag["trace_tries"] = tries
@@ -149,7 +155,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
 
     os.makedirs(RUN_DIR, exist_ok=True)
     cfg, mix = cell.config, cell.mix
-    sysm = System(cfg, device, control=control)
+    sysm = System(cfg, device, cell.decoder, control=control)
     trace = trace and sysm.device.type == "cuda"
     if trace:
         from perfbench.trace import Tracer
@@ -192,7 +198,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         if trace:
             # after the window, so that the profiler slows no span or
             # counter the metrics read
-            tr, _, _ = trace_segment(sysm, cfg, diag)
+            tr, _, _ = trace_segment(sysm, cfg, diag, cell.decoder)
         gen.wait(timeout=load_s + GRACE_S + 180)
     except BaseException:
         sysm.stop()
@@ -216,7 +222,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     # the check
     docs = generator.contexts()
     limits = cfg["limits"]
-    judge = Judge(cfg, facts, seed, device, away=away)
+    judge = Judge(cfg, facts, seed, device, cell.decoder, away=away)
     sample = judge.sample(records, retrieved, docs, CHECK_REQUESTS)
     numbers = judge.check(sample, retrieved, embed_calls, docs, control=control)
     failed = sum(r["status"] != "ok" for r in win)

@@ -41,7 +41,7 @@ def main() -> None:
 
     cell = spec.cell(args.workload)
     os.makedirs(RUN_DIR, exist_ok=True)
-    sysm = System(cell.config, args.device)
+    sysm = System(cell.config, args.device, cell.decoder)
     url = sysm.start()
     for n, rate in enumerate(float(r) for r in args.rates.split(",")):
         mix = dict(cell.mix, rate_rps=rate)

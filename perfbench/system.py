@@ -5,11 +5,12 @@ benchmark's weights and corpus put in, and the spans and counters the
 metrics read.
 
 The weights and the corpus are those of `weights.MODEL_SEED`, whatever the
-run's seed. Spans are recorded here, around two calls into the engine, and
-cost a list append each: `_embed_queries` (the batch of query texts it encoded, and the
-pooled embeddings it returned, which the check compares) and
-`_stage_packed` (the prompt lengths and stream length of a packed prefill,
-which B3's roofline counts). Counters are read from the processor, the
+run's seed; the decoder's are drawn by its architecture's module
+(`decoders/<model_type>.py`). Spans are recorded here, around two calls into
+the engine, and cost a list append each: `_embed_queries` (the batch of query
+texts it encoded, and the pooled embeddings it returned, which the check
+compares) and `_stage_packed` (the prompt lengths and stream length of a
+packed prefill, which B3's roofline counts). Counters are read from the processor, the
 engine's stage timer, its caches and the kernels' launch counts at the
 window's edges.
 """
@@ -39,7 +40,9 @@ def set_env(env: dict) -> None:
 
 
 class System:
-    def __init__(self, cfg: dict, device: str, control: bool = False):
+    def __init__(self, cfg: dict, device: str, decoder, control: bool = False):
+        """`decoder`: the module of the configuration's decoder architecture
+        (`spec.Cell.decoder`)."""
         from rag_serving_system_torch.config import Settings
         from rag_serving_system_torch.main import build_processor
         from rag_serving_system_torch.ops.quant import quantize_decoder_params
@@ -67,11 +70,11 @@ class System:
         self.processor, self.engine, self.queue, _ = build_processor(
             self.settings, documents, emb)
         del emb
-        self._check_shapes(cfg)
+        self._check_shapes(cfg, decoder.ENGINE_KEYS)
         eng = self.engine
         eng.enc_params = enc
         del enc
-        dec = weights.decoder(cfg["decoder"], weights.MODEL_SEED, self.device)
+        dec = decoder.weights(cfg["decoder"], weights.MODEL_SEED, self.device)
         qw = self.settings.quant_weights
         eng.dec_params = (quantize_decoder_params(dec, bits=4 if qw == "int4" else 8)
                           if qw in ("int8", "int4") else dec)
@@ -83,20 +86,16 @@ class System:
         self._spans()
         self.server = None
 
-    def _check_shapes(self, cfg: dict) -> None:
-        """The engine serves the sizes the configuration's file states."""
+    def _check_shapes(self, cfg: dict, decoder_keys: dict) -> None:
+        """The engine serves the sizes the configuration's file states;
+        `decoder_keys` maps the decoder's keys to the engine's attributes."""
         e, d = self.engine.enc_cfg, self.engine.dec_cfg
         want = {"encoder": (e, {"vocab_size": "vocab_size", "hidden_size": "hidden_size",
                                 "num_hidden_layers": "num_layers", "num_attention_heads": "num_heads",
                                 "intermediate_size": "intermediate_size",
                                 "max_position_embeddings": "max_position_embeddings",
                                 "pad_token_id": "pad_token_id"}),
-                "decoder": (d, {"vocab_size": "vocab_size", "hidden_size": "hidden_size",
-                                "num_hidden_layers": "num_layers", "num_attention_heads": "num_heads",
-                                "num_key_value_heads": "num_kv_heads",
-                                "intermediate_size": "intermediate_size",
-                                "rms_norm_eps": "rms_norm_eps", "rope_theta": "rope_theta",
-                                "eos_token_id": "eos_token_id"})}
+                "decoder": (d, decoder_keys)}
         for part, (have, keys) in want.items():
             for ck, ak in keys.items():
                 if float(cfg[part][ck]) != float(getattr(have, ak)):
